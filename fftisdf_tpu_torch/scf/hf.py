@@ -1,0 +1,404 @@
+"""k-point Hartree-Fock (KRHF / KUHF) with DIIS on top of ISDF J/K.
+
+Counterpart of the host SCF loops of ``fftisdf_tpu/scf/hf.py``.  J/K
+come from the provider ``with_df`` (an :class:`~fftisdf_tpu_torch.isdf.
+kpoint.FFTISDF`) on its device; the one-electron setup runs on ``device``;
+the per-k algebra of the loop (generalised eigensolves, densities, DIIS)
+is small and runs on the host in complex128.  ``exxdiv=None`` throughout.
+
+Not ported yet: the exact plane-wave provider (``PWDF``), band structures,
+checkpoints, truncated kernels and the device-resident SCF loops of
+``scf/device.py``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from fftisdf_tpu_torch._shared import Logger
+from fftisdf_tpu_torch.basis.eval import make_evaluator
+from fftisdf_tpu_torch.scf import integrals
+from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
+                                        fixed_occupations,
+                                        smeared_occupations)
+from fftisdf_tpu_torch.utils.device import (free_memory_bytes,
+                                            resolve_device, to_numpy)
+
+
+class DIIS:
+    """ADIIS-stabilised Pulay DIIS over flattened (dm, fock, error) rows:
+    ADIIS coefficients while the commutator error exceeds
+    ``adiis_switch`` (and a density is stored), CDIIS after."""
+
+    def __init__(self, space=8, adiis_switch=1e-2):
+        self.space = space
+        self.adiis_switch = float(adiis_switch)
+        self.errs = []
+        self.focks = []
+        self.dms = []
+
+    def update(self, fock_flat, err_flat, dm_flat=None):
+        self.errs.append(np.asarray(err_flat, dtype=np.complex128))
+        self.focks.append(np.asarray(fock_flat, dtype=np.complex128))
+        self.dms.append(None if dm_flat is None
+                        else np.asarray(dm_flat, dtype=np.complex128))
+        if len(self.errs) > self.space:
+            self.errs.pop(0)
+            self.focks.pop(0)
+            self.dms.pop(0)
+        n = len(self.errs)
+        err_norm = float(np.abs(self.errs[-1]).max())
+        valid = np.array([d is not None for d in self.dms])
+        if (self.adiis_switch > 0 and self.dms[-1] is not None
+                and valid.sum() >= 2 and err_norm > self.adiis_switch):
+            dms = np.stack([np.zeros_like(self.focks[0]) if d is None else d
+                            for d in self.dms])
+            c = adiis_coeffs(dms, np.asarray(self.focks), n - 1, valid)
+            return np.einsum("i,il->l", c, np.asarray(self.focks))
+        return diis_extrapolate(np.asarray(self.errs), np.asarray(self.focks),
+                                np.ones(n, dtype=bool))
+
+
+def _eigh_gen(f, s, cutoff=1e-10):
+    """F C = S C e by canonical orthogonalisation (overlap eigenvalues below
+    ``cutoff * max`` are dropped)."""
+    se, sv = np.linalg.eigh(s)
+    keep = se > cutoff * se.max()
+    x = sv[:, keep] / np.sqrt(se[keep])[None, :]
+    e, c = np.linalg.eigh(x.conj().T @ f @ x)
+    return e, x @ c
+
+
+def _build_dm(mo_coeff, mo_occ):
+    return np.einsum("kmi,ki,kni->kmn", mo_coeff, mo_occ, mo_coeff.conj())
+
+
+def _setup_one_electron(cell, kpts, device, log):
+    """(s1e, h1e) on the host, from AO tensors built on ``device`` in
+    k-chunks sized from its free memory: the full-grid AO tensor of one k
+    plus the kinetic FFT planes and the projector values cost about
+    ngrid (3 nao + nproj) 16 bytes."""
+    coords = cell.gen_uniform_grids()
+    ng = coords.shape[0]
+    nao = cell.nao_nr()
+    nproj = len(integrals._projector_shells(cell)[1])
+    nk = len(kpts)
+    per_k = ng * (3 * nao + nproj) * 16
+    kchunk = int(max(1, min(nk, 0.5 * free_memory_bytes(device) // per_k)))
+    coords_t = torch.as_tensor(coords, dtype=torch.float64, device=device)
+    vgrid = integrals.vloc_on_grid(cell, device=device)
+    s_parts, h_parts = [], []
+    for k0 in range(0, nk, kchunk):
+        kp = kpts[k0:k0 + kchunk]
+        ao = make_evaluator(cell, kpts=kp, device=device)(coords_t)
+        s_parts.append(to_numpy(integrals.get_ovlp(cell, ao)))
+        h = (integrals.get_kinetic(cell, ao, kp, coords)
+             + integrals.get_vloc(cell, ao, vgrid)
+             + integrals.get_vnl(cell, ao, kp))
+        h_parts.append(to_numpy(h))
+        del ao, h
+    log.debug("setup: %d k-chunk(s) of %d", -(-nk // kchunk), kchunk)
+    return np.concatenate(s_parts), np.concatenate(h_parts)
+
+
+class KRHF:
+    """Restricted HF over a uniform k-mesh (fixed or smeared occupations).
+
+    ``with_df`` is the J/K provider (required); ``device`` is where the
+    one-electron integrals are built."""
+
+    def __init__(self, cell, kpts, with_df, max_cycle=50, conv_tol=1e-8,
+                 diis_space=8, adiis_switch=1e-2, exxdiv=None,
+                 level_shift=0.0, damp=0.0, smearing=0.0,
+                 smearing_method="fermi", ovlp_cutoff=1e-10, verbose=3, *,
+                 device):
+        if with_df is None:
+            raise NotImplementedError("the exact plane-wave J/K provider "
+                                      "(PWDF) is not ported: pass with_df")
+        if exxdiv is not None:
+            raise NotImplementedError(f"exxdiv={exxdiv!r}")
+        self.device = resolve_device(device)
+        self.cell = cell
+        self.kpts = np.asarray(kpts)
+        self.with_df = with_df
+        self.max_cycle = max_cycle
+        self.conv_tol = conv_tol
+        self.diis_space = diis_space
+        self.adiis_switch = adiis_switch
+        self.exxdiv = exxdiv
+        self.level_shift = level_shift
+        self.damp = damp
+        self.smearing = smearing
+        self.smearing_method = smearing_method
+        self.ovlp_cutoff = ovlp_cutoff
+        self._log = Logger(verbose)
+        self.e_tot = None
+        self.e_free = None
+        self.entropy = 0.0
+        self.mu = None
+        self.mo_energy = self.mo_coeff = self.mo_occ = None
+        self.dm = None
+        self.converged = False
+        self.cycles = 0
+        self.cycle_seconds = []
+        self.s1e, self.h1e = _setup_one_electron(cell, self.kpts,
+                                                 self.device, self._log)
+        self.e_nuc = integrals.ewald(cell)
+
+    @property
+    def nocc(self):
+        ne = self.cell.nelectron
+        if ne % 2:
+            raise ValueError("odd electron count: use KUHF")
+        return ne // 2
+
+    def get_init_guess(self):
+        """Aufbau occupation of the hcore eigenvectors."""
+        es, cs = [], []
+        for k in range(self.h1e.shape[0]):
+            e, c = _eigh_gen(self.h1e[k], self.s1e[k],
+                             cutoff=self.ovlp_cutoff)
+            es.append(e)
+            cs.append(c)
+        occs = fixed_occupations(es, self.nocc, factor=2.0)
+        return _build_dm(np.asarray(cs), np.asarray(occs))
+
+    def _jk(self, dm):
+        vj, vk = self.with_df.get_jk(dm, exxdiv=self.exxdiv)
+        return to_numpy(vj), to_numpy(vk)
+
+    def get_fock(self, dm):
+        vj, vk = self._jk(dm)
+        return self.h1e + vj - 0.5 * vk, vj, vk
+
+    def _occupations(self, es):
+        if self.smearing > 0:
+            occs, self.mu, self.entropy = smeared_occupations(
+                es, self.nocc, self.smearing, self.smearing_method,
+                factor=2.0)
+            return occs
+        self.entropy = 0.0
+        return fixed_occupations(es, self.nocc, factor=2.0)
+
+    def energy_elec(self, dm, vj, vk):
+        nk = len(self.kpts)
+        e1 = np.einsum("kmn,knm->", dm, self.h1e).real / nk
+        e2 = 0.5 * np.einsum("kmn,knm->", dm, vj - 0.5 * vk).real / nk
+        return e1 + e2
+
+    def kernel(self, dm0=None):
+        log = self._log
+        dm = self.get_init_guess() if dm0 is None else np.asarray(dm0)
+        diis = DIIS(self.diis_space, adiis_switch=self.adiis_switch)
+        nk = self.h1e.shape[0]
+        e_last = 0.0
+        it = -1
+        self.cycle_seconds = []
+        for it in range(self.max_cycle):
+            t0 = time.perf_counter()
+            fock, vj, vk = self.get_fock(dm)
+            e_tot = self.energy_elec(dm, vj, vk) + self.e_nuc
+            err = np.stack([
+                fock[k] @ dm[k] @ self.s1e[k] - self.s1e[k] @ dm[k] @ fock[k]
+                for k in range(nk)])
+            fock = diis.update(fock.reshape(-1), err.reshape(-1),
+                               dm_flat=dm.reshape(-1)).reshape(fock.shape)
+            if self.level_shift:
+                fock = fock + self.level_shift * np.stack([
+                    self.s1e[k] - self.s1e[k] @ dm[k] @ self.s1e[k] / 2.0
+                    for k in range(nk)])
+            es, cs = [], []
+            for k in range(nk):
+                e, c = _eigh_gen(fock[k], self.s1e[k],
+                                 cutoff=self.ovlp_cutoff)
+                es.append(e)
+                cs.append(c)
+            occs = self._occupations(es)
+            dm_new = _build_dm(np.asarray(cs), np.asarray(occs))
+            if self.damp:
+                dm_new = (1.0 - self.damp) * dm_new + self.damp * dm
+            ddm = abs(dm_new - dm).max()
+            de = abs(e_tot - e_last)
+            self.cycle_seconds.append(time.perf_counter() - t0)
+            log.info("SCF it %2d  E = %.10f  dE = %.2e  |ddm| = %.2e (%.2fs)",
+                     it, e_tot, de, ddm, self.cycle_seconds[-1])
+            dm = dm_new
+            e_last = e_tot
+            if de < self.conv_tol and ddm < np.sqrt(self.conv_tol):
+                self.converged = True
+                break
+        self.cycles = it + 1
+        fock, vj, vk = self.get_fock(dm)
+        self.e_tot = self.energy_elec(dm, vj, vk) + self.e_nuc
+        self.e_free = self.e_tot - self.smearing * self.entropy / nk
+        self.mo_energy = np.asarray(es)
+        self.mo_coeff = np.asarray(cs)
+        self.mo_occ = np.asarray(occs)
+        self.dm = dm
+        return self.e_tot
+
+
+class KUHF(KRHF):
+    """Unrestricted HF: dm has a spin axis (2, nk, nao, nao).
+
+    J couples to the total density, K acts per spin.  ``init_spin``
+    {atom_index: +1/-1} biases on-site levels per spin in the initial guess
+    and in the Fock of the first ``bias_cycles`` cycles (AFM symmetry
+    breaking); a caller-provided ``dm0`` skips the bias."""
+
+    def __init__(self, cell, kpts, with_df, init_spin=None, spin_bias=0.5,
+                 bias_cycles=4, **kw):
+        self.init_spin = dict(init_spin or {})
+        self.spin_bias = spin_bias
+        self.bias_cycles = bias_cycles
+        super().__init__(cell, kpts, with_df, **kw)
+
+    def _atom_blocks(self):
+        off = 0
+        blocks = []
+        for sym, _ in self.cell.atom:
+            nfa = sum(sh.nfunc for sh in self.cell._basis[sym])
+            blocks.append((off, nfa))
+            off += nfa
+        return blocks
+
+    def _apply_bias(self, fock):
+        """Spin-dependent on-site level shifts (AFM symmetry breaking)."""
+        if not self.init_spin:
+            return fock
+        fock = fock.copy()
+        for ia, (off, nfa) in enumerate(self._atom_blocks()):
+            bias = self.init_spin.get(ia, 0.0)
+            if bias == 0.0:
+                continue
+            blk = self.s1e[:, off:off + nfa, off:off + nfa]
+            for s, sgn in ((0, -1.0), (1, +1.0)):
+                fock[s, :, off:off + nfa, off:off + nfa] += (
+                    sgn * self.spin_bias * bias * blk)
+        return fock
+
+    @property
+    def nocc_ab(self):
+        ne = self.cell.nelectron
+        na = (ne + self.cell.spin) // 2
+        return na, ne - na
+
+    def get_init_guess(self):
+        nk = self.h1e.shape[0]
+        dms = []
+        for ispin, nocc in enumerate(self.nocc_ab):
+            h = self.h1e.copy()
+            if self.init_spin:
+                sgn = -1.0 if ispin == 0 else 1.0
+                for ia, (off, nfa) in enumerate(self._atom_blocks()):
+                    bias = self.init_spin.get(ia, 0.0)
+                    h[:, off:off + nfa, off:off + nfa] += (
+                        sgn * self.spin_bias * bias
+                        * self.s1e[:, off:off + nfa, off:off + nfa])
+            es, cs = [], []
+            for k in range(nk):
+                e, c = _eigh_gen(h[k], self.s1e[k], cutoff=self.ovlp_cutoff)
+                es.append(e)
+                cs.append(c)
+            occs = fixed_occupations(es, nocc, factor=1.0)
+            dms.append(_build_dm(np.asarray(cs), np.asarray(occs)))
+        return np.asarray(dms)
+
+    def get_fock(self, dm):
+        vj, vk = self._jk(dm)                  # (2, nk, nao, nao)
+        vj_tot = vj[0] + vj[1]
+        fock = np.stack([self.h1e + vj_tot - vk[0],
+                         self.h1e + vj_tot - vk[1]])
+        return fock, vj, vk
+
+    def energy_elec(self, dm, vj, vk):
+        nk = len(self.kpts)
+        vj_tot = vj[0] + vj[1]
+        e1 = np.einsum("skmn,knm->", dm, self.h1e).real / nk
+        ecoul = 0.5 * np.einsum("skmn,knm->", dm, vj_tot).real / nk
+        ex = -0.5 * np.einsum("skmn,sknm->", dm, vk).real / nk
+        return e1 + ecoul + ex
+
+    def kernel(self, dm0=None):
+        log = self._log
+        dm = self.get_init_guess() if dm0 is None else np.asarray(dm0)
+        # the bias steers the guess into the requested magnetic order; a
+        # provided density already encodes its basin
+        bias_cycles = self.bias_cycles if dm0 is None else 0
+        diis = DIIS(self.diis_space, adiis_switch=self.adiis_switch)
+        nk = self.h1e.shape[0]
+        na, nb = self.nocc_ab
+        e_last = 0.0
+        it = -1
+        self.cycle_seconds = []
+        for it in range(self.max_cycle):
+            t0 = time.perf_counter()
+            fock, vj, vk = self.get_fock(dm)
+            e_tot = self.energy_elec(dm, vj, vk) + self.e_nuc
+            err = np.stack([
+                fock[s, k] @ dm[s, k] @ self.s1e[k]
+                - self.s1e[k] @ dm[s, k] @ fock[s, k]
+                for s in range(2) for k in range(nk)])
+            # CDIIS only while the bias drives the Fock: ADIIS over biased
+            # iterates averages the broken-symmetry seed away
+            dm_for_adiis = (dm.reshape(-1)
+                            if (not self.init_spin or it >= bias_cycles)
+                            else None)
+            fock = diis.update(fock.reshape(-1), err.reshape(-1),
+                               dm_flat=dm_for_adiis).reshape(fock.shape)
+            if it < bias_cycles:
+                fock = self._apply_bias(fock)
+            if self.level_shift:
+                fock = fock + self.level_shift * np.stack([
+                    np.stack([self.s1e[k]
+                              - self.s1e[k] @ dm[sp, k] @ self.s1e[k]
+                              for k in range(nk)])
+                    for sp in range(2)])
+            es, cs, occs = [], [], []
+            dm_new = np.empty_like(dm)
+            self.entropy = 0.0
+            mus = []
+            for s, nocc in enumerate((na, nb)):
+                es_s, cs_s = [], []
+                for k in range(nk):
+                    e, c = _eigh_gen(fock[s, k], self.s1e[k],
+                                     cutoff=self.ovlp_cutoff)
+                    es_s.append(e)
+                    cs_s.append(c)
+                if self.smearing > 0:
+                    occ_s, mu_s, ent_s = smeared_occupations(
+                        es_s, nocc, self.smearing, self.smearing_method,
+                        factor=1.0)
+                    self.entropy += ent_s
+                    mus.append(mu_s)
+                else:
+                    occ_s = fixed_occupations(es_s, nocc, factor=1.0)
+                dm_new[s] = _build_dm(np.asarray(cs_s), np.asarray(occ_s))
+                es.append(es_s)
+                cs.append(cs_s)
+                occs.append(occ_s)
+            if mus:
+                self.mu = tuple(mus)
+            if self.damp:
+                dm_new = (1.0 - self.damp) * dm_new + self.damp * dm
+            ddm = abs(dm_new - dm).max()
+            de = abs(e_tot - e_last)
+            self.cycle_seconds.append(time.perf_counter() - t0)
+            log.info("UHF it %2d  E = %.10f  dE = %.2e  |ddm| = %.2e (%.2fs)",
+                     it, e_tot, de, ddm, self.cycle_seconds[-1])
+            dm = dm_new
+            e_last = e_tot
+            if de < self.conv_tol and ddm < np.sqrt(self.conv_tol):
+                self.converged = True
+                break
+        self.cycles = it + 1
+        fock, vj, vk = self.get_fock(dm)
+        self.e_tot = self.energy_elec(dm, vj, vk) + self.e_nuc
+        self.e_free = self.e_tot - self.smearing * self.entropy / nk
+        self.mo_energy = np.asarray(es)
+        self.mo_coeff = np.asarray(cs)
+        self.mo_occ = np.asarray(occs)
+        self.dm = dm
+        return self.e_tot

@@ -1,0 +1,76 @@
+"""Device and dtype policy of the port.
+
+Every constructor and entry point takes an explicit ``device``; nothing
+picks one silently.  :func:`resolve_device` turns the argument into a
+``torch.device`` and raises when CUDA is asked for and absent.
+
+The port computes in float64 / complex128 on every device.  The JAX package
+needs full-precision matmuls (it pins 'highest' everywhere, and its README
+records that a lower matmul precision NaNs the fitting solve); on Hopper
+the FP64 tensor-core rate is of the same order as the full-FP32 rate, so
+f64 costs mainly memory.  The f32 regime of the JAX package is not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+REAL = torch.float64
+COMPLEX = torch.complex128
+
+
+def _forbid_tf32():
+    # TF32 keeps ~10 mantissa bits.  The pair grams, the ridge Cholesky and
+    # the J/K sandwiches are ill-conditioned (cond ~ 1/rcond = 1e10), so a
+    # TF32 product anywhere would dominate the fit error.  PyTorch already
+    # defaults matmuls to full FP32, but cuDNN defaults to TF32; set both so
+    # the policy is stated rather than inherited.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device`` ('cpu', 'cuda', 'cuda:0', a device).
+
+    Raises ``RuntimeError`` when a CUDA device is requested and CUDA is not
+    available: the port never falls back to the CPU on its own."""
+    if device is None:
+        raise ValueError("device is required ('cpu' or 'cuda')")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is "
+                               "not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    _forbid_tf32()
+    return dev
+
+
+def free_memory_bytes(device: torch.device) -> int:
+    """Bytes the device can still allocate: ``cudaMemGetInfo`` plus what the
+    caching allocator holds but does not use on CUDA, the available
+    physical memory on the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        reserved = torch.cuda.memory_reserved(device)
+        allocated = torch.cuda.memory_allocated(device)
+        return int(free + reserved - allocated)
+    import os
+
+    return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+
+
+def as_tensor(x, device, dtype):
+    """numpy array / tensor -> tensor of ``dtype`` on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def to_numpy(x):
+    """Tensor (any device) -> numpy array; numpy passes through."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().resolve_conj().resolve_neg().numpy()
+    return x

@@ -1,0 +1,65 @@
+"""Tests of the PyTorch port that need a CUDA device (``gpu`` marker).
+
+They import no JAX, so they run on the GPU machine:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu -q
+
+Without a card each test skips with the reason.  K1 (the selection pair
+gram) is held against its plain PyTorch version at the JAX package's
+Pallas test shapes and the main-path shape: 2e-5 * scale in complex64,
+1e-12 * scale in complex128.
+"""
+import numpy as np
+import pytest
+import torch
+
+from fftisdf_tpu_torch.ops import pair_gram
+
+SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
+          (64, 3375, 26)]
+TOL = {np.complex64: 2e-5, np.complex128: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_kernel_matches_plain(cuda, shape, square, dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    x = torch.from_numpy(x.astype(dtype)).to(cuda)
+    before = pair_gram.pair_gram_sq.launches
+    out = pair_gram.pair_gram_sq(x, square=square)
+    torch.cuda.synchronize()
+    assert pair_gram.pair_gram_sq.launches == before + 1
+    ref = pair_gram.pair_gram_sq_reference(x, square=square)
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.gpu
+def test_k1_selection_on_cuda_matches_cpu(cuda):
+    """Selection on the card (through K1) picks the CPU's points."""
+    from fftisdf_tpu_torch._shared import structure
+    from fftisdf_tpu_torch.isdf.kpoint import select_interpolation_points
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([1, 1, 2])
+    before = pair_gram.pair_gram_sq.launches
+    x_g, m_g, r_g, _ = select_interpolation_points(cell, kpts, (9, 9, 9),
+                                                   6.0, device=cuda)
+    assert pair_gram.pair_gram_sq.launches == before + 1
+    x_c, m_c, r_c, _ = select_interpolation_points(cell, kpts, (9, 9, 9),
+                                                   6.0, device="cpu")
+    assert r_g == r_c
+    np.testing.assert_array_equal(m_g, m_c)
+    np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), atol=1e-12)

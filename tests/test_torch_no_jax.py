@@ -1,0 +1,58 @@
+"""The PyTorch port runs end to end in a process where JAX cannot be
+imported (the GPU machine has no JAX): cell -> build -> get_jk -> two SCF
+cycles on a small He2 cell, on the CPU, with a ``sys.meta_path`` finder
+that refuses ``jax``; ``jax`` must never reach ``sys.modules``."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = textwrap.dedent("""
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax.") \\
+                    or name == "jaxlib" or name.startswith("jaxlib."):
+                raise ModuleNotFoundError(f"blocked: {name}")
+            return None
+
+    for mod in [m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib")]:
+        del sys.modules[mod]
+    sys.meta_path.insert(0, BlockJax())
+
+    import numpy as np
+    from fftisdf_tpu_torch._shared import Cell
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRHF
+
+    cell = Cell(a=np.diag([5.0, 5.0, 7.0]),
+                atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
+                basis="sto-3g", pseudo=None, mesh=np.array([11, 11, 15]),
+                unit="bohr", precision=1e-10).build()
+    kpts = cell.get_kpts([1, 1, 2])
+    df = FFTISDF(cell, kpts, c0=8.0, m0=(7, 7, 9), verbose=0,
+                 device="cpu").build()
+    vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
+    assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
+    mf = KRHF(cell, kpts, df, max_cycle=2, verbose=0, device="cpu")
+    e = mf.kernel()
+    assert np.isfinite(e) and mf.cycles == 2
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib"))
+    assert not bad, bad
+    print("OK", e)
+""")
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith("OK")
