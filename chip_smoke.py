@@ -6,11 +6,19 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 0. environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the build of kernel K1 from ops/csrc/pair_gram.cu;
-1. K1 against its plain PyTorch version on the card: the JAX package's
-   Pallas test shapes in complex64 and complex128, and the main-path shape
-   (64, 3375, 26) in complex128, both ``square`` values; CUDA-event times of
-   the kernel and the plain version at the main-path shape;
+   versions, and the builds, started together, of kernel K1 from
+   ops/csrc/pair_gram.cu (nvcc) and of the port's native lattice engine
+   from native/csrc/lattice_engine.cpp (g++), with their build times and
+   K1's ptxas registers, shared memory and spills;
+1. K1 against its plain PyTorch version on the card, in complex64 and
+   complex128, both ``square`` values: the JAX package's Pallas test
+   shapes, ragged shapes, the main-path shape (64, 3375, 26), the
+   production width (64, 3375, 62) and a non-contiguous X.  At the two
+   large shapes (complex128, ``square=False``), CUDA-event times of the
+   kernel, the plain version and one PyTorch library call of the same
+   function (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on the (ng, K)
+   matrix, made before the timing), in turns; the flop rate of the work
+   done (the upper triangle) and the share of the bound;
 2. device against host: diamond gth-szv ke 50, kmesh 1x1x2, c0 10, built and
    solved by KUHF on the GPU and on the CPU (J/K to 1e-10 relative, e_tot to
    1e-9 Ha);
@@ -22,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    selection is run as well and its energy printed beside;
 4. the slice: NiO AFM gth-szv ke 100, kmesh 4x4x4, c0 40, m0 15^3, KUHF with
    the AFM bias and Fermi smearing 5e-3, max_cycle 80, conv_tol 1e-8, on the
-   GPU, through the public entry points (FFTISDF.build, get_jk, KUHF.kernel);
-   K1's launch count is reset right before it and must be >= 1 after.
+   GPU, through the public entry points (FFTISDF.build, get_jk, KUHF.kernel)
+   on their default device; K1's launch count is reset right before it and
+   must be >= 1 after; nip must be 1040 and e_tot within 1e-6 Ha of the
+   recorded slice energy.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,9 +51,16 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
-K1_SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40)]
-MAIN_SHAPE = (64, 3375, 26)
+K1_SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
+             (1, 1, 1), (3, 129, 7), (5, 257, 3)]
+MAIN_SHAPE = (64, 3375, 26)       # NiO gth-szv, 4x4x4, m0 15^3
+PROD_SHAPE = (64, 3375, 62)       # the production basis width
+# H100 SXM data sheet, dense: FP64 tensor cores, HBM3
+PEAK_FP64_TC = 67e12
+PEAK_BYTES = 3.35e12
 AFM = {0: +1.0, 1: -1.0}
+SLICE_NIP = 1040
+SLICE_E_TOT = -360.3364120006     # the slice's converged energy on the H100
 
 
 def log(*args):
@@ -59,6 +76,8 @@ def require_cuda():
 
 
 def phase0_environment(torch):
+    from concurrent.futures import ThreadPoolExecutor
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -67,19 +86,34 @@ def phase0_environment(torch):
     log(f"[0] torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"python {sys.version.split()[0]}  devices "
         f"{torch.cuda.device_count()}")
+    from fftisdf_tpu_torch import native
     from fftisdf_tpu_torch.ops.pair_gram import LIBRARY
 
-    t0 = time.perf_counter()
-    LIBRARY.load()
-    log(f"[0] K1 build {LIBRARY.build_seconds:.2f}s (load "
-        f"{time.perf_counter() - t0:.2f}s) -> {LIBRARY.path().name}")
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    # one compiler process per source, all started together
+    with ThreadPoolExecutor(2) as pool:
+        k1 = pool.submit(timed, LIBRARY.load)
+        eng = pool.submit(timed, native.load)
+        _, k1_s = k1.result()
+        lib, eng_s = eng.result()
+    log(f"[0] K1 build {LIBRARY.build_seconds:.2f}s (load {k1_s:.2f}s) -> "
+        f"{LIBRARY.path().name}")
     for line in LIBRARY.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling")):
             log(f"[0] ptxas: {line.strip()}")
+    if lib is None:
+        raise RuntimeError("the native lattice engine did not build")
+    log(f"[0] native lattice engine build+load {eng_s:.2f}s -> "
+        f"{native.LIB_PATH.name}")
     return smi
 
 
-def _cuda_ms(torch, fn, reps):
+def cuda_ms(torch, fn, reps):
+    """CUDA-event milliseconds per call of ``fn``, after 3 warm-up calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -93,49 +127,100 @@ def _cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def k1_bound(shape):
+    """(flops, bound_ms, bound_by) of K1's complex128 work at ``shape``:
+    the upper triangle, 4 ng (ng + 1) K flops on the FP64 tensor cores,
+    against X read once and the (ng, ng) result written once."""
+    nk, ng, nao = shape
+    kk = nk * nao
+    flops = 4.0 * ng * (ng + 1) * kk
+    nbytes = 16.0 * ng * kk + 8.0 * ng * ng
+    t_ops, t_bytes = flops / PEAK_FP64_TC, nbytes / PEAK_BYTES
+    return flops, 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _k1_check(torch, x, label):
+    from fftisdf_tpu_torch.ops.pair_gram import (pair_gram_sq,
+                                                 pair_gram_sq_reference)
+
+    dname = str(x.dtype).split(".")[-1]
+    errs = []
+    for square in (False, True):
+        out = pair_gram_sq(x, square=square)
+        ref = pair_gram_sq_reference(x, square=square)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= K1_TOL[dname] * scale
+        log(f"[1] K1 {label} {dname} square={square}: max_abs_err "
+            f"{err:.3e} (scale {scale:.3e}, tol {K1_TOL[dname]:.0e})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K1 disagrees with its plain version at "
+                               f"{label} {dname} square={square}")
+        errs.append(err)
+    return errs[0]
+
+
 def phase1_kernel(torch):
     import numpy as np
     from fftisdf_tpu_torch.ops.pair_gram import (pair_gram_sq,
                                                  pair_gram_sq_reference)
 
     rng = np.random.default_rng(0)
-    cases = [(s, d) for s in K1_SHAPES for d in ("complex64", "complex128")]
-    cases += [(MAIN_SHAPE, "complex128")]
-    main_err = 0.0
-    for shape, dname in cases:
+
+    def sample(shape, dname="complex128"):
         x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-        xt = torch.from_numpy(x.astype(dname)).cuda()
-        for square in (False, True):
-            out = pair_gram_sq(xt, square=square)
-            ref = pair_gram_sq_reference(xt, square=square)
-            torch.cuda.synchronize()
-            scale = float(ref.abs().max())
-            err = float((out - ref).abs().max())
-            ok = bool(torch.isfinite(out).all()) and err <= K1_TOL[dname] \
-                * scale
-            log(f"[1] K1 {shape} {dname} square={square}: max_abs_err "
-                f"{err:.3e} (scale {scale:.3e}, tol {K1_TOL[dname]:.0e})"
-                f" {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"K1 disagrees with its plain version at "
-                                   f"{shape} {dname} square={square}")
-            if shape == MAIN_SHAPE and not square:
+        return torch.from_numpy(x.astype(dname)).cuda()
+
+    main_err = None
+    for shape in (*K1_SHAPES, MAIN_SHAPE, PROD_SHAPE):
+        for dname in ("complex64", "complex128"):
+            err = _k1_check(torch, sample(shape, dname), shape)
+            if shape == MAIN_SHAPE and dname == "complex128":
                 main_err = err
-    x = rng.standard_normal(MAIN_SHAPE) + 1j * rng.standard_normal(
-        MAIN_SHAPE)
-    xt = torch.from_numpy(x).cuda()
-    ms = _cuda_ms(torch, lambda: pair_gram_sq(xt, square=False), 20)
-    plain_ms = _cuda_ms(torch, lambda: pair_gram_sq_reference(
-        xt, square=False), 20)
-    ng, kk = MAIN_SHAPE[1], MAIN_SHAPE[0] * MAIN_SHAPE[2]
-    tflops = 8.0 * ng * ng * kk / (ms * 1e-3) / 1e12
-    log(f"[1] K1 main-path shape {MAIN_SHAPE} complex128: kernel "
-        f"{ms:.3f} ms ({tflops:.2f} TFLOP/s f64), plain {plain_ms:.3f} ms")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms}
+    for dname in ("complex64", "complex128"):
+        x = sample((8, 300, 11), dname)[:, 7:250]
+        _k1_check(torch, x, "(8, 300, 11)[:, 7:250] (non-contiguous)")
+
+    res = {}
+    for key, shape in (("main", MAIN_SHAPE), ("production", PROD_SHAPE)):
+        nk, ng, nao = shape
+        x = sample(shape)
+        xt = x.permute(1, 0, 2).reshape(ng, nk * nao).contiguous()
+        fns = {
+            "kernel": lambda: pair_gram_sq(x, square=False),
+            "plain": lambda: pair_gram_sq_reference(x, square=False),
+            "library": lambda: (xt.conj() @ xt.mT).abs().square() / nk**2,
+        }
+        times = {name: [] for name in fns}
+        for name in ("kernel", "plain", "library", "library", "plain",
+                     "kernel"):
+            times[name].append(cuda_ms(torch, fns[name], 10))
+        ms = {name: sum(v) / len(v) for name, v in times.items()}
+        flops, bound_ms, bound_by = k1_bound(shape)
+        log(f"[1] K1 {shape} complex128: kernel {ms['kernel']:.3f} ms "
+            f"({flops / (ms['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s f64 of "
+            f"triangle work done, {bound_ms / ms['kernel']:.1%} of the "
+            f"{bound_ms:.3f} ms bound, {bound_by}), plain "
+            f"{ms['plain']:.3f} ms, library {ms['library']:.3f} ms; each "
+            "the mean of two turns: "
+            + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+                        for n, v in times.items()))
+        res[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                        library_ms=ms["library"], bound_ms=bound_ms,
+                        bound_by=bound_by)
+    main, prod = res["main"], res["production"]
+    return {"max_abs_err": main_err, **main,
+            "production_ms": prod["ms"],
+            "production_plain_ms": prod["plain_ms"],
+            "production_library_ms": prod["library_ms"],
+            "production_bound_ms": prod["bound_ms"]}
 
 
 def _diamond():
-    from fftisdf_tpu_torch._shared import structure
+    from fftisdf_tpu_torch.lattice import structure
 
     cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
                              pseudo="gth-pade", ke_cutoff=50.0)
@@ -174,7 +259,7 @@ def phase2_device_vs_host(torch):
 
 
 def _nio(ke, kmesh):
-    from fftisdf_tpu_torch._shared import structure
+    from fftisdf_tpu_torch.lattice import structure
 
     cell = structure.to_cell(*structure.nio_afm(), basis="gth-szv",
                              pseudo="gth-pade", ke_cutoff=ke,
@@ -216,7 +301,6 @@ def phase3_anchor(torch):
 
 
 def phase4_slice(torch, kmesh):
-    import numpy as np
     from fftisdf_tpu_torch.isdf import FFTISDF
     from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
     from fftisdf_tpu_torch.scf import KUHF
@@ -228,8 +312,8 @@ def phase4_slice(torch, kmesh):
         f"{len(kpts)}")
     torch.cuda.reset_peak_memory_stats()
     pair_gram_sq.launches = 0
-    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=3,
-                 device="cuda").build()
+    # no device argument: the entry points run on the card by default
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=3).build()
     launches = pair_gram_sq.launches
     t = df.timings
     log(f"[4] build: nip {df.nip}, selection {t['select_s']:.3f}s, metric "
@@ -238,9 +322,12 @@ def phase4_slice(torch, kmesh):
         f"{df.nchunks} chunk(s); K1 launches {launches}")
     if launches < 1:
         raise RuntimeError("the slice's selection did not launch K1")
+    if df.device.type != "cuda" or df.nip != SLICE_NIP:
+        raise RuntimeError(f"the slice built on {df.device} with nip "
+                           f"{df.nip}, not on cuda with {SLICE_NIP}")
     t0 = time.perf_counter()
     mf = KUHF(cell, kpts, df, verbose=3, conv_tol=1e-8, max_cycle=80,
-              init_spin=AFM, smearing=5e-3, device="cuda")
+              init_spin=AFM, smearing=5e-3)
     log(f"[4] one-electron setup {time.perf_counter() - t0:.2f}s")
     dm0 = mf.get_init_guess()
     df.get_jk(dm0)
@@ -258,8 +345,11 @@ def phase4_slice(torch, kmesh):
         f"{scf_s:.2f}s ({scf_s / max(mf.cycles, 1):.3f} s/cycle); e_tot "
         f"{e:.10f} conv {mf.converged}; Ni moments {mom[0]:+.4f} "
         f"{mom[1]:+.4f}; peak memory {peak / 1e9:.2f} GB")
-    if not (mf.converged and np.isfinite(e)):
-        raise RuntimeError("the slice's KUHF did not converge")
+    log(f"[4] e_tot - recorded {SLICE_E_TOT:.10f}: {e - SLICE_E_TOT:+.2e} "
+        "Ha")
+    if not (mf.converged and abs(e - SLICE_E_TOT) <= 1e-6):
+        raise RuntimeError("the slice's KUHF did not converge to the "
+                           "recorded energy")
     if not (vj.shape == (2, len(kpts), cell.nao_nr(), cell.nao_nr())
             and bool(torch.isfinite(vk).all())):
         raise RuntimeError("J/K of the slice are malformed")
@@ -291,9 +381,7 @@ def main():
         "source": "fftisdf_tpu_torch/ops/csrc/pair_gram.cu",
         "replaces": "fftisdf_tpu/ops/pallas_gram.py:110",
         "launches": launches,
-        "max_abs_err": k1.get("max_abs_err"),
-        "ms": k1.get("ms"),
-        "plain_ms": k1.get("plain_ms"),
+        **k1,
     }]}
     log(smi)
     log(json.dumps(kernels))

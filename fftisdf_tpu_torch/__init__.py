@@ -8,8 +8,10 @@ one-electron integrals and the KRHF/KUHF SCF (``scf``).  The one TPU kernel
 of the JAX package, the selection pair gram, is a hand-written CUDA kernel
 (``ops/csrc/pair_gram.cu``).
 
-Computation is float64/complex128 on every device; every entry point takes
-an explicit ``device``.  The numpy layer (cells, k-points, basis tables,
-the native lattice engine) is shared with the JAX package through
-:mod:`fftisdf_tpu_torch._shared`, which never imports JAX itself.
+Computation is float64/complex128 on every device.  Every entry point runs
+on the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+The host-side numpy layer (cells, k-points, basis tables, the native
+lattice engine) is the port's own copy of the JAX package's, under the same
+module names (``lattice``, ``basis.data``, ``basis.gto``, ``native``,
+``utils.logging``); the port imports nothing of the JAX package.
 """

@@ -19,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fftisdf_tpu_torch._shared import (native, normalized_coeffs,
-                                       real_solid_harmonics, shell_rcut)
+from fftisdf_tpu_torch import native
+from fftisdf_tpu_torch.basis.gto import (normalized_coeffs,
+                                         real_solid_harmonics, shell_rcut)
 from fftisdf_tpu_torch.utils.device import COMPLEX, REAL, resolve_device
 
 # per-block budget of the chi / distance temporaries
@@ -211,7 +212,8 @@ class Evaluator:
         return out
 
 
-def make_evaluator(cell, kpts=None, precision=None, shells=None, *, device):
+def make_evaluator(cell, kpts=None, precision=None, shells=None, *,
+                   device="cuda"):
     """Bloch AO evaluator ``fn(coords) -> (nk, ng, nao)`` on ``device``.
 
     ``kpts=None`` gives the gamma-point real evaluator (``(ng, nao)``);
@@ -221,7 +223,7 @@ def make_evaluator(cell, kpts=None, precision=None, shells=None, *, device):
                      precision, shells, resolve_device(device))
 
 
-def eval_ao_kpts(cell, coords, kpts, precision=None, *, device):
+def eval_ao_kpts(cell, coords, kpts, precision=None, *, device="cuda"):
     """One-shot evaluation: (nk, ng, nao) complex Bloch AOs."""
     return make_evaluator(cell, kpts=kpts, precision=precision,
                           device=device)(coords)

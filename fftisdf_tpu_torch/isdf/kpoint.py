@@ -26,9 +26,9 @@ import warnings
 import numpy as np
 import torch
 
-from fftisdf_tpu_torch._shared import Logger, kpt_mod
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.isdf import jk as jk_mod
+from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
 from fftisdf_tpu_torch.linalg.coulomb import get_coulG_batched
 from fftisdf_tpu_torch.linalg.fft import fft3
 from fftisdf_tpu_torch.linalg.pivoted_cholesky import pivoted_cholesky
@@ -38,6 +38,7 @@ from fftisdf_tpu_torch.linalg.solvers import (finish_apply, half_apply_rows,
 from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
 from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, as_tensor,
                                             free_memory_bytes, resolve_device)
+from fftisdf_tpu_torch.utils.logging import Logger
 
 
 class PoolSaturationWarning(UserWarning):
@@ -61,7 +62,7 @@ def _sync(device):
 
 # ---------------------------------------------------------------- selection
 def select_interpolation_points(cell, kpts, m0, c0, select_tol=None,
-                                log=None, *, device):
+                                log=None, *, device="cuda"):
     """Pivoted-Cholesky selection of interpolation points on the parent
     mesh ``m0`` (an explicit 3-tuple).
 
@@ -222,12 +223,12 @@ class FFTISDF:
       select_tol     pivot threshold (None: n eps max diag)
       max_memory_gb  byte budget of the metric pass; None sizes it from
                      the device's free memory
-      device         'cpu' or 'cuda' (required)
+      device         'cuda' (the default) or 'cpu'
     """
 
     def __init__(self, cell, kpts, c0=20.0, m0=(15, 15, 15), solver="ridge",
                  rcond=1e-10, refine=0, select_tol=None, max_memory_gb=None,
-                 verbose=3, *, device):
+                 verbose=3, *, device="cuda"):
         if isinstance(m0, str) or m0 is None:
             raise NotImplementedError("m0='auto' (auto-densified selection "
                                       "mesh): pass an explicit m0")
@@ -254,7 +255,8 @@ class FFTISDF:
         self.nchunks = 0
 
     @classmethod
-    def from_numpy(cls, cell, kpts, x_k, wq, mask, m0, *, device, **kw):
+    def from_numpy(cls, cell, kpts, x_k, wq, mask, m0, *, device="cuda",
+                   **kw):
         """A built object from host arrays (e.g. the JAX package's state)."""
         df = cls(cell, kpts, m0=m0, device=device, **kw)
         df.x_k = as_tensor(x_k, df.device, COMPLEX)
@@ -484,7 +486,7 @@ class FFTISDF:
         serialization.save_isdf_state(path, self)
 
     @classmethod
-    def load(cls, path, cell, kpts, *, device):
+    def load(cls, path, cell, kpts, *, device="cuda"):
         from fftisdf_tpu_torch.utils import serialization
 
         return serialization.load_isdf_state(path, cell, kpts, device=device)

@@ -2,35 +2,57 @@
 //
 // Replaces fftisdf_tpu/ops/pallas_gram.py::pair_gram_sq (Pallas kernel
 // body _gram_kernel).  With X (nk, ng, nao) complex and its (k, ao) axes
-// flattened into K = nk * nao columns, split into real planes xr, xi
-// (ng, K) row-major:
+// flattened into K = nk * nao contraction columns c = k * nao + m:
 //
 //   G[g,h]   = sum_c conj(X[g,c]) X[h,c]
 //            = (xr_g.xr_h + xi_g.xi_h) + i (xr_g.xi_h - xi_g.xr_h)
 //   out[g,h] = ((Re G)^2 + (Im G)^2) * inv_nk^2,   squared once more if
 //              `square`.
 //
-// Bound: 8 ng^2 K flops against (2 ng K + ng^2) * sizeof(T) bytes.  At the
-// main-path shape (ng 3375, K 1664, double) that is 1.5e11 flops over
-// 1.8e8 bytes, ~800 flops per byte: compute-bound on FP64.  The design
-// therefore keeps operands in shared memory and accumulates in registers:
+// Bound.  The result is symmetric (|G[h,g]| = |conj(G[g,h])|), so only the
+// upper triangle is computed: 4 ng (ng + 1) K flops against 16 ng K bytes
+// read and 8 ng^2 written.  At the main-path shape (ng 3375, K 1664,
+// complex128) that is 7.6e10 flops over 1.8e8 bytes: compute-bound, 1.13 ms
+// on the FP64 tensor cores of an H100 SXM (67 TFLOP/s), against 0.054 ms
+// for the bytes.  Without tensor cores the ceiling is the 34 TFLOP/s DFMA
+// rate, 2.2 ms, which the first design (SIMT DFMA) could not pass.
 //
-// - one block per BM x BN output tile of the upper triangle (the result is
-//   symmetric: |G[h,g]| = |conj(G[g,h])|), which halves the work; an
-//   off-diagonal tile is also stored mirrored;
-// - each block loops over K in BK-wide chunks of the Re and Im planes of
-//   its row tile and its column tile, staged transposed in shared memory
-//   (the TPU kernel carried the K sum across grid steps in VMEM scratch;
-//   here the K loop lives inside the block);
-// - each of the 16 x 16 threads keeps a TM x TN micro-tile of the Re and Im
-//   partial sums in registers, with rows ty + 16 i and columns tx + 16 j so
-//   that a warp reads consecutive shared-memory words;
-// - the epilogue takes the modulus (and the optional extra square) and
-//   stores the real result with the ragged edge masked.
+// complex128 design (c128::pair_gram_z_kernel):
+// - DMMA: the four real products of the complex gram,
+//     Re += Ar Br^T + Ai Bi^T,   Im += Ar Bi^T + (-Ai) Br^T,
+//   each an f64 mma.sync (wgmma has no f64 type).  The sign of -Ai is
+//   folded into a negated copy of the A fragment; the 3-multiply form is
+//   not used, as it changes the roundoff of a quantity whose near-ties
+//   decide pivots.  The MMA depth, the stage depth and the ring length are
+//   the build's PAIR_GRAM_Z_{KSTEP,BK,STAGES} (default m16n8k4, BK 16,
+//   3 stages: the fastest of tools/k1_configs.py's candidates on the
+//   H100);
+// - one block per 64 x 64 tile of the upper triangle, diagonal tiles
+//   included; 4 warps, each a 32 x 32 sub-tile (2 x 4 MMA tiles, Re and Im
+//   sums: 128 registers of accumulators a thread).  2 blocks share an SM:
+//   their 255-register threads fill the register file, and their
+//   3 x 32 KB rings fit its shared memory;
+// - X is read in place through its strides: each thread keeps the
+//   (k-point, AO) pair of its contraction column and advances it by BK per
+//   stage, so no permuted copy or real/imag planes are made.  Rows past ng
+//   and columns past K are zero-filled by the copy itself.  The loader's
+//   row loop stays rolled: unrolled, its hoisted row addresses took the
+//   registers the fragments need, and the kernel spilled;
+// - a STAGES-deep ring of BM x BK complex tiles in dynamic shared memory,
+//   filled by cp.async (16 B, one complex128 each), so the next stages'
+//   loads overlap this stage's MMAs.  The 16-B chunk of (row r, column c)
+//   sits at r * BK + (c ^ ((r & 1) << 2)): the (re, im) fragment loads of a
+//   quarter warp (rows r, r + 1 by 4 columns) hit 8 distinct bank groups;
+// - the epilogue takes the modulus (and the optional extra square) into a
+//   padded shared tile and writes it twice, row-wise and, for an
+//   off-diagonal tile, transposed to the mirrored position: both stores are
+//   coalesced, and the padded pitch keeps the transposed reads free of bank
+//   conflicts.
 //
-// float accumulates with plain FP32 FMA (never TF32: the Pallas kernel pins
-// HIGHEST precision); double uses DFMA.  Tensor cores (DMMA) and a
-// multi-stage cp.async/TMA pipeline are left for later work.
+// complex64 (c64::pair_gram_f32_kernel) keeps the SIMT design: BK-wide
+// chunks of the Re and Im planes staged transposed in shared memory, 4 x 4
+// register micro-tiles, plain FP32 FMA (never TF32: the Pallas kernel pins
+// HIGHEST precision).
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream and returns cudaGetLastError() after the launch.
@@ -38,6 +60,290 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// ------------------------------------------------------------ complex128
+
+namespace c128 {
+
+constexpr int BM = 64;                 // square output tile
+constexpr int WARPS_N = 2;
+constexpr int THREADS = 128;           // 2 x 2 warps
+constexpr int WM = 32;                 // warp sub-tile
+constexpr int WN = 32;
+constexpr int MI = WM / 16;            // m16 MMA tiles per warp
+constexpr int NI = WN / 8;             // n8 MMA tiles per warp
+constexpr int EPI_LD = BM + 1;         // epilogue pitch, doubles
+
+// the 16-B chunk of (row r, contraction column c) in a BM x BK stage tile
+template <int BK>
+__device__ __forceinline__ int swz(int r, int c) {
+  static_assert(BK % 8 == 0, "the swizzle pairs 4-column halves of 8");
+  return r * BK + (c ^ ((r & 1) << 2));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;        // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D += A B for one m16n8kKSTEP f64 tile.  Fragments (g = lane / 4,
+// t = lane % 4): a[2 s + h] = A[g + 8 h][4 s + t], b[s] = B[4 s + t][g],
+// d[i] = D[g + 8 (i / 2)][2 t + i % 2].
+template <int KSTEP>
+struct Dmma;
+
+template <>
+struct Dmma<4> {
+  static __device__ __forceinline__ void run(double (&d)[4],
+                                             const double (&a)[2],
+                                             const double (&b)[1]) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  }
+};
+
+template <>
+struct Dmma<8> {
+  static __device__ __forceinline__ void run(double (&d)[4],
+                                             const double (&a)[4],
+                                             const double (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+          "d"(b[1]));
+  }
+};
+
+template <>
+struct Dmma<16> {
+  static __device__ __forceinline__ void run(double (&d)[4],
+                                             const double (&a)[8],
+                                             const double (&b)[4]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
+        "{%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
+          "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
+          "d"(b[2]), "d"(b[3]));
+  }
+};
+
+template <int BK, int STAGES>
+constexpr int smem_bytes() {
+  return STAGES * 2 * BM * BK * 16 > BM * EPI_LD * 8
+             ? STAGES * 2 * BM * BK * 16
+             : BM * EPI_LD * 8;
+}
+
+// x: (nk, ng, nao) complex128 with element strides sk, sg, sm; out: (ng, ng)
+template <int KSTEP, int BK, int STAGES>
+__global__ void __launch_bounds__(THREADS, 2)
+pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
+                   int nk, int ng, int nao, double* __restrict__ out,
+                   double inv_nk2, int square) {
+  extern __shared__ __align__(16) double2 smem[];
+
+  // upper-triangle tile (ti, tj), ti <= tj, of the linear block index
+  const int nt = (ng + BM - 1) / BM;
+  int rem = blockIdx.x;
+  int ti = 0;
+  while (rem >= nt - ti) {
+    rem -= nt - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const long row0 = static_cast<long>(ti) * BM;
+  const long col0 = static_cast<long>(tj) * BM;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (warp / WARPS_N) * WM;
+  const int wc = (warp % WARPS_N) * WN;
+
+  // loader: column lj of every stage, rows lr + LROWS i of both tiles;
+  // (kq, mq) is the k-point and AO of the column the next stage loads.
+  // The row loop is kept rolled: unrolled, its 16 hoisted row addresses
+  // cost the registers the MMA fragments need.
+  constexpr int LROWS = THREADS / BK;
+  static_assert(THREADS % BK == 0 && BM % LROWS == 0 && LROWS % 2 == 0,
+                "loader tiling (an even row step keeps the swizzle parity)");
+  const int lj = tid % BK;
+  const int lr = tid / BK;
+  const double2* xa = x + (row0 + lr) * sg;
+  const double2* xb = x + (col0 + lr) * sg;
+  const long step = LROWS * sg;
+  const int va = ng - static_cast<int>(row0) - lr;   // rows left in A, B
+  const int vb = ng - static_cast<int>(col0) - lr;
+  int kq = lj / nao;
+  int mq = lj - kq * nao;
+  auto load_stage = [&](int slot) {
+    double2* as = smem + slot * 2 * BM * BK + swz<BK>(lr, lj);
+    double2* bs = as + BM * BK;
+    const bool cin = kq < nk;
+    const long coff = static_cast<long>(kq) * sk + static_cast<long>(mq) * sm;
+    const double2* pa = xa + coff;
+    const double2* pb = xb + coff;
+#pragma unroll 1
+    for (int i = 0; i < BM / LROWS; ++i) {
+      const bool ain = cin && LROWS * i < va;
+      const bool bin = cin && LROWS * i < vb;
+      cp_async16(as + i * LROWS * BK, ain ? pa : x, ain);
+      cp_async16(bs + i * LROWS * BK, bin ? pb : x, bin);
+      pa += step;
+      pb += step;
+    }
+    mq += BK;
+    while (mq >= nao) {
+      mq -= nao;
+      ++kq;
+    }
+  };
+
+  double acc_re[MI][NI][4];
+  double acc_im[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_re[i][j][e] = 0.0;
+        acc_im[i][j][e] = 0.0;
+      }
+
+  const int ktiles = (nk * nao + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_stage(s);
+    cp_async_commit();
+  }
+
+  constexpr int NS = KSTEP / 4;   // 4-column fragment steps per MMA
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    // the slot refilled here was consumed in iteration kt - 1, which every
+    // warp has finished at the barrier above
+    if (kt + STAGES - 1 < ktiles) load_stage((kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const double2* as = smem + (kt % STAGES) * 2 * BM * BK;
+    const double2* bs = as + BM * BK;
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += KSTEP) {
+      double ar[MI][2 * NS], ai[MI][2 * NS], nai[MI][2 * NS];
+      double br[NI][NS], bi[NI][NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int c = k0 + 4 * s + t;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const double2 v = as[swz<BK>(wr + 16 * i + g + 8 * h, c)];
+            ar[i][2 * s + h] = v.x;
+            ai[i][2 * s + h] = v.y;
+            nai[i][2 * s + h] = -v.y;   // the sign of the Ai Br product
+          }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const double2 v = bs[swz<BK>(wc + 8 * j + g, c)];
+          br[j][s] = v.x;
+          bi[j][s] = v.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          Dmma<KSTEP>::run(acc_re[i][j], ar[i], br[j]);
+          Dmma<KSTEP>::run(acc_re[i][j], ai[i], bi[j]);
+          Dmma<KSTEP>::run(acc_im[i][j], ar[i], bi[j]);
+          Dmma<KSTEP>::run(acc_im[i][j], nai[i], br[j]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: modulus into the shared tile, then row-wise and mirrored
+  // coalesced stores
+  double* tile = reinterpret_cast<double*>(smem);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double re = acc_re[i][j][e];
+        const double im = acc_im[i][j][e];
+        double v = (re * re + im * im) * inv_nk2;
+        if (square) v = v * v;
+        tile[(wr + 16 * i + g + 8 * (e >> 1)) * EPI_LD + wc + 8 * j + 2 * t
+             + (e & 1)] = v;
+      }
+  __syncthreads();
+  for (int e = tid; e < BM * BM; e += THREADS) {
+    const int r = e / BM;
+    const int c = e % BM;
+    if (row0 + r < ng && col0 + c < ng)
+      out[(row0 + r) * ng + col0 + c] = tile[r * EPI_LD + c];
+  }
+  if (ti != tj) {
+    for (int e = tid; e < BM * BM; e += THREADS) {
+      const int c = e / BM;
+      const int r = e % BM;
+      if (row0 + r < ng && col0 + c < ng)
+        out[(col0 + c) * ng + row0 + r] = tile[r * EPI_LD + c];
+    }
+  }
+}
+
+template <int KSTEP, int BK, int STAGES>
+int launch(const void* x, long sk, long sg, long sm, int nk, int ng,
+           int nao, double* out, double inv_nk, int square, void* stream) {
+  auto kernel = pair_gram_z_kernel<KSTEP, BK, STAGES>;
+  constexpr int smem = smem_bytes<BK, STAGES>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long nt = (ng + BM - 1) / BM;
+  kernel<<<static_cast<unsigned>(nt * (nt + 1) / 2), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double2*>(x), sk, sg, sm, nk, ng, nao, out,
+      inv_nk * inv_nk, square);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace c128
+
+// ------------------------------------------------------------- complex64
+
+namespace c64 {
 
 constexpr int BM = 64;
 constexpr int BN = 64;
@@ -47,19 +353,18 @@ constexpr int TY = 16;
 constexpr int TM = BM / TY;   // 4
 constexpr int TN = BN / TX;   // 4
 
-template <typename T>
+// xr, xi: (ng, kk) row-major real planes
 __global__ void __launch_bounds__(TX * TY)
-pair_gram_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                 T* __restrict__ out, int ng, int kk, T inv_nk2,
-                 int square) {
+pair_gram_f32_kernel(const float* __restrict__ xr,
+                     const float* __restrict__ xi, float* __restrict__ out,
+                     int ng, int kk, float inv_nk2, int square) {
   // +1 column of padding: the transposed stores of the staging loop hit
   // distinct banks
-  __shared__ T a_r[BK][BM + 1];
-  __shared__ T a_i[BK][BM + 1];
-  __shared__ T b_r[BK][BN + 1];
-  __shared__ T b_i[BK][BN + 1];
+  __shared__ float a_r[BK][BM + 1];
+  __shared__ float a_i[BK][BM + 1];
+  __shared__ float b_r[BK][BN + 1];
+  __shared__ float b_i[BK][BN + 1];
 
-  // upper-triangle tile (ti, tj), ti <= tj, of the linear block index
   const int nt = (ng + BM - 1) / BM;
   int rem = blockIdx.x;
   int ti = 0;
@@ -75,14 +380,14 @@ pair_gram_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const long row0 = static_cast<long>(ti) * BM;
   const long col0 = static_cast<long>(tj) * BN;
 
-  T acc_r[TM][TN];
-  T acc_i[TM][TN];
+  float acc_r[TM][TN];
+  float acc_i[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      acc_r[i][j] = T(0);
-      acc_i[i][j] = T(0);
+      acc_r[i][j] = 0.0f;
+      acc_i[i][j] = 0.0f;
     }
   }
 
@@ -93,41 +398,41 @@ pair_gram_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 #pragma unroll
     for (int e = tid; e < BM * BK; e += TX * TY) {
       const int r = e / BK;
-      const int c = e % BK;
+      const int cc = e % BK;
       const long gr = row0 + r;
       const long gc = col0 + r;
-      const int kc = k0 + c;
+      const int kc = k0 + cc;
       const bool kin = kc < kk;
       const bool rin = kin && gr < ng;
       const bool cin = kin && gc < ng;
-      a_r[c][r] = rin ? xr[gr * kk + kc] : T(0);
-      a_i[c][r] = rin ? xi[gr * kk + kc] : T(0);
-      b_r[c][r] = cin ? xr[gc * kk + kc] : T(0);
-      b_i[c][r] = cin ? xi[gc * kk + kc] : T(0);
+      a_r[cc][r] = rin ? xr[gr * kk + kc] : 0.0f;
+      a_i[cc][r] = rin ? xi[gr * kk + kc] : 0.0f;
+      b_r[cc][r] = cin ? xr[gc * kk + kc] : 0.0f;
+      b_i[cc][r] = cin ? xi[gc * kk + kc] : 0.0f;
     }
     __syncthreads();
 
 #pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      T ar[TM], ai[TM], br[TN], bi[TN];
+    for (int cc = 0; cc < BK; ++cc) {
+      float ar[TM], ai[TM], br[TN], bi[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        ar[i] = a_r[c][ty + TY * i];
-        ai[i] = a_i[c][ty + TY * i];
+        ar[i] = a_r[cc][ty + TY * i];
+        ai[i] = a_i[cc][ty + TY * i];
       }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        br[j] = b_r[c][tx + TX * j];
-        bi[j] = b_i[c][tx + TX * j];
+        br[j] = b_r[cc][tx + TX * j];
+        bi[j] = b_i[cc][tx + TX * j];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_r[i][j] = fma(ar[i], br[j], acc_r[i][j]);
-          acc_r[i][j] = fma(ai[i], bi[j], acc_r[i][j]);
-          acc_i[i][j] = fma(ar[i], bi[j], acc_i[i][j]);
-          acc_i[i][j] = fma(-ai[i], br[j], acc_i[i][j]);
+          acc_r[i][j] = fmaf(ar[i], br[j], acc_r[i][j]);
+          acc_r[i][j] = fmaf(ai[i], bi[j], acc_r[i][j]);
+          acc_i[i][j] = fmaf(ar[i], bi[j], acc_i[i][j]);
+          acc_i[i][j] = fmaf(-ai[i], br[j], acc_i[i][j]);
         }
       }
     }
@@ -136,44 +441,54 @@ pair_gram_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const long g = row0 + ty + TY * i;
-    if (g >= ng) continue;
+    const long gr = row0 + ty + TY * i;
+    if (gr >= ng) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const long h = col0 + tx + TX * j;
       if (h >= ng) continue;
-      T v = (acc_r[i][j] * acc_r[i][j] + acc_i[i][j] * acc_i[i][j])
-            * inv_nk2;
+      float v = (acc_r[i][j] * acc_r[i][j] + acc_i[i][j] * acc_i[i][j])
+                * inv_nk2;
       if (square) v = v * v;
-      out[g * ng + h] = v;
-      if (ti != tj) out[h * ng + g] = v;
+      out[gr * ng + h] = v;
+      if (ti != tj) out[h * ng + gr] = v;
     }
   }
 }
 
-template <typename T>
-int launch(const T* xr, const T* xi, T* out, int ng, int kk, T inv_nk,
-           int square, void* stream) {
-  static_assert(BM == BN, "square tiles: the triangle map assumes them");
-  const long nt = (ng + BM - 1) / BM;
-  const dim3 grid(static_cast<unsigned>(nt * (nt + 1) / 2));
-  const dim3 block(TX * TY);
-  pair_gram_kernel<T><<<grid, block, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, out, ng, kk, inv_nk * inv_nk, square);
-  return static_cast<int>(cudaGetLastError());
-}
+}  // namespace c64
 
 }  // namespace
 
-extern "C" int pair_gram_sq_f64(const double* xr, const double* xi,
-                                double* out, int ng, int kk, double inv_nk,
-                                int square, void* stream) {
-  return launch<double>(xr, xi, out, ng, kk, inv_nk, square, stream);
+// MMA depth (4, 8 or 16), contraction columns per stage (a multiple of 8)
+// and stages of the complex128 kernel; tools/k1_configs.py builds others
+#ifndef PAIR_GRAM_Z_KSTEP
+#define PAIR_GRAM_Z_KSTEP 4
+#endif
+#ifndef PAIR_GRAM_Z_BK
+#define PAIR_GRAM_Z_BK 16
+#endif
+#ifndef PAIR_GRAM_Z_STAGES
+#define PAIR_GRAM_Z_STAGES 3
+#endif
+
+// x: (nk, ng, nao) complex128, element strides sk, sg, sm, 16-byte aligned
+extern "C" int pair_gram_sq_z(const void* x, long sk, long sg, long sm,
+                              int nk, int ng, int nao, double* out,
+                              double inv_nk, int square, void* stream) {
+  return c128::launch<PAIR_GRAM_Z_KSTEP, PAIR_GRAM_Z_BK, PAIR_GRAM_Z_STAGES>(
+      x, sk, sg, sm, nk, ng, nao, out, inv_nk, square, stream);
 }
 
+// xr, xi: (ng, kk) row-major float planes
 extern "C" int pair_gram_sq_f32(const float* xr, const float* xi,
                                 float* out, int ng, int kk, float inv_nk,
                                 int square, void* stream) {
-  return launch<float>(xr, xi, out, ng, kk, inv_nk, square, stream);
+  static_assert(c64::BM == c64::BN, "square tiles: the triangle map");
+  const long nt = (ng + c64::BM - 1) / c64::BM;
+  c64::pair_gram_f32_kernel<<<static_cast<unsigned>(nt * (nt + 1) / 2),
+                              c64::TX * c64::TY, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, out, ng, kk, inv_nk * inv_nk, square);
+  return static_cast<int>(cudaGetLastError());
 }

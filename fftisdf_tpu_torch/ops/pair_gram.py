@@ -9,19 +9,29 @@ Pallas kernel).  For X (nk, ng, nao) complex,
 (``csrc/pair_gram.cu``, built at first use by :mod:`._build`) for a CUDA
 tensor and takes the plain version, :func:`pair_gram_sq_reference`, for a
 CPU tensor.  It never falls back from the kernel to the plain version.
-``pair_gram_sq.launches`` counts kernel launches.
+``pair_gram_sq.launches`` counts kernel launches.  complex128 runs on the
+FP64 tensor cores and reads X in place; complex64 runs on FP32 FMA from
+contiguous real/imag planes.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_double, c_float, c_int, c_int64, c_void_p
 
 import torch
 
 from fftisdf_tpu_torch.ops._build import KernelLibrary
 
 LIBRARY = KernelLibrary("pair_gram")
-_ENTRY = {torch.complex128: ("pair_gram_sq_f64", ctypes.c_double),
-          torch.complex64: ("pair_gram_sq_f32", ctypes.c_float)}
+# entry point and argument types: complex128 reads X in place through its
+# strides, complex64 takes contiguous real/imag planes
+_ENTRY = {
+    torch.complex128: ("pair_gram_sq_z", [
+        c_void_p, c_int64, c_int64, c_int64, c_int, c_int, c_int, c_void_p,
+        c_double, c_int, c_void_p]),
+    torch.complex64: ("pair_gram_sq_f32", [
+        c_void_p, c_void_p, c_void_p, c_int, c_int, c_float, c_int,
+        c_void_p]),
+}
 
 
 def pair_gram_sq_reference(x, square=True):
@@ -34,21 +44,59 @@ def pair_gram_sq_reference(x, square=True):
     return out * out if square else out
 
 
-def _entry_point(dtype):
-    name, ctype = _ENTRY[dtype]
-    fn = getattr(LIBRARY.load(), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctype, ctypes.c_int,
-                   ctypes.c_void_p]
+def _entry_point(dtype, library):
+    name, argtypes = _ENTRY[dtype]
+    fn = getattr(library.load(), name)
+    fn.restype = c_int
+    fn.argtypes = argtypes
     return fn
+
+
+def launch(x, square, library=LIBRARY):
+    """One launch of ``library``'s kernel on a CUDA (nk, ng, nao) complex
+    tensor; not counted in ``pair_gram_sq.launches`` (tools/k1_configs.py
+    times other builds of the source through it).  Returns the (ng, ng)
+    result, or None for an empty grid, which launches nothing."""
+    nk, ng, nao = x.shape
+    kk = nk * nao
+    if ng * max(ng, kk) >= 2**31:
+        raise ValueError(f"pair_gram_sq: shape {tuple(x.shape)} exceeds the "
+                         "kernel's 32-bit extents")
+    if ng == 0 or kk == 0:
+        return None
+    out = torch.empty((ng, ng), dtype=x.real.dtype, device=x.device)
+    fn = _entry_point(x.dtype, library)
+    if x.dtype == torch.complex128:
+        # read in place through the strides; a conjugate view carries a
+        # flag, not conjugated data
+        x = x.resolve_conj()
+        if x.data_ptr() % 16:
+            raise ValueError("pair_gram_sq: complex128 input must be "
+                             "16-byte aligned")
+        args = (x.data_ptr(), *x.stride(), nk, ng, nao, out.data_ptr(),
+                1.0 / nk, int(bool(square)))
+    else:
+        # (k, ao) flattened into the contraction axis; contiguous planes
+        xt = x.permute(1, 0, 2).reshape(ng, kk)
+        xr = xt.real.contiguous()
+        xi = xt.imag.contiguous()
+        args = (xr.data_ptr(), xi.data_ptr(), out.data_ptr(), ng, kk,
+                1.0 / nk, int(bool(square)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"pair_gram_sq kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out
 
 
 def pair_gram_sq(x, square=True):
     """x4[g,h] = (|sum_k conj(X_k) X_k^T|^2 / nk^2)^(2 if square else 1).
 
-    ``x``: (nk, ng, nao) or (ng, nao) complex64/complex128.  Returns the
-    real (ng, ng) result of the matching precision on ``x``'s device."""
+    ``x``: (nk, ng, nao) or (ng, nao) complex64/complex128, any strides.
+    Returns the real (ng, ng) result of the matching precision on ``x``'s
+    device."""
     if x.ndim == 2:
         x = x[None]
     if x.ndim != 3:
@@ -59,26 +107,10 @@ def pair_gram_sq(x, square=True):
         return pair_gram_sq_reference(x, square=square)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    nk, ng, nao = x.shape
-    kk = nk * nao
-    if ng * max(ng, kk) >= 2**31:
-        raise ValueError(f"pair_gram_sq: shape {tuple(x.shape)} exceeds the "
-                         "kernel's 32-bit extents")
-    # (k, ao) flattened into the contraction axis; contiguous real planes
-    xt = x.permute(1, 0, 2).reshape(ng, kk)
-    xr = xt.real.contiguous()
-    xi = xt.imag.contiguous()
-    if ng == 0 or kk == 0:      # an empty grid launches nothing
-        return torch.zeros((ng, ng), dtype=xr.dtype, device=x.device)
-    out = torch.empty((ng, ng), dtype=xr.dtype, device=x.device)
-    fn = _entry_point(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(xr.data_ptr(), xi.data_ptr(), out.data_ptr(), ng, kk,
-                1.0 / nk, int(bool(square)), stream)
-    if rc != 0:
-        raise RuntimeError(f"pair_gram_sq kernel launch failed: CUDA error "
-                           f"{rc}")
+    out = launch(x, square)
+    if out is None:
+        ng = x.shape[1]
+        return torch.zeros((ng, ng), dtype=x.real.dtype, device=x.device)
     pair_gram_sq.launches += 1
     return out
 

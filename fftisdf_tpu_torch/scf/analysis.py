@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fftisdf_tpu_torch._shared import basis_data
+from fftisdf_tpu_torch.basis import data as basis_data
 
 
 def atom_charges_and_moments(cell, dm, s1e):

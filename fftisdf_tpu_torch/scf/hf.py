@@ -17,7 +17,6 @@ import time
 import numpy as np
 import torch
 
-from fftisdf_tpu_torch._shared import Logger
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.scf import integrals
 from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
@@ -25,6 +24,7 @@ from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
                                         smeared_occupations)
 from fftisdf_tpu_torch.utils.device import (free_memory_bytes,
                                             resolve_device, to_numpy)
+from fftisdf_tpu_torch.utils.logging import Logger
 
 
 class DIIS:
@@ -113,7 +113,7 @@ class KRHF:
                  diis_space=8, adiis_switch=1e-2, exxdiv=None,
                  level_shift=0.0, damp=0.0, smearing=0.0,
                  smearing_method="fermi", ovlp_cutoff=1e-10, verbose=3, *,
-                 device):
+                 device="cuda"):
         if with_df is None:
             raise NotImplementedError("the exact plane-wave J/K provider "
                                       "(PWDF) is not ported: pass with_df")

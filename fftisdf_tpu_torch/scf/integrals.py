@@ -9,7 +9,7 @@ Counterpart of the main-path part of ``fftisdf_tpu/scf/integrals.py``:
              to the grid, quadrature
 - nonlocal   Bloch-summed GTH projectors on the grid, h-coupled
 - Ewald      point charges and a neutralising background, real-space sum
-             through ``fftisdf_tpu.native``
+             through ``fftisdf_tpu_torch.native``
 
 AO tensors are (nk, ngrid, nao) complex128 on any device; results stay on
 that device.  Truncated Coulomb kernels and the Madelung constant are not
@@ -22,8 +22,10 @@ import math
 import numpy as np
 import torch
 
-from fftisdf_tpu_torch._shared import Shell, basis_data, native
+from fftisdf_tpu_torch import native
+from fftisdf_tpu_torch.basis import data as basis_data
 from fftisdf_tpu_torch.basis.eval import make_evaluator
+from fftisdf_tpu_torch.lattice.cell import Shell
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
 from fftisdf_tpu_torch.utils.device import COMPLEX, REAL
 
@@ -82,7 +84,7 @@ def gth_vloc_G0(pseudo):
             * (c[0] + 3.0 * c[1] + 15.0 * c[2] + 105.0 * c[3]))
 
 
-def vloc_on_grid(cell, *, device):
+def vloc_on_grid(cell, *, device="cuda"):
     """Total local pseudopotential on the FFT grid: real (ngrid,)."""
     mesh = tuple(int(m) for m in cell.mesh)
     gv = cell.get_Gv()

@@ -1,8 +1,9 @@
 """Device and dtype policy of the port.
 
-Every constructor and entry point takes an explicit ``device``; nothing
-picks one silently.  :func:`resolve_device` turns the argument into a
-``torch.device`` and raises when CUDA is asked for and absent.
+Every constructor and entry point takes ``device``, ``"cuda"`` by default;
+a caller passes ``"cpu"`` to run on the host.  :func:`resolve_device`
+turns the argument into a ``torch.device`` and raises when CUDA is asked
+for and absent: nothing falls back to the CPU on its own.
 
 The port computes in float64 / complex128 on every device.  The JAX package
 needs full-precision matmuls (it pins 'highest' everywhere, and its README
@@ -28,14 +29,13 @@ def _forbid_tf32():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device`` ('cpu', 'cuda', 'cuda:0', a device).
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device`` for ``device`` ('cpu', 'cuda', 'cuda:0', a device;
+    None means 'cuda').
 
     Raises ``RuntimeError`` when a CUDA device is requested and CUDA is not
     available: the port never falls back to the CPU on its own."""
-    if device is None:
-        raise ValueError("device is required ('cpu' or 'cuda')")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "

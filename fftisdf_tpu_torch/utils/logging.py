@@ -1,0 +1,33 @@
+"""Minimal leveled logger with wall-clock timers.
+
+The port's copy of the JAX package's ``fftisdf_tpu/utils/logging.py``.
+Keeps the reference's observability UX: per-phase timer lines and resource
+estimates (``fftisdf.py:56-69,89,122``) without external deps.
+Levels follow the reference's verbose convention (0 quiet, 3 info, 5 debug).
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+
+class Logger:
+    def __init__(self, verbose: int = 3, stream=None):
+        self.verbose = verbose
+        self.stream = stream or sys.stderr
+
+    def _emit(self, level, fmt, *args):
+        if self.verbose >= level:
+            msg = fmt % args if args else fmt
+            print(msg, file=self.stream, flush=True)
+
+    def info(self, fmt, *args):
+        self._emit(3, fmt, *args)
+
+    def debug(self, fmt, *args):
+        self._emit(5, fmt, *args)
+
+    def timer(self, label, t0):
+        t1 = time.perf_counter()
+        self.info("    CPU time for %s: %9.3f sec", label, t1 - t0)
+        return t1

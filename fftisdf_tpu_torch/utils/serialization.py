@@ -29,7 +29,7 @@ def save_isdf_state(path, df):
     )
 
 
-def load_isdf_state(path, cell, kpts, *, device):
+def load_isdf_state(path, cell, kpts, *, device="cuda"):
     """A built :class:`~fftisdf_tpu_torch.isdf.kpoint.FFTISDF` on ``device``
     serving from the state stored at ``path``.  The stored k-points and FFT
     mesh must match ``kpts`` and ``cell``."""

@@ -1,6 +1,7 @@
 """PyTorch port against the JAX package: AO evaluation and linalg.
 
-Same seeded numpy inputs through both packages on the CPU in f64.
+Same seeded numpy inputs through both packages on the CPU in f64; each
+package gets its own cell, built by its own Cell from the same arguments.
 Tolerances: 1e-12 for evaluation, FFTs and the Coulomb kernel (f64
 roundoff of the same formulas); identical pivots and rank for the pivoted
 Cholesky on a matrix whose pivots are well separated; 1e-10 relative for
@@ -13,14 +14,16 @@ import pytest
 import torch
 
 from fftisdf_tpu.basis.eval import eval_ao_kpts as jax_eval, make_evaluator
-from fftisdf_tpu.lattice import structure
-from fftisdf_tpu.lattice.cell import Cell
+from fftisdf_tpu.lattice import structure as jax_structure
+from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.linalg import coulomb as jax_coulomb
 from fftisdf_tpu.linalg import fft as jax_fft
 from fftisdf_tpu.linalg.pivoted_cholesky import (
     pivoted_cholesky as jax_pivoted_cholesky)
 from fftisdf_tpu.linalg import solvers as jax_solvers
 from fftisdf_tpu_torch.basis import eval as t_eval
+from fftisdf_tpu_torch.lattice import structure
+from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.linalg import coulomb as t_coulomb
 from fftisdf_tpu_torch.linalg import fft as t_fft
 from fftisdf_tpu_torch.linalg import pivoted_cholesky as t_pc
@@ -28,25 +31,28 @@ from fftisdf_tpu_torch.linalg import solvers as t_solvers
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 
-def he2_cell():
-    return Cell(a=np.diag([5.0, 5.0, 7.0]),
-                atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
-                basis="sto-3g", pseudo=None, mesh=np.array([15, 15, 21]),
-                unit="bohr", precision=1e-12).build()
+def he2_cells():
+    """(JAX package's cell, port's cell) from the same arguments."""
+    kw = dict(a=np.diag([5.0, 5.0, 7.0]),
+              atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
+              basis="sto-3g", pseudo=None, mesh=np.array([15, 15, 21]),
+              unit="bohr", precision=1e-12)
+    return JaxCell(**kw).build(), Cell(**kw).build()
 
 
-def diamond_cell():
-    return structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
-                             pseudo="gth-pade", ke_cutoff=50.0)
+def diamond_cells():
+    kw = dict(basis="gth-szv", pseudo="gth-pade", ke_cutoff=50.0)
+    return (jax_structure.to_cell(*jax_structure.bulk_diamond(), **kw),
+            structure.to_cell(*structure.bulk_diamond(), **kw))
 
 
-@pytest.mark.parametrize("make_cell,kmesh", [(he2_cell, [1, 1, 2]),
-                                             (diamond_cell, [1, 1, 2])])
-def test_make_evaluator_matches_jax(make_cell, kmesh):
-    cell = make_cell()
+@pytest.mark.parametrize("make_cells,kmesh", [(he2_cells, [1, 1, 2]),
+                                              (diamond_cells, [1, 1, 2])])
+def test_make_evaluator_matches_jax(make_cells, kmesh):
+    cell_j, cell = make_cells()
     kpts = cell.get_kpts(kmesh)
     coords = cell.gen_uniform_grids()
-    ref = np.asarray(jax_eval(cell, coords, kpts))
+    ref = np.asarray(jax_eval(cell_j, coords, kpts))
     out = t_eval.make_evaluator(cell, kpts=kpts, device="cpu")(coords)
     assert out.dtype == torch.complex128 and out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-12, rtol=0)
@@ -55,7 +61,7 @@ def test_make_evaluator_matches_jax(make_cell, kmesh):
 def test_evaluator_blocks_and_off_cell_points():
     """Grid-blocked evaluation equals one block, and points outside the
     home cell carry the Bloch phase (gamma evaluator included)."""
-    cell = diamond_cell()
+    cell_j, cell = diamond_cells()
     kpts = cell.get_kpts([1, 2, 1])
     rng = np.random.default_rng(3)
     coords = rng.uniform(-8.0, 8.0, size=(500, 3))
@@ -65,10 +71,10 @@ def test_evaluator_blocks_and_off_cell_points():
     np.testing.assert_allclose(fn(coords).numpy(), whole.numpy(),
                                atol=1e-14, rtol=0)
     np.testing.assert_allclose(
-        whole.numpy(), np.asarray(jax_eval(cell, coords, kpts)), atol=1e-12,
+        whole.numpy(), np.asarray(jax_eval(cell_j, coords, kpts)), atol=1e-12,
         rtol=0)
     gam = t_eval.make_evaluator(cell, device="cpu")(coords)
-    ref = np.asarray(make_evaluator(cell)(jnp.asarray(coords)))
+    ref = np.asarray(make_evaluator(cell_j)(jnp.asarray(coords)))
     np.testing.assert_allclose(gam.numpy(), ref, atol=1e-12, rtol=0)
 
 
@@ -84,10 +90,10 @@ def test_fft3_matches_jax():
 
 
 def test_coulG_batched_matches_jax():
-    cell = diamond_cell()
+    cell_j, cell = diamond_cells()
     kpts = cell.get_kpts([2, 1, 2])
     gv = cell.get_Gv()
-    ref = np.asarray(jax_coulomb.get_coulG_batched(cell, kpts, gv))
+    ref = np.asarray(jax_coulomb.get_coulG_batched(cell_j, kpts, gv))
     out = t_coulomb.get_coulG_batched(
         cell, torch.from_numpy(kpts), torch.from_numpy(gv))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-12, rtol=1e-12)

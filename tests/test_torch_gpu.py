@@ -6,8 +6,10 @@ They import no JAX, so they run on the GPU machine:
 
 Without a card each test skips with the reason.  K1 (the selection pair
 gram) is held against its plain PyTorch version at the JAX package's
-Pallas test shapes and the main-path shape: 2e-5 * scale in complex64,
-1e-12 * scale in complex128.
+Pallas test shapes, ragged shapes (ng not a multiple of the 64-row tile, K
+not a multiple of the MMA depth, ng below one tile), the main-path shape
+(64, 3375, 26), the production width (64, 3375, 62) and on a
+non-contiguous X: 2e-5 * scale in complex64, 1e-12 * scale in complex128.
 """
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ import torch
 from fftisdf_tpu_torch.ops import pair_gram
 
 SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
-          (64, 3375, 26)]
+          (1, 1, 1), (3, 129, 7), (5, 257, 3),
+          (64, 3375, 26), (64, 3375, 62)]
 TOL = {np.complex64: 2e-5, np.complex128: 1e-12}
 
 
@@ -27,14 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
-@pytest.mark.parametrize("square", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_k1_kernel_matches_plain(cuda, shape, square, dtype):
+def _x(shape, dtype, device):
     rng = np.random.default_rng(0)
     x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-    x = torch.from_numpy(x.astype(dtype)).to(cuda)
+    return torch.from_numpy(x.astype(dtype)).to(device)
+
+
+def _check_k1(x, square, dtype):
     before = pair_gram.pair_gram_sq.launches
     out = pair_gram.pair_gram_sq(x, square=square)
     torch.cuda.synchronize()
@@ -46,10 +48,28 @@ def test_k1_kernel_matches_plain(cuda, shape, square, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_kernel_matches_plain(cuda, shape, square, dtype):
+    _check_k1(_x(shape, dtype, cuda), square, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_k1_kernel_non_contiguous(cuda, dtype):
+    """A slice along the ng axis: the complex128 kernel reads X through its
+    strides."""
+    x = _x((8, 300, 11), dtype, cuda)[:, 7:250]
+    assert not x.is_contiguous()
+    _check_k1(x, False, dtype)
+
+
+@pytest.mark.gpu
 def test_k1_selection_on_cuda_matches_cpu(cuda):
     """Selection on the card (through K1) picks the CPU's points."""
-    from fftisdf_tpu_torch._shared import structure
     from fftisdf_tpu_torch.isdf.kpoint import select_interpolation_points
+    from fftisdf_tpu_torch.lattice import structure
 
     cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
                              pseudo="gth-pade", ke_cutoff=50.0)

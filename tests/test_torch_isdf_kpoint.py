@@ -6,6 +6,8 @@ points, which the two packages break by their own roundoff; the selected
 AO values are compared position by position (equal at equivalent points),
 and the mask itself on a cell without mirror symmetry.  Raw w_q is not
 compared: it is noise-limited in near-null fit directions; served J/K are.
+Each package gets its own cell, built by its own Cell from the same
+arguments.
 """
 import warnings
 
@@ -18,28 +20,32 @@ from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.isdf import jk as jax_jk
 from fftisdf_tpu.isdf.kpoint import (
     select_interpolation_points as jax_select, _sector_wq as jax_sector_wq)
-from fftisdf_tpu.lattice.cell import Cell
+from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.lattice import kpoints as kpt_mod
 from fftisdf_tpu.pw import get_jk_kpts
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF, jk as t_jk, kpoint as t_kp
+from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.utils.serialization import load_isdf_state
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 
-def he2_cell(asymmetric=False):
+def he2_cells(asymmetric=False):
+    """(JAX package's cell, port's cell) from the same arguments."""
     atoms = ([("He", (2.1, 2.6, 2.0)), ("He", (2.7, 2.3, 4.4))]
              if asymmetric else
              [("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))])
-    return Cell(a=np.diag([5.0, 5.0, 7.0]), atom=atoms, basis="sto-3g",
-                pseudo=None, mesh=np.array([15, 15, 21]), unit="bohr",
-                precision=1e-12).build()
+    kw = dict(a=np.diag([5.0, 5.0, 7.0]), atom=atoms, basis="sto-3g",
+              pseudo=None, mesh=np.array([15, 15, 21]), unit="bohr",
+              precision=1e-12)
+    return JaxCell(**kw).build(), Cell(**kw).build()
 
 
 @pytest.fixture(scope="module")
 def he2():
-    cell = he2_cell()
-    return cell, cell.get_kpts([1, 1, 2])
+    """(JAX package's cell, port's cell, kpts)."""
+    cell_j, cell = he2_cells()
+    return cell_j, cell, cell.get_kpts([1, 1, 2])
 
 
 def trs_dm(cell, kpts, nao, seed=0, nset=1):
@@ -67,11 +73,11 @@ def _rel(a, b):
 
 @pytest.fixture(scope="module")
 def he2_compressed(he2):
-    cell, kpts = he2
+    cell_j, cell, kpts = he2
     kw = dict(c0=10.0, m0=(9, 9, 13), verbose=0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return (JaxISDF(cell, kpts, **kw).build(),
+        return (JaxISDF(cell_j, kpts, **kw).build(),
                 FFTISDF(cell, kpts, device="cpu", **kw).build())
 
 
@@ -87,11 +93,11 @@ def test_selection_matches_jax(he2, he2_compressed):
 def test_selection_mask_identical_without_ties():
     """On a He2 cell without mirror symmetry the pivots are not tied and
     the mask is identical to the JAX package's, with x_k to 1e-12."""
-    cell = he2_cell(asymmetric=True)
+    cell_j, cell = he2_cells(asymmetric=True)
     kpts = cell.get_kpts([1, 1, 2])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        x_j, m_j, r_j, _ = jax_select(cell, kpts, (9, 9, 13), 10.0)
+        x_j, m_j, r_j, _ = jax_select(cell_j, kpts, (9, 9, 13), 10.0)
         x_t, m_t, r_t, _ = t_kp.select_interpolation_points(
             cell, kpts, (9, 9, 13), 10.0, device="cpu")
     assert r_t == int(r_j)
@@ -101,14 +107,14 @@ def test_selection_mask_identical_without_ties():
 
 
 def test_pool_saturation_warning(he2):
-    cell, kpts = he2
+    _, cell, kpts = he2
     with pytest.warns(t_kp.PoolSaturationWarning):
         t_kp.select_interpolation_points(cell, kpts, (3, 3, 4), 10.0,
                                          device="cpu")
 
 
 def test_compressed_jk_matches_jax(he2, he2_compressed):
-    cell, kpts = he2
+    _, cell, kpts = he2
     df_j, df_t = he2_compressed
     dm = trs_dm(cell, kpts, 2, nset=2)
     vj_j, vk_j = df_j.get_jk(dm)
@@ -125,13 +131,13 @@ def test_compressed_jk_matches_jax(he2, he2_compressed):
 def test_full_rank_jk_exact(he2):
     """Full-rank fit (he2_isdf_full's config) reproduces the exact
     plane-wave J/K of the JAX package to test_full_rank_jk_exact's 1e-9."""
-    cell, kpts = he2
+    cell_j, cell, kpts = he2
     df = FFTISDF(cell, kpts, c0=50.0, m0=tuple(cell.mesh), verbose=0,
                  select_tol=1e-20, rcond=1e-13, device="cpu").build()
     ao = eval_ao_kpts(cell, cell.gen_uniform_grids(), kpts,
                       device="cpu").numpy()
     dm = trs_dm(cell, kpts, 2)[0]
-    vj_ref, vk_ref = get_jk_kpts(cell, jnp.asarray(dm), jnp.asarray(ao),
+    vj_ref, vk_ref = get_jk_kpts(cell_j, jnp.asarray(dm), jnp.asarray(ao),
                                  kpts)
     vj, vk = df.get_jk(dm)
     assert np.abs(vj.numpy() - np.asarray(vj_ref)).max() < 1e-9
@@ -141,7 +147,7 @@ def test_full_rank_jk_exact(he2):
 def test_state_carried_across(tmp_path, he2, he2_compressed):
     """JAX builds and saves; the port loads and serves the same J/K; the
     port's own state round-trips through the same format."""
-    cell, kpts = he2
+    cell_j, cell, kpts = he2
     df_j, df_t = he2_compressed
     path = tmp_path / "jax_state.npz"
     df_j.save(path)
@@ -154,7 +160,7 @@ def test_state_carried_across(tmp_path, he2, he2_compressed):
     assert _rel(vk_l, vk_j) < 1e-12
     path2 = tmp_path / "torch_state.npz"
     df_t.save(path2)
-    df_b = JaxISDF.load(path2, cell, kpts)
+    df_b = JaxISDF.load(path2, cell_j, kpts)
     vj_b, vk_b = df_b.get_jk(dm)
     vj_t, vk_t = df_t.get_jk(dm)
     assert _rel(vj_t, vj_b) < 1e-12
@@ -166,7 +172,7 @@ def test_state_carried_across(tmp_path, he2, he2_compressed):
 def test_k_serve_img_matches_phase(he2):
     """The image-space K serve equals the plain phase-matrix algebra on a
     1x3x2 mesh, and matches the JAX package's serve."""
-    cell, _ = he2
+    _, cell, _ = he2
     kpts6 = cell.get_kpts([1, 3, 2])
     df = FFTISDF(cell, kpts6, c0=8.0, m0=(9, 9, 13), verbose=0,
                  device="cpu").build()
@@ -189,7 +195,7 @@ def test_k_serve_img_matches_phase(he2):
 def test_sector_wq_matches_jax(he2):
     """One sector's metric: the grid-major slab form against the JAX
     package's _sector_wq on the same seeded RHS."""
-    cell, kpts = he2
+    _, cell, kpts = he2
     rng = np.random.default_rng(11)
     nip, ngrid = 9, int(np.prod(cell.mesh))
     z = rng.standard_normal((nip, 40)) + 1j * rng.standard_normal((nip, 40))
@@ -217,7 +223,7 @@ def test_sector_wq_matches_jax(he2):
 def test_chunked_build_matches_single_chunk(he2):
     """A byte budget that forces one sector per chunk and small grid
     blocks reproduces the single-chunk build (1x1x3: a conjugate pair)."""
-    cell, _ = he2
+    _, cell, _ = he2
     kpts3 = cell.get_kpts([1, 1, 3])
     kw = dict(c0=8.0, m0=(9, 9, 13), verbose=0, device="cpu")
     with warnings.catch_warnings():
@@ -235,7 +241,7 @@ def test_chunked_build_matches_single_chunk(he2):
 
 
 def test_unported_options_raise(he2):
-    cell, kpts = he2
+    _, cell, kpts = he2
     with pytest.raises(NotImplementedError):
         FFTISDF(cell, kpts, m0="auto", device="cpu")
     with pytest.raises(NotImplementedError):

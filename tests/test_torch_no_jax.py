@@ -1,7 +1,9 @@
-"""The PyTorch port runs end to end in a process where JAX cannot be
-imported (the GPU machine has no JAX): cell -> build -> get_jk -> two SCF
-cycles on a small He2 cell, on the CPU, with a ``sys.meta_path`` finder
-that refuses ``jax``; ``jax`` must never reach ``sys.modules``."""
+"""The PyTorch port runs end to end in a process where neither JAX nor the
+JAX package can be imported (the GPU machine has no JAX, and the port keeps
+its own copy of every host module it needs): cell -> build -> get_jk -> two
+SCF cycles on a small He2 cell, on the CPU, with a ``sys.meta_path`` finder
+that refuses ``jax``, ``jaxlib`` and ``fftisdf_tpu`` (exactly that package,
+not ``fftisdf_tpu_torch``); none of them may reach ``sys.modules``."""
 import os
 import subprocess
 import sys
@@ -13,20 +15,20 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import sys
 
+    BLOCKED = ("jax", "jaxlib", "fftisdf_tpu")
+
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith("jax.") \\
-                    or name == "jaxlib" or name.startswith("jaxlib."):
+            if name.split(".")[0] in BLOCKED:
                 raise ModuleNotFoundError(f"blocked: {name}")
             return None
 
-    for mod in [m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib")]:
+    for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
         del sys.modules[mod]
     sys.meta_path.insert(0, BlockJax())
 
     import numpy as np
-    from fftisdf_tpu_torch._shared import Cell
+    from fftisdf_tpu_torch.lattice.cell import Cell
     from fftisdf_tpu_torch.isdf import FFTISDF
     from fftisdf_tpu_torch.scf import KRHF
 
@@ -42,9 +44,9 @@ SCRIPT = textwrap.dedent("""
     mf = KRHF(cell, kpts, df, max_cycle=2, verbose=0, device="cpu")
     e = mf.kernel()
     assert np.isfinite(e) and mf.cycles == 2
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in
-                 ("jax", "jaxlib"))
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
+    assert "fftisdf_tpu_torch.native" in sys.modules
     print("OK", e)
 """)
 

@@ -12,6 +12,9 @@
   and compared from the metric pass on.  The looser energy tolerance is
   the level at which the ADIIS/CDIIS trajectory wanders before it
   converges.
+
+Each package gets its own cell, built by its own structure constructors from
+the same arguments.
 """
 import warnings
 
@@ -19,12 +22,13 @@ import numpy as np
 import pytest
 
 from fftisdf_tpu.isdf import FFTISDF as JaxISDF
-from fftisdf_tpu.lattice import structure
+from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.scf import KRHF as JaxKRHF, KUHF as JaxKUHF
 from fftisdf_tpu.scf import core as jax_core
 from fftisdf_tpu.scf import integrals as jax_int
 from fftisdf_tpu.scf.analysis import atom_charges_and_moments as jax_moments
 from fftisdf_tpu_torch.isdf import FFTISDF
+from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import KUHF, core, integrals
 from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
 from torch_test_threads import two_torch_threads  # noqa: F401
@@ -32,26 +36,33 @@ from torch_test_threads import two_torch_threads  # noqa: F401
 AFM = {0: +1.0, 1: -1.0}
 
 
+def _cells(maker, **kw):
+    """(JAX package's cell, port's cell) from the same arguments."""
+    return (jax_structure.to_cell(*getattr(jax_structure, maker)(), **kw),
+            structure.to_cell(*getattr(structure, maker)(), **kw))
+
+
 @pytest.fixture(scope="module")
 def diamond():
-    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
-                             pseudo="gth-pade", ke_cutoff=50.0)
-    return cell, cell.get_kpts([1, 1, 2])
+    """(JAX package's cell, port's cell, kpts)."""
+    cell_j, cell = _cells("bulk_diamond", basis="gth-szv", pseudo="gth-pade",
+                          ke_cutoff=50.0)
+    return cell_j, cell, cell.get_kpts([1, 1, 2])
 
 
 def test_one_electron_setup_matches_jax(diamond):
-    cell, kpts = diamond
-    mf_j = JaxKRHF(cell, kpts, with_df=object(), verbose=0)
+    cell_j, cell, kpts = diamond
+    mf_j = JaxKRHF(cell_j, kpts, with_df=object(), verbose=0)
     df = FFTISDF(cell, kpts, device="cpu")
     mf_t = KUHF(cell, kpts, df, verbose=0, device="cpu")
     np.testing.assert_allclose(mf_t.s1e, mf_j.s1e, atol=1e-10, rtol=0)
     np.testing.assert_allclose(mf_t.h1e, mf_j.h1e, atol=1e-10, rtol=0)
-    assert abs(mf_t.e_nuc - jax_int.ewald(cell)) < 1e-10
+    assert abs(mf_t.e_nuc - jax_int.ewald(cell_j)) < 1e-10
 
 
 def test_vloc_on_grid_matches_jax(diamond):
-    cell, _ = diamond
-    ref = np.asarray(jax_int.vloc_on_grid(cell))
+    cell_j, cell, _ = diamond
+    ref = np.asarray(jax_int.vloc_on_grid(cell_j))
     out = integrals.vloc_on_grid(cell, device="cpu").numpy()
     np.testing.assert_allclose(out, ref, atol=1e-10, rtol=0)
 
@@ -88,11 +99,11 @@ def test_scf_core_matches_jax():
 
 
 def test_isdf_kuhf_diamond_matches_jax(diamond):
-    cell, kpts = diamond
+    cell_j, cell, kpts = diamond
     kw = dict(verbose=0, conv_tol=1e-10, max_cycle=80, init_spin=AFM,
               smearing=5e-3)
-    df_j = JaxISDF(cell, kpts, c0=10.0, m0=(15, 15, 15), verbose=0).build()
-    mf_j = JaxKUHF(cell, kpts, with_df=df_j, **kw)
+    df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(15, 15, 15), verbose=0).build()
+    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, **kw)
     e_j = mf_j.kernel()
     df_t = FFTISDF(cell, kpts, c0=10.0, m0=(15, 15, 15), verbose=0,
                    device="cpu").build()
@@ -105,19 +116,18 @@ def test_isdf_kuhf_diamond_matches_jax(diamond):
 def test_nio_example_slice_matches_jax():
     """NiO AFM, gth-szv ke 50, 1x1x2, c0 20, m0 15^3, smearing 5e-3 — the
     defaults of examples/nio_afm_kuhf.py — through both packages."""
-    cell = structure.to_cell(*structure.nio_afm(), basis="gth-szv",
-                             pseudo="gth-pade", ke_cutoff=50.0,
-                             exp_to_discard=0.1)
+    cell_j, cell = _cells("nio_afm", basis="gth-szv", pseudo="gth-pade",
+                          ke_cutoff=50.0, exp_to_discard=0.1)
     kpts = cell.get_kpts([1, 1, 2])
     kw = dict(verbose=0, conv_tol=1e-8, max_cycle=80, init_spin=AFM,
               smearing=5e-3)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell, kpts, c0=20.0, m0=(15, 15, 15),
+        df_j = JaxISDF(cell_j, kpts, c0=20.0, m0=(15, 15, 15),
                        verbose=0).build()
-    mf_j = JaxKUHF(cell, kpts, with_df=df_j, **kw)
+    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, **kw)
     e_j = mf_j.kernel()
-    _, mom_j = jax_moments(cell, mf_j.dm, mf_j.s1e)
+    _, mom_j = jax_moments(cell_j, mf_j.dm, mf_j.s1e)
 
     df_t = FFTISDF(cell, kpts, c0=20.0, m0=(15, 15, 15), verbose=0,
                    device="cpu").build(mask=np.asarray(df_j.mask))
