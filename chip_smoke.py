@@ -17,8 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    large shapes (complex128, ``square=False``), CUDA-event times of the
    kernel, the plain version and one PyTorch library call of the same
    function (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on the (ng, K)
-   matrix, made before the timing), in turns; the flop rate of the work
-   done (the upper triangle) and the share of the bound;
+   matrix, made before the timing), in 5 rounds of turns, each turn's SM
+   clock, power draw and temperature as nvidia-smi samples them every
+   20 ms; the median turn of each, with the spread, the flop rate of the
+   work done (the upper triangle) and the share of the bound;
 2. device against host: diamond gth-szv ke 50, kmesh 1x1x2, c0 10, built and
    solved by KUHF on the GPU and on the CPU (J/K to 1e-10 relative, e_tot to
    1e-9 Ha);
@@ -112,7 +114,7 @@ def phase0_environment(torch):
     return smi
 
 
-def cuda_ms(torch, fn, reps):
+def _cuda_ms(torch, fn, reps):
     """CUDA-event milliseconds per call of ``fn``, after 3 warm-up calls."""
     for _ in range(3):
         fn()
@@ -125,6 +127,55 @@ def cuda_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _sampled_turns(torch, fns, rounds, reps):
+    """CUDA-event ms per call of each of ``fns`` in ``rounds`` rounds of
+    turns (every other round in reverse order), with the nvidia-smi samples
+    (SM clock MHz, power draw W, temperature C) taken every 20 ms during
+    each turn.  Returns [(name, ms, samples)]."""
+    from datetime import datetime
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    spans = []
+    try:
+        time.sleep(0.5)             # the sampler's first lines
+        names = list(fns)
+        for r in range(rounds):
+            for name in names if r % 2 == 0 else names[::-1]:
+                t0 = datetime.now()
+                ms = _cuda_ms(torch, fns[name], reps)
+                spans.append((name, ms, t0, datetime.now()))
+    finally:
+        smi.terminate()
+        try:
+            text = smi.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            smi.kill()
+            text = smi.communicate()[0]
+    samples = []
+    for line in text.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        try:
+            samples.append((datetime.strptime(parts[0],
+                                              "%Y/%m/%d %H:%M:%S.%f"),
+                            *map(float, parts[1:4])))
+        except (ValueError, TypeError):
+            continue
+    return [(name, ms, [v[1:] for v in samples if t0 <= v[0] <= t1])
+            for name, ms, t0, t1 in spans]
+
+
+def _describe_samples(samples):
+    if not samples:
+        return "no nvidia-smi sample"
+    clk, pw, tc = zip(*samples)
+    return (f"SM {min(clk):.0f}-{max(clk):.0f} MHz, {min(pw):.0f}-"
+            f"{max(pw):.0f} W, {min(tc):.0f}-{max(tc):.0f} C, "
+            f"{len(samples)} samples")
 
 
 def k1_bound(shape):
@@ -195,18 +246,19 @@ def phase1_kernel(torch):
             "library": lambda: (xt.conj() @ xt.mT).abs().square() / nk**2,
         }
         times = {name: [] for name in fns}
-        for name in ("kernel", "plain", "library", "library", "plain",
-                     "kernel"):
-            times[name].append(cuda_ms(torch, fns[name], 10))
-        ms = {name: sum(v) / len(v) for name, v in times.items()}
+        for name, t, samples in _sampled_turns(torch, fns, 5, 20):
+            times[name].append(t)
+            log(f"[1] K1 {shape} turn: {name} {t:.3f} ms; "
+                f"{_describe_samples(samples)}")
+        ms = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
         flops, bound_ms, bound_by = k1_bound(shape)
         log(f"[1] K1 {shape} complex128: kernel {ms['kernel']:.3f} ms "
             f"({flops / (ms['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s f64 of "
             f"triangle work done, {bound_ms / ms['kernel']:.1%} of the "
             f"{bound_ms:.3f} ms bound, {bound_by}), plain "
             f"{ms['plain']:.3f} ms, library {ms['library']:.3f} ms; each "
-            "the mean of two turns: "
-            + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+            "the median of 5 turns, spread: "
+            + ", ".join(f"{n} {min(v):.3f}-{max(v):.3f}"
                         for n, v in times.items()))
         res[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                         library_ms=ms["library"], bound_ms=bound_ms,

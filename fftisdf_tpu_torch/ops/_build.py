@@ -2,10 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), under
-``ops/_build/``, named by a hash of the source and the flags (macro
-definitions included, so other configurations of one source coexist).  A
-library that already exists for the same hash is reused.  The build
-targets Hopper (``sm_90a``).  ``nvcc`` is looked up on ``PATH``, then under ``CUDA_HOME``
+``ops/_build/``, named by a hash of the source and the flags.  A library
+that already exists for the same hash is reused.  The build targets Hopper
+(``sm_90a``).  ``nvcc`` is looked up on ``PATH``, then under ``CUDA_HOME``
 and ``/usr/local/cuda``.
 """
 from __future__ import annotations
@@ -39,23 +38,21 @@ def find_nvcc() -> str:
 
 
 class KernelLibrary:
-    """One compiled ``csrc/<name>.cu``, with the macro ``defines`` (e.g.
-    ``("PAIR_GRAM_Z_KSTEP=8",)``): ``load()`` builds it on first use
+    """One compiled ``csrc/<name>.cu``: ``load()`` builds it on first use
     and returns the ``ctypes.CDLL``; ``build_seconds`` and ``ptxas_log``
     record the last build (0.0 and '' when an existing library was
     reused)."""
 
-    def __init__(self, name: str, defines=()):
+    def __init__(self, name: str):
         self.name = name
         self.source = CSRC / f"{name}.cu"
-        self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self._lib = None
         self.build_seconds = 0.0
         self.ptxas_log = ""
 
     def path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(self.flags).encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
@@ -66,7 +63,7 @@ class KernelLibrary:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *self.flags, "-o", tmp, str(self.source)]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)]
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,

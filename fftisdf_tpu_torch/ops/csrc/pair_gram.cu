@@ -23,10 +23,9 @@
 //   each an f64 mma.sync (wgmma has no f64 type).  The sign of -Ai is
 //   folded into a negated copy of the A fragment; the 3-multiply form is
 //   not used, as it changes the roundoff of a quantity whose near-ties
-//   decide pivots.  The MMA depth, the stage depth and the ring length are
-//   the build's PAIR_GRAM_Z_{KSTEP,BK,STAGES} (default m16n8k4, BK 16,
-//   3 stages: the fastest of tools/k1_configs.py's candidates on the
-//   H100);
+//   decide pivots.  The MMA is m16n8k4: the deeper f64 shapes (k8, k16)
+//   keep more fragment registers live beside the 128 of accumulators;
+//   they spilled and ran slower on the H100;
 // - one block per 64 x 64 tile of the upper triangle, diagonal tiles
 //   included; 4 warps, each a 32 x 32 sub-tile (2 x 4 MMA tiles, Re and Im
 //   sums: 128 registers of accumulators a thread).  2 blocks share an SM:
@@ -38,7 +37,7 @@
 //   and columns past K are zero-filled by the copy itself.  The loader's
 //   row loop stays rolled: unrolled, its hoisted row addresses took the
 //   registers the fragments need, and the kernel spilled;
-// - a STAGES-deep ring of BM x BK complex tiles in dynamic shared memory,
+// - a 3-deep ring of 64 x 16 complex tiles in dynamic shared memory,
 //   filled by cp.async (16 B, one complex128 each), so the next stages'
 //   loads overlap this stage's MMAs.  The 16-B chunk of (row r, column c)
 //   sits at r * BK + (c ^ ((r & 1) << 2)): the (re, im) fragment loads of a
@@ -72,12 +71,16 @@ constexpr int WM = 32;                 // warp sub-tile
 constexpr int WN = 32;
 constexpr int MI = WM / 16;            // m16 MMA tiles per warp
 constexpr int NI = WN / 8;             // n8 MMA tiles per warp
+constexpr int BK = 16;                 // contraction columns per stage
+constexpr int STAGES = 3;              // cp.async ring length
 constexpr int EPI_LD = BM + 1;         // epilogue pitch, doubles
+constexpr int SMEM_BYTES = STAGES * 2 * BM * BK * 16;
+static_assert(SMEM_BYTES >= BM * EPI_LD * 8,
+              "the epilogue tile reuses the ring");
+static_assert(BK % 8 == 0, "the swizzle pairs 4-column halves of 8");
 
 // the 16-B chunk of (row r, contraction column c) in a BM x BK stage tile
-template <int BK>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(BK % 8 == 0, "the swizzle pairs 4-column halves of 8");
   return r * BK + (c ^ ((r & 1) << 2));
 }
 
@@ -99,61 +102,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// D += A B for one m16n8kKSTEP f64 tile.  Fragments (g = lane / 4,
-// t = lane % 4): a[2 s + h] = A[g + 8 h][4 s + t], b[s] = B[4 s + t][g],
+// D += A B for one m16n8k4 f64 tile.  Fragments (g = lane / 4,
+// t = lane % 4): a[h] = A[g + 8 h][t], b = B[t][g],
 // d[i] = D[g + 8 (i / 2)][2 t + i % 2].
-template <int KSTEP>
-struct Dmma;
-
-template <>
-struct Dmma<4> {
-  static __device__ __forceinline__ void run(double (&d)[4],
-                                             const double (&a)[2],
-                                             const double (&b)[1]) {
-    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-  }
-};
-
-template <>
-struct Dmma<8> {
-  static __device__ __forceinline__ void run(double (&d)[4],
-                                             const double (&a)[4],
-                                             const double (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
-          "d"(b[1]));
-  }
-};
-
-template <>
-struct Dmma<16> {
-  static __device__ __forceinline__ void run(double (&d)[4],
-                                             const double (&a)[8],
-                                             const double (&b)[4]) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
-        "{%0,%1,%2,%3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
-          "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
-          "d"(b[2]), "d"(b[3]));
-  }
-};
-
-template <int BK, int STAGES>
-constexpr int smem_bytes() {
-  return STAGES * 2 * BM * BK * 16 > BM * EPI_LD * 8
-             ? STAGES * 2 * BM * BK * 16
-             : BM * EPI_LD * 8;
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2],
+                                     double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 
 // x: (nk, ng, nao) complex128 with element strides sk, sg, sm; out: (ng, ng)
-template <int KSTEP, int BK, int STAGES>
 __global__ void __launch_bounds__(THREADS, 2)
 pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
                    int nk, int ng, int nao, double* __restrict__ out,
@@ -197,7 +157,7 @@ pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
   int kq = lj / nao;
   int mq = lj - kq * nao;
   auto load_stage = [&](int slot) {
-    double2* as = smem + slot * 2 * BM * BK + swz<BK>(lr, lj);
+    double2* as = smem + slot * 2 * BM * BK + swz(lr, lj);
     double2* bs = as + BM * BK;
     const bool cin = kq < nk;
     const long coff = static_cast<long>(kq) * sk + static_cast<long>(mq) * sm;
@@ -238,7 +198,6 @@ pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
     cp_async_commit();
   }
 
-  constexpr int NS = KSTEP / 4;   // 4-column fragment steps per MMA
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
@@ -250,36 +209,32 @@ pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
     const double2* as = smem + (kt % STAGES) * 2 * BM * BK;
     const double2* bs = as + BM * BK;
 #pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += KSTEP) {
-      double ar[MI][2 * NS], ai[MI][2 * NS], nai[MI][2 * NS];
-      double br[NI][NS], bi[NI][NS];
+    for (int k0 = 0; k0 < BK; k0 += 4) {
+      const int c = k0 + t;
+      double ar[MI][2], ai[MI][2], nai[MI][2], br[NI], bi[NI];
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int c = k0 + 4 * s + t;
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const double2 v = as[swz<BK>(wr + 16 * i + g + 8 * h, c)];
-            ar[i][2 * s + h] = v.x;
-            ai[i][2 * s + h] = v.y;
-            nai[i][2 * s + h] = -v.y;   // the sign of the Ai Br product
-          }
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const double2 v = bs[swz<BK>(wc + 8 * j + g, c)];
-          br[j][s] = v.x;
-          bi[j][s] = v.y;
+        for (int h = 0; h < 2; ++h) {
+          const double2 v = as[swz(wr + 16 * i + g + 8 * h, c)];
+          ar[i][h] = v.x;
+          ai[i][h] = v.y;
+          nai[i][h] = -v.y;   // the sign of the Ai Br product
         }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const double2 v = bs[swz(wc + 8 * j + g, c)];
+        br[j] = v.x;
+        bi[j] = v.y;
       }
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
-          Dmma<KSTEP>::run(acc_re[i][j], ar[i], br[j]);
-          Dmma<KSTEP>::run(acc_re[i][j], ai[i], bi[j]);
-          Dmma<KSTEP>::run(acc_im[i][j], ar[i], bi[j]);
-          Dmma<KSTEP>::run(acc_im[i][j], nai[i], br[j]);
+          dmma(acc_re[i][j], ar[i], br[j]);
+          dmma(acc_re[i][j], ai[i], bi[j]);
+          dmma(acc_im[i][j], ar[i], bi[j]);
+          dmma(acc_im[i][j], nai[i], br[j]);
         }
     }
   }
@@ -317,26 +272,6 @@ pair_gram_z_kernel(const double2* __restrict__ x, long sk, long sg, long sm,
         out[(col0 + c) * ng + row0 + r] = tile[r * EPI_LD + c];
     }
   }
-}
-
-template <int KSTEP, int BK, int STAGES>
-int launch(const void* x, long sk, long sg, long sm, int nk, int ng,
-           int nao, double* out, double inv_nk, int square, void* stream) {
-  auto kernel = pair_gram_z_kernel<KSTEP, BK, STAGES>;
-  constexpr int smem = smem_bytes<BK, STAGES>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long nt = (ng + BM - 1) / BM;
-  kernel<<<static_cast<unsigned>(nt * (nt + 1) / 2), THREADS, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double2*>(x), sk, sg, sm, nk, ng, nao, out,
-      inv_nk * inv_nk, square);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace c128
@@ -460,24 +395,25 @@ pair_gram_f32_kernel(const float* __restrict__ xr,
 
 }  // namespace
 
-// MMA depth (4, 8 or 16), contraction columns per stage (a multiple of 8)
-// and stages of the complex128 kernel; tools/k1_configs.py builds others
-#ifndef PAIR_GRAM_Z_KSTEP
-#define PAIR_GRAM_Z_KSTEP 4
-#endif
-#ifndef PAIR_GRAM_Z_BK
-#define PAIR_GRAM_Z_BK 16
-#endif
-#ifndef PAIR_GRAM_Z_STAGES
-#define PAIR_GRAM_Z_STAGES 3
-#endif
-
 // x: (nk, ng, nao) complex128, element strides sk, sg, sm, 16-byte aligned
 extern "C" int pair_gram_sq_z(const void* x, long sk, long sg, long sm,
                               int nk, int ng, int nao, double* out,
                               double inv_nk, int square, void* stream) {
-  return c128::launch<PAIR_GRAM_Z_KSTEP, PAIR_GRAM_Z_BK, PAIR_GRAM_Z_STAGES>(
-      x, sk, sg, sm, nk, ng, nao, out, inv_nk, square, stream);
+  using namespace c128;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_gram_z_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pair_gram_z_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long nt = (ng + BM - 1) / BM;
+  pair_gram_z_kernel<<<static_cast<unsigned>(nt * (nt + 1) / 2), THREADS,
+                       SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double2*>(x), sk, sg, sm, nk, ng, nao, out,
+      inv_nk * inv_nk, square);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // xr, xi: (ng, kk) row-major float planes

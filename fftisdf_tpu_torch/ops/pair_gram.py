@@ -44,28 +44,34 @@ def pair_gram_sq_reference(x, square=True):
     return out * out if square else out
 
 
-def _entry_point(dtype, library):
-    name, argtypes = _ENTRY[dtype]
-    fn = getattr(library.load(), name)
-    fn.restype = c_int
-    fn.argtypes = argtypes
-    return fn
+def pair_gram_sq(x, square=True):
+    """x4[g,h] = (|sum_k conj(X_k) X_k^T|^2 / nk^2)^(2 if square else 1).
 
-
-def launch(x, square, library=LIBRARY):
-    """One launch of ``library``'s kernel on a CUDA (nk, ng, nao) complex
-    tensor; not counted in ``pair_gram_sq.launches`` (tools/k1_configs.py
-    times other builds of the source through it).  Returns the (ng, ng)
-    result, or None for an empty grid, which launches nothing."""
+    ``x``: (nk, ng, nao) or (ng, nao) complex64/complex128, any strides.
+    Returns the real (ng, ng) result of the matching precision on ``x``'s
+    device."""
+    if x.ndim == 2:
+        x = x[None]
+    if x.ndim != 3:
+        raise ValueError(f"expected (nk, ng, nao), got shape {tuple(x.shape)}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"expected complex64/complex128, got {x.dtype}")
+    if x.device.type == "cpu":
+        return pair_gram_sq_reference(x, square=square)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
     nk, ng, nao = x.shape
     kk = nk * nao
     if ng * max(ng, kk) >= 2**31:
         raise ValueError(f"pair_gram_sq: shape {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit extents")
     if ng == 0 or kk == 0:
-        return None
+        return torch.zeros((ng, ng), dtype=x.real.dtype, device=x.device)
     out = torch.empty((ng, ng), dtype=x.real.dtype, device=x.device)
-    fn = _entry_point(x.dtype, library)
+    name, argtypes = _ENTRY[x.dtype]
+    fn = getattr(LIBRARY.load(), name)
+    fn.restype = c_int
+    fn.argtypes = argtypes
     if x.dtype == torch.complex128:
         # read in place through the strides; a conjugate view carries a
         # flag, not conjugated data
@@ -88,29 +94,6 @@ def launch(x, square, library=LIBRARY):
     if rc != 0:
         raise RuntimeError(f"pair_gram_sq kernel launch failed: CUDA error "
                            f"{rc}")
-    return out
-
-
-def pair_gram_sq(x, square=True):
-    """x4[g,h] = (|sum_k conj(X_k) X_k^T|^2 / nk^2)^(2 if square else 1).
-
-    ``x``: (nk, ng, nao) or (ng, nao) complex64/complex128, any strides.
-    Returns the real (ng, ng) result of the matching precision on ``x``'s
-    device."""
-    if x.ndim == 2:
-        x = x[None]
-    if x.ndim != 3:
-        raise ValueError(f"expected (nk, ng, nao), got shape {tuple(x.shape)}")
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"expected complex64/complex128, got {x.dtype}")
-    if x.device.type == "cpu":
-        return pair_gram_sq_reference(x, square=square)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    out = launch(x, square)
-    if out is None:
-        ng = x.shape[1]
-        return torch.zeros((ng, ng), dtype=x.real.dtype, device=x.device)
     pair_gram_sq.launches += 1
     return out
 
