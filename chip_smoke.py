@@ -35,7 +35,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    GPU, through the public entry points (FFTISDF.build, get_jk, KUHF.kernel)
    on their default device; K1's launch count is reset right before it and
    must be >= 1 after; nip must be 1040 and e_tot within 1e-6 Ha of the
-   recorded slice energy.
+   recorded slice energy;
+5. the exact plane-wave oracle (PWDF): (a) diamond, J/K with
+   exxdiv='ewald' on the GPU against the CPU (1e-10 relative); (b) the
+   anchor's exact-PW KUHF on the GPU against the JAX package's exact energy
+   recorded in tests/data/nio_afm_kuhf_exact.json (1e-6 Ha), with the
+   ISDF-vs-exact dE/atom; (c) the slice's ISDF J/K against the port's exact
+   J/K on the JAX bench's test density, vj/vk_maxerr = max|ISDF - exact|
+   beside their scales max|exact| (each finite and below 1e-2), with the
+   exact arm's seconds;
+6. the device-resident SCF loop (DeviceKUHF): (a) on the slice's build
+   against the host KUHF (3e-8 Ha), s/cycle of both; (b) the production
+   configuration, NiO AFM gth-dzvp-molopt-sr ke 200, kmesh 4x4x4, c0 40,
+   m0 15^3, through the default-device entry points with K1's count reset
+   right before the build: K1 launched, nip 2480, DeviceKUHF converged
+   with Ni moments of opposite sign, equal to the host KUHF on the same
+   build (3e-8 Ha); stage times, setup, warm get_jk, cycles, s/cycle and
+   peak memory.  At both shapes the device loop's parts (eigensolve,
+   ADIIS, CDIIS, bisection) are timed on seeded random inputs.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +69,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
+EXACT = REPO / "tests" / "data" / "nio_afm_kuhf_exact.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
 K1_SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
              (1, 1, 1), (3, 129, 7), (5, 257, 3)]
@@ -63,6 +81,8 @@ PEAK_BYTES = 3.35e12
 AFM = {0: +1.0, 1: -1.0}
 SLICE_NIP = 1040
 SLICE_E_TOT = -360.3364120006     # the slice's converged energy on the H100
+PROD_NIP = 2480                   # c0 40 x nao 62
+SCF_KW = dict(conv_tol=1e-8, max_cycle=80, init_spin=AFM, smearing=5e-3)
 
 
 def log(*args):
@@ -352,7 +372,7 @@ def phase3_anchor(torch):
         raise RuntimeError("the port misses the JAX anchor")
 
 
-def phase4_slice(torch, kmesh):
+def phase4_slice(torch, kmesh, ctx):
     from fftisdf_tpu_torch.isdf import FFTISDF
     from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
     from fftisdf_tpu_torch.scf import KUHF
@@ -405,6 +425,247 @@ def phase4_slice(torch, kmesh):
     if not (vj.shape == (2, len(kpts), cell.nao_nr(), cell.nao_nr())
             and bool(torch.isfinite(vk).all())):
         raise RuntimeError("J/K of the slice are malformed")
+    ctx["slice"] = (cell, kpts, df)
+    return launches
+
+
+def _slice(ctx):
+    """(cell, kpts, FFTISDF) of the slice: phase 4's, or built here."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+
+    if "slice" not in ctx:
+        cell, kpts = _nio(100.0, [4, 4, 4])
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build()
+        ctx["slice"] = (cell, kpts, df)
+    return ctx["slice"]
+
+
+def _bench_density(cell, kpts):
+    """The JAX bench's time-reversal-symmetric hermitian test density
+    (bench.py, seed 0): (nk, nao, nao) complex."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+
+    rng = np.random.default_rng(0)
+    nk, nao = len(kpts), cell.nao_nr()
+    s = cell.get_scaled_kpts(kpts)
+    dm = rng.standard_normal((nk, nao, nao)) * 0.1 + np.eye(nao)[None]
+    dm = (dm + dm.transpose(0, 2, 1)).astype(np.complex128)
+    for k in range(nk):
+        km = kpt_mod.member(-s[k], s)
+        if km >= k:
+            avg = (dm[k] + dm[km].conj()) / 2
+            dm[k], dm[km] = avg, avg.conj()
+    return dm
+
+
+def phase5_exact(torch, ctx):
+    _exact_diamond(torch)
+    _exact_anchor(torch)
+    _exact_slice(torch, ctx)
+
+
+def _exact_diamond(torch):
+    """(a) diamond: the oracle on the card against the CPU."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import PWDF
+
+    cell, kpts = _diamond()
+    dm = np.stack([_bench_density(cell, kpts)] * 2)
+    dm[1] *= 0.5
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vj, vk = PWDF(cell, kpts, device=dev).get_jk(dm, exxdiv="ewald")
+        out[dev] = (vj.cpu().numpy(), vk.cpu().numpy())
+    rel = [np.abs(g - c).max() / np.abs(c).max()
+           for g, c in zip(out["cuda"], out["cpu"])]
+    log(f"[5] diamond PWDF (exxdiv='ewald') cuda vs cpu: J rel "
+        f"{rel[0]:.2e}, K rel {rel[1]:.2e}")
+    if not max(rel) <= 1e-10:
+        raise RuntimeError("the exact J/K disagree between cuda and cpu")
+
+
+def _exact_anchor(torch):
+    """(b) the anchor's exact-PW KUHF against the JAX package's."""
+    from fftisdf_tpu_torch.scf import KUHF
+
+    exact = json.loads(EXACT.read_text())
+    cfg = exact["config"]
+    cell, kpts = _nio(cfg["ke_cutoff"], cfg["kmesh"])
+    t0 = time.perf_counter()
+    mf = KUHF(cell, kpts, verbose=0, conv_tol=cfg["conv_tol"],
+              max_cycle=cfg["max_cycle"], init_spin=AFM,
+              smearing=cfg["smearing"])
+    e = mf.kernel()
+    t_ex = time.perf_counter() - t0
+    anchor = json.loads(ANCHOR.read_text())
+    e_isdf = anchor["e_tot"]
+    de = abs(e - exact["e_tot"])
+    log(f"[5] anchor exact-PW KUHF on {mf.with_df.device}: e_tot {e:.10f} "
+        f"conv {mf.converged} cycles {mf.cycles} ({t_ex:.1f}s); JAX exact "
+        f"{exact['e_tot']:.10f}: |dE| {de:.2e} Ha; ISDF (c0 "
+        f"{anchor['config']['c0']:g}, the JAX package's energy of phase 3) "
+        f"vs exact dE/atom {abs(e_isdf - e) / cell.natm:.2e} Ha")
+    if not (mf.converged and de <= 1e-6):
+        raise RuntimeError("the exact KUHF misses the JAX exact energy")
+
+
+def _exact_slice(torch, ctx):
+    """(c) the slice: ISDF J/K against the exact J/K."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import PWDF
+
+    cell, kpts, df = _slice(ctx)
+    dm = _bench_density(cell, kpts)
+    vj_i, vk_i = df.get_jk(dm)
+    t0 = time.perf_counter()
+    pw = PWDF(cell, kpts)
+    torch.cuda.synchronize()
+    t_ao = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vj_e, vk_e = pw.get_jk(dm)
+    torch.cuda.synchronize()
+    t_jk = time.perf_counter() - t0
+    del pw
+    errs = {}
+    for name, a, b in (("vj", vj_i, vj_e), ("vk", vk_i, vk_e)):
+        errs[name] = (float((a - b).abs().max()), float(b.abs().max()))
+    log(f"[5] slice exact arm: AO tensor {t_ao:.2f}s, exact J/K "
+        f"{t_jk:.2f}s; " + ", ".join(
+            f"{n}_maxerr {e:.3e} (scale {sc:.3f})"
+            for n, (e, sc) in errs.items()))
+    if not all(np.isfinite(e) and e < 1e-2 for e, _ in errs.values()):
+        raise RuntimeError("the slice's ISDF J/K miss the exact J/K")
+
+
+def _scf_line(tag, mf, seconds):
+    per = seconds[1:] or seconds
+    return (f"{tag}: e_tot {mf.e_tot:.10f} conv {mf.converged} cycles "
+            f"{mf.cycles}, {sum(seconds):.2f}s ({sum(per) / len(per):.4f} "
+            f"s/cycle past the first, first {seconds[0]:.3f}s)")
+
+
+def _device_loop_parts(torch, mf):
+    """Wall milliseconds per call, the device synchronised before and
+    after 5 calls, of the device loop's parts at the shapes of ``mf``'s
+    run, on seeded random inputs: the batched eigensolve, the ADIIS
+    descent, the CDIIS solve and one spin's chemical-potential
+    bisection."""
+    from fftisdf_tpu_torch.scf import core
+
+    dev = mf.with_df.device
+    nk, nao = mf.h1e.shape[:2]
+    m, L = mf.diis_space, 2 * nk * nao * nao
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randc(*shape):
+        return torch.complex(*(torch.randn(shape, generator=g, device=dev,
+                                           dtype=torch.float64)
+                               for _ in range(2)))
+
+    fo = randc(2, nk, nao, nao)
+    fo = fo + fo.mH
+    hist = [randc(m, L) for _ in range(3)]
+    live = torch.ones(m, dtype=torch.bool, device=dev)
+    e = torch.sort(torch.randn((nk, nao), generator=g, device=dev,
+                               dtype=torch.float64), dim=1)[0]
+    ok = torch.ones_like(e, dtype=torch.bool)
+    parts = {
+        f"eigh (2, {nk}, {nao}, {nao})": lambda: torch.linalg.eigh(fo),
+        "ADIIS (400 steps)": lambda: core.adiis_coeffs(hist[0], hist[1], 0,
+                                                        live),
+        "CDIIS solve": lambda: core.diis_extrapolate(hist[2], hist[1],
+                                                     live),
+        "mu bisection (90 steps, one spin)": lambda: core.smeared_occ(
+            e, ok, float(nk * nao // 2), 5e-3, "fermi"),
+    }
+    out = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        out.append(f"{name} {(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+    return "; ".join(out)
+
+
+def phase6_device_scf(torch, ctx):
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+    from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+
+    # (a) the slice: device loop against host loop on one build
+    cell, kpts, df = _slice(ctx)
+    host = KUHF(cell, kpts, df, verbose=0, **SCF_KW)
+    host.kernel()
+    dev = DeviceKUHF(cell, kpts, df, verbose=0, **SCF_KW)
+    dev.kernel()
+    de = abs(dev.e_tot - host.e_tot)
+    log("[6] slice " + _scf_line("host KUHF", host, host.cycle_seconds))
+    log("[6] slice " + _scf_line("DeviceKUHF", dev, dev.cycle_times)
+        + f"; |dE| {de:.2e} Ha")
+    log(f"[6] slice device-loop parts: {_device_loop_parts(torch, dev)}")
+    if not (host.converged and dev.converged and de <= 3e-8):
+        raise RuntimeError("DeviceKUHF and KUHF disagree on the slice")
+    del host, dev, df
+    ctx.pop("slice", None)
+    torch.cuda.empty_cache()
+
+    # (b) the production configuration
+    from fftisdf_tpu_torch.lattice import structure
+
+    cell = structure.to_cell(*structure.nio_afm(),
+                             basis="gth-dzvp-molopt-sr", pseudo="gth-pade",
+                             ke_cutoff=200.0, exp_to_discard=0.1)
+    kpts = cell.get_kpts([4, 4, 4])
+    log(f"[6] production NiO AFM gth-dzvp-molopt-sr ke 200 kmesh 4x4x4: "
+        f"nao {cell.nao_nr()} nelec {cell.nelectron} mesh "
+        f"{[int(m) for m in cell.mesh]} nk {len(kpts)}")
+    torch.cuda.reset_peak_memory_stats()
+    pair_gram_sq.launches = 0
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=3).build()
+    launches = pair_gram_sq.launches
+    t = df.timings
+    log(f"[6] production build: nip {df.nip}, selection {t['select_s']:.3f}s,"
+        f" metric pass {t['metric_s']:.3f}s (sweep {t['sweep_s']:.3f}s, "
+        f"solve/FFT/gram {t['solve_s']:.3f}s), total {t['build_s']:.3f}s, "
+        f"{df.nchunks} chunk(s); K1 launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if launches < 1 or df.device.type != "cuda" or df.nip != PROD_NIP:
+        raise RuntimeError(f"the production build: K1 launches {launches}, "
+                           f"device {df.device}, nip {df.nip} (expected "
+                           f"{PROD_NIP})")
+    t0 = time.perf_counter()
+    mf = DeviceKUHF(cell, kpts, df, verbose=3, **SCF_KW)
+    log(f"[6] production one-electron setup {time.perf_counter() - t0:.2f}s")
+    dm0 = mf.get_init_guess()
+    df.get_jk(dm0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df.get_jk(dm0)
+    torch.cuda.synchronize()
+    log(f"[6] production warm get_jk (2 spins) "
+        f"{time.perf_counter() - t0:.4f}s")
+    mf.kernel()
+    _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+    log("[6] production " + _scf_line("DeviceKUHF", mf, mf.cycle_times)
+        + f"; Ni moments {mom[0]:+.4f} {mom[1]:+.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[6] production device-loop parts: {_device_loop_parts(torch, mf)}")
+    if not (mf.converged and mom[0] * mom[1] < 0):
+        raise RuntimeError("the production DeviceKUHF did not converge to "
+                           "an AFM state")
+    host = KUHF(cell, kpts, df, verbose=0, **SCF_KW)
+    host.kernel()
+    de = abs(mf.e_tot - host.e_tot)
+    log("[6] production " + _scf_line("host KUHF", host, host.cycle_seconds)
+        + f"; |dE| against DeviceKUHF {de:.2e} Ha")
+    if not (host.converged and de <= 3e-8):
+        raise RuntimeError("DeviceKUHF and KUHF disagree on the production "
+                           "configuration")
     return launches
 
 
@@ -416,13 +677,23 @@ def main():
         only = {int(p) for p in sys.argv[1].split(",")}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
+    ctx = {}
+
+    def timed(p, fn, *args):
+        if not run(p):
+            return None
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        log(f"[{p}] phase {p} {time.perf_counter() - t0:.1f}s")
+        return out
+
     smi = phase0_environment(torch)
-    k1 = phase1_kernel(torch) if run(1) else {}
-    if run(2):
-        phase2_device_vs_host(torch)
-    if run(3):
-        phase3_anchor(torch)
-    launches = phase4_slice(torch, [4, 4, 4]) if run(4) else 0
+    k1 = timed(1, phase1_kernel) or {}
+    timed(2, phase2_device_vs_host)
+    timed(3, phase3_anchor)
+    launches = timed(4, phase4_slice, [4, 4, 4], ctx) or 0
+    timed(5, phase5_exact, ctx)
+    prod_launches = timed(6, phase6_device_scf, ctx) or 0
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -433,6 +704,7 @@ def main():
         "source": "fftisdf_tpu_torch/ops/csrc/pair_gram.cu",
         "replaces": "fftisdf_tpu/ops/pallas_gram.py:110",
         "launches": launches,
+        "production_launches": prod_launches,
         **k1,
     }]}
     log(smi)

@@ -1,6 +1,6 @@
 """ISDF J/K from the built state (x_k, w_q): dense algebra.
 
-Counterpart of ``fftisdf_tpu/isdf/jk.py`` for ``exxdiv=None``.
+Counterpart of ``fftisdf_tpu/isdf/jk.py``.
 
 J:  vj[k]_{mn} = sum_I conj(x_{k,I,m}) x_{k,I,n} v_I,
     v = w_{q=0} rho,   rho_I = (1/nk) sum_k (x_k dm_k x_k^H)_{II}.
@@ -35,6 +35,12 @@ def get_j_kpts(x_k, w0, dms):
     rho = (t * x_k.conj().unsqueeze(0)).sum(dim=(1, 3)) / nk  # (x, I)
     v = rho @ w0.T                                        # (x, I)
     return x_k.mH.unsqueeze(0) @ (v[:, None, :, None] * x_k.unsqueeze(0))
+
+
+def add_ewald_exx(vk, s1e, dms, mad):
+    """Probe-charge (``exxdiv='ewald'``) correction of the q+G = 0 exchange
+    term: vk[k] += madelung S_k dm_k S_k, over any leading set axes."""
+    return vk + mad * (s1e @ dms @ s1e)
 
 
 def get_k_kpts(x_k, wq, phase, dms):
@@ -75,14 +81,17 @@ def wq_to_ws(wq, kmesh):
     return out.real * nk
 
 
-def get_k_kpts_img(x_k, ws, dms, kmesh):
+def get_k_kpts_img(x_k, ws, dms, kmesh, phase_cs=None):
     """vk from the precomputed image-space metric (:func:`wq_to_ws`); the
     algebra of :func:`get_k_kpts` with the two per-density phase
     contractions as real cos/sin matmuls:
 
-        rhos = C Re(rhok) - S Im(rhok),   vk_q = (C + iS) vs."""
+        rhos = C Re(rhok) - S Im(rhok),   vk_q = (C + iS) vs.
+
+    ``phase_cs``: (C, S) from :func:`_phase_cs`, made here when None."""
     nk, nip, _ = x_k.shape
-    c, s = _phase_cs(kmesh, ws.dtype, ws.device)
+    c, s = (_phase_cs(kmesh, ws.dtype, ws.device) if phase_cs is None
+            else phase_cs)
     ws_f = ws.reshape(nk, -1)
     out = []
     for dm in dms:

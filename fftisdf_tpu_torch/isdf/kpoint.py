@@ -14,9 +14,12 @@ built state is ``(x_k, w_q)``: (nk, nip, nao) interpolation vectors and
   the FFT of ``g e^{-iqr}``, the PSD Coulomb split and the gram
   ``h h^H``.  Non-canonical sectors are conjugate mirrors.
 
+- Serve: J/K with ``exxdiv=None`` or ``'ewald'`` (the Madelung probe-charge
+  correction), and ERIs of momentum-conserving k quadruples.
+
 Not ported yet (``NotImplementedError``): ``m0='auto'`` with densify, the
-f32 regime (host-f64 selection, ``select_keep``), omega, truncated kernels,
-``exxdiv='ewald'``, ``kpts_band`` and ``get_eri``.
+f32 regime (host-f64 selection, ``select_keep``), omega, truncated kernels
+and ``kpts_band``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from fftisdf_tpu_torch.linalg.solvers import (finish_apply, half_apply_rows,
                                               half_factor_data,
                                               fitting_half_operator)
 from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+from fftisdf_tpu_torch.pw.poisson import eiqr
 from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, as_tensor,
                                             free_memory_bytes, resolve_device)
 from fftisdf_tpu_torch.utils.logging import Logger
@@ -117,12 +121,6 @@ def _select_once(cell, kpts, m0, c0, select_tol, log, device):
 
 
 # ------------------------------------------------------------- metric pass
-def _eiqr_kernel(coords, kpts):
-    """e^{i q.r} phases (nq, ngrid)."""
-    t = (coords @ kpts.T).T
-    return torch.polar(torch.ones_like(t), t)
-
-
 def _stripe_quartic(x_k, phase):
     """x4_k[q] via the stripe trick: k -> image space, elementwise square,
     back to k with ``phase.conj()``.  Equals (1/sqrt(nk)) times the normal
@@ -251,6 +249,10 @@ class FFTISDF:
         self.wq = None
         self.mask = None
         self._ws = None
+        self._madelung = None
+        self._s1e = None
+        self._kconserv2 = None
+        self._kconserv3 = None
         self.timings = {}
         self.nchunks = 0
 
@@ -275,6 +277,16 @@ class FFTISDF:
     @property
     def phase(self):
         return kpt_mod.get_phase(self.cell, self.kpts, self.kmesh)
+
+    def kconserv2(self):
+        if self._kconserv2 is None:
+            self._kconserv2 = kpt_mod.get_kconserv2(self.cell, self.kpts)
+        return self._kconserv2
+
+    def kconserv3(self):
+        if self._kconserv3 is None:
+            self._kconserv3 = kpt_mod.get_kconserv3(self.cell, self.kpts)
+        return self._kconserv3
 
     # ------------------------------------------------------------------
     def build(self, mask=None):
@@ -391,7 +403,7 @@ class FFTISDF:
             cell, kq, torch.as_tensor(cell.get_Gv(mesh), dtype=REAL,
                                       device=dev))
         coords_t = torch.as_tensor(coords, dtype=REAL, device=dev)
-        eiqr = _eiqr_kernel(coords_t, kq)
+        ph = eiqr(coords_t, kq)
         wq_sel = torch.empty((nsec, nip, nip), dtype=COMPLEX, device=dev)
 
         # stage times: one device sync after each chunk's sweep and solves
@@ -420,7 +432,7 @@ class FFTISDF:
                 y_q = ys[i]
                 ys[i] = None      # the solve overwrites and releases it
                 wq_sel[iq] = _sector_wq(x4_k[qsel[iq]], y_q, coulG[iq],
-                                        eiqr[iq], mesh, vol,
+                                        ph[iq], mesh, vol,
                                         rcond=self.rcond, refine=self.refine)
                 del y_q
             _sync(dev)
@@ -454,12 +466,12 @@ class FFTISDF:
                omega=None, kpts_band=None):
         """(vj, vk) tensors on the object's device for ``dm_kpts``
         (nk, nao, nao) or (nset, nk, nao, nao); ``None`` for a skipped
-        part."""
+        part.  ``exxdiv='ewald'`` adds the Madelung probe-charge term
+        to vk."""
         if omega is not None and float(omega) != 0.0:
             raise NotImplementedError("range separation (omega)")
-        if exxdiv is not None:
-            raise NotImplementedError(f"exxdiv={exxdiv!r}: only None is "
-                                      "ported")
+        if exxdiv not in (None, "ewald"):
+            raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
         if kpts_band is not None:
             raise NotImplementedError("kpts_band")
         if self.x_k is None:
@@ -471,13 +483,42 @@ class FFTISDF:
         vj = jk_mod.get_j_kpts(self.x_k, self.wq[0], dm) if with_j else None
         vk = (jk_mod.get_k_kpts_img(self.x_k, self.get_ws(), dm, self.kmesh)
               if with_k else None)
+        if exxdiv == "ewald" and with_k:
+            vk = jk_mod.add_ewald_exx(vk, self.get_ovlp(), dm,
+                                      self.madelung())
         if single:
             vj = None if vj is None else vj[0]
             vk = None if vk is None else vk[0]
         return vj, vk
 
-    def get_eri(self, kidx, compact=False):
-        raise NotImplementedError("get_eri is not ported yet")
+    def madelung(self):
+        """Probe-charge Madelung constant of the BvK supercell (cached)."""
+        if self._madelung is None:
+            from fftisdf_tpu_torch.scf.integrals import madelung
+
+            self._madelung = madelung(self.cell, self.kmesh)
+        return self._madelung
+
+    def get_ovlp(self):
+        """Overlap S_k on the FFT-grid quadrature (cached; streamed)."""
+        if self._s1e is None:
+            from fftisdf_tpu_torch.scf.integrals import get_ovlp_kpts
+
+            self._s1e = get_ovlp_kpts(self.cell, self.kpts,
+                                      device=self.device)
+        return self._s1e
+
+    def get_eri(self, kidx):
+        """ERI tensor (nao, nao, nao, nao) of the momentum-conserving
+        quadruple ``kidx = (k1, k2, k3, k4)``."""
+        from fftisdf_tpu_torch.isdf.eri import assemble_eri
+
+        k1, k2, k3, k4 = (int(k) for k in kidx)
+        if self.kconserv3()[k1, k2, k3] != k4:
+            raise ValueError(f"quadruple {kidx} does not conserve momentum")
+        q = int(self.kconserv2()[k1, k2])
+        x = self.x_k
+        return assemble_eri(self.wq[q], x[k1], x[k2], x[k3], x[k4])
 
     # ------------------------------------------------------------------
     def save(self, path):

@@ -69,3 +69,26 @@ def member(kpt_scaled: np.ndarray, kpts_scaled: np.ndarray, tol=1e-8,
         return -1
     return int(hit[0])
 
+
+def _members(targets, kpts_scaled, tol=1e-8):
+    """:func:`member` of every row of ``targets`` (..., 3) at once."""
+    diff = targets[..., None, :] - kpts_scaled
+    diff = diff - np.rint(diff)
+    hit = np.all(np.abs(diff) < tol, axis=-1)
+    if not (hit.sum(axis=-1) == 1).all():
+        raise ValueError("k-point not found (or degenerate) in list")
+    return np.argmax(hit, axis=-1).astype(np.int64)
+
+
+def get_kconserv2(cell: Cell, kpts: np.ndarray) -> np.ndarray:
+    """kconserv2[k1,k2] = index of (kpts[k2] - kpts[k1]) mod G."""
+    s = cell.get_scaled_kpts(kpts)
+    return _members(s[None, :, :] - s[:, None, :], s)
+
+
+def get_kconserv3(cell: Cell, kpts: np.ndarray) -> np.ndarray:
+    """kconserv3[k1,k2,k3] = k4 with k1 - k2 + k3 - k4 = G."""
+    s = cell.get_scaled_kpts(kpts)
+    return np.stack([_members(s[i] - s[:, None, :] + s[None, :, :], s)
+                     for i in range(len(s))])
+

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from fftisdf_tpu_torch.utils.device import REAL, resolve_device
+
 
 def _check_bare(omega, trunc):
     if omega:
@@ -29,6 +31,18 @@ def _coulG_vec(gk, omega=0.0, trunc=None):
     ok = absg2 > 1e-12
     safe = torch.where(ok, absg2, torch.ones_like(absg2))
     return torch.where(ok, 4.0 * math.pi / safe, torch.zeros_like(absg2))
+
+
+def get_coulG(cell, q=None, mesh=None, omega=0.0, trunc=None, *,
+              device="cuda"):
+    """Kernel values on the FFT grid of ``mesh`` at momentum ``q``:
+    (ngrid,) real on ``device``."""
+    _check_bare(omega, trunc)
+    device = resolve_device(device)
+    gv = torch.as_tensor(cell.get_Gv(mesh), dtype=REAL, device=device)
+    if q is not None:
+        gv = gv + torch.as_tensor(q, dtype=gv.dtype, device=device)[None, :]
+    return _coulG_vec(gv)
 
 
 def get_coulG_batched(cell, qs, gv, omega=0.0, trunc=None):

@@ -1,0 +1,140 @@
+"""Exact plane-wave J/K at mesh k-points (the FFTDF-equivalent oracle).
+
+Counterpart of ``fftisdf_tpu/pw/jk.py``: the slow exact method that ISDF
+is measured against.  Density-matrix convention: dm[k]_{mn} with electron
+density n(r) = (1/nk) sum_k sum_{mn} dm[k]_{mn} phi_{k,m}(r)
+conj(phi_{k,n}(r)).
+
+The exchange sweep solves one periodic Poisson problem per (k1, k2) pair
+and AO pair (m, n): nk^2 nao^2 FFTs and inverse FFTs of the full mesh.
+Work items (k-pair, bra row m) are batched into one ``torch.fft.fftn``
+over the last three axes, as many as a byte budget holds (a quarter of
+the device's free memory unless ``max_memory_gb`` is given); when one
+pair's nao rows do not fit, the pair's bra rows are split into blocks.
+Partial sums go into vk with ``index_add_`` on the device, and the loop
+makes no host synchronisation.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from fftisdf_tpu_torch.linalg.coulomb import _check_bare, get_coulG
+from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
+from fftisdf_tpu_torch.pw.poisson import eiqr
+from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, as_tensor,
+                                            free_memory_bytes)
+
+# complex temporaries of one work item (k-pair, bra row) per AO and grid
+# point: the pair density, its transform, cuFFT's workspace, the potential
+_ITEM_TEMPS = 4
+
+
+def get_j_kpts(cell, dm_kpts, ao_kpts, mesh=None, ao_band=None, omega=0.0,
+               trunc=None):
+    """Hartree matrix vj (nk, nao, nao) from AO values ao_kpts
+    (nk, ngrid, nao) on their device."""
+    if ao_band is not None:
+        raise NotImplementedError("band k-points (ao_band)")
+    mesh = tuple(int(m) for m in (cell.mesh if mesh is None else mesh))
+    nk, ng, _ = ao_kpts.shape
+    dev = ao_kpts.device
+    dm = as_tensor(dm_kpts, dev, COMPLEX)
+    coulG = get_coulG(cell, mesh=mesh, omega=omega, trunc=trunc, device=dev)
+    n_g = ((ao_kpts @ dm) * ao_kpts.conj()).sum(dim=(0, 2)) / nk
+    vcoul = ifft3(fft3(n_g, mesh) * coulG, mesh)
+    return (cell.vol / ng) * (ao_kpts.mH @ (vcoul[None, :, None] * ao_kpts))
+
+
+def _pair_plan(nk, ng, nao, budget):
+    """(pairs per batch, bra rows per batch) for a byte budget."""
+    per_row = _ITEM_TEMPS * nao * ng * 16
+    rows = max(1, int(budget // per_row))
+    if rows >= nao:
+        return min(nk * nk, rows // nao), nao
+    return 1, rows
+
+
+def get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
+               ao_band=None, kpts_band=None, g0_thresh=1e-12,
+               g0_argmin_thresh=None, omega=0.0, trunc=None,
+               max_memory_gb=None):
+    """Exchange matrix vk (nk, nao, nao) by exact pairwise Poisson solves.
+
+    vk[k1]_{mn} = (w/nk) sum_{k2,g,l} V^{k1k2}_{ml}(g) u^{k2}_l(g)
+    ao_{k1,n}(g), with V^{k1k2}_{ml} the potential of the pair density
+    conj(ao_{k1,m}) ao_{k2,l} (momentum q = k2 - k1), u^{k2} =
+    conj(ao_{k2}) dm_{k2}^T and w = vol/ngrid.
+
+    ``g0_thresh``: kernel samples with |q+G|^2 at or below it are excluded;
+    the default removes exactly the singular q+G = 0 term (the
+    ``exxdiv=None`` convention).  ``max_memory_gb``: the batch's byte
+    budget (default: a quarter of the device's free memory)."""
+    if ao_band is not None or kpts_band is not None:
+        raise NotImplementedError("band k-points (ao_band, kpts_band)")
+    if g0_argmin_thresh is not None:
+        raise NotImplementedError("g0_argmin_thresh (band paths)")
+    _check_bare(omega, trunc)
+    mesh = tuple(int(m) for m in (cell.mesh if mesh is None else mesh))
+    if coords is None:
+        coords = cell.gen_uniform_grids(mesh)
+    nk, ng, nao = ao_kpts.shape
+    dev = ao_kpts.device
+    dm = as_tensor(dm_kpts, dev, COMPLEX)
+    kpts_t = as_tensor(np.asarray(kpts), dev, REAL)
+    coords_t = as_tensor(coords, dev, REAL)
+    gv = as_tensor(cell.get_Gv(mesh), dev, REAL)
+    u = ao_kpts.conj() @ dm.transpose(1, 2)                # (nk, ng, nao)
+    budget = (0.25 * free_memory_bytes(dev) if max_memory_gb is None
+              else float(max_memory_gb) * 1e9)
+    pb, rb = _pair_plan(nk, ng, nao, budget)
+    vk = torch.zeros((nk, nao, nao), dtype=COMPLEX, device=dev)
+    scale = cell.vol / ng / nk
+    npair = nk * nk
+    for p0 in range(0, npair, pb):
+        pidx = torch.arange(p0, min(p0 + pb, npair), device=dev)
+        k1, k2 = pidx // nk, pidx % nk
+        np_ = pidx.shape[0]
+        q = kpts_t[k2] - kpts_t[k1]                        # (P, 3)
+        ph = eiqr(coords_t, q)                             # (P, ng)
+        gk = gv[None] + q[:, None, :]
+        absg2 = (gk * gk).sum(dim=-1)
+        keep = absg2 > g0_thresh
+        coulG = torch.where(
+            keep, 4.0 * math.pi / torch.where(keep, absg2,
+                                              torch.ones_like(absg2)),
+            torch.zeros_like(absg2)).reshape(np_, 1, 1, *mesh)
+        a1 = ao_kpts[k1]                                   # (P, ng, nao)
+        b2 = (ao_kpts[k2] * ph.conj()[:, :, None]).transpose(1, 2)
+        b2 = b2.contiguous()                               # (P, nao, ng)
+        u2 = u[k2].transpose(1, 2)                         # (P, nao, ng)
+        for r0 in range(0, nao, rb):
+            r1 = min(r0 + rb, nao)
+            a1c = a1[:, :, r0:r1].conj().transpose(1, 2).contiguous()
+            rho = (a1c[:, :, None, :] * b2[:, None, :, :]).reshape(
+                np_, r1 - r0, nao, *mesh)
+            work = torch.fft.fftn(rho, dim=(-3, -2, -1))
+            del rho
+            work.mul_(coulG)
+            v = torch.fft.ifftn(work, dim=(-3, -2, -1))
+            del work
+            v = v.reshape(np_, r1 - r0, nao, ng)
+            v.mul_(u2[:, None])
+            tm = v.sum(dim=2) * ph[:, None, :]             # (P, rows, ng)
+            del v
+            vk[:, r0:r1].index_add_(0, k1, (tm @ a1) * scale)
+    return vk
+
+
+def get_jk_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
+                with_j=True, with_k=True, omega=0.0, trunc=None):
+    """(vj, vk) exact plane-wave build; either may be None if not
+    requested."""
+    vj = (get_j_kpts(cell, dm_kpts, ao_kpts, mesh, omega=omega, trunc=trunc)
+          if with_j else None)
+    vk = (get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh, coords, omega=omega,
+                     trunc=trunc)
+          if with_k else None)
+    return vj, vk

@@ -1,14 +1,15 @@
-"""k-point Hartree-Fock (KRHF / KUHF) with DIIS on top of ISDF J/K.
+"""k-point Hartree-Fock (KRHF / KUHF) with DIIS on top of any J/K provider.
 
 Counterpart of the host SCF loops of ``fftisdf_tpu/scf/hf.py``.  J/K
-come from the provider ``with_df`` (an :class:`~fftisdf_tpu_torch.isdf.
-kpoint.FFTISDF`) on its device; the one-electron setup runs on ``device``;
-the per-k algebra of the loop (generalised eigensolves, densities, DIIS)
-is small and runs on the host in complex128.  ``exxdiv=None`` throughout.
+come from the provider ``with_df`` on its device: an
+:class:`~fftisdf_tpu_torch.isdf.kpoint.FFTISDF` (the fast path) or, when
+``with_df`` is None, :class:`PWDF` (the exact plane-wave oracle).  The
+one-electron setup runs on ``device``; the per-k algebra of the loop
+(generalised eigensolves, densities, DIIS) is small and runs on the host
+in complex128 (``scf.device`` keeps it on the card).  ``exxdiv`` is None
+(the reference's convention) or ``'ewald'``.
 
-Not ported yet: the exact plane-wave provider (``PWDF``), band structures,
-checkpoints, truncated kernels and the device-resident SCF loops of
-``scf/device.py``.
+Not ported yet: band structures, checkpoints and truncated kernels.
 """
 from __future__ import annotations
 
@@ -18,13 +19,56 @@ import numpy as np
 import torch
 
 from fftisdf_tpu_torch.basis.eval import make_evaluator
+from fftisdf_tpu_torch.isdf.jk import add_ewald_exx
+from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+from fftisdf_tpu_torch.pw import jk as pw_jk
 from fftisdf_tpu_torch.scf import integrals
 from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
                                         fixed_occupations,
                                         smeared_occupations)
-from fftisdf_tpu_torch.utils.device import (free_memory_bytes,
+from fftisdf_tpu_torch.utils.device import (COMPLEX, as_tensor,
+                                            free_memory_bytes,
                                             resolve_device, to_numpy)
 from fftisdf_tpu_torch.utils.logging import Logger
+
+
+class PWDF:
+    """Exact plane-wave J/K provider (the FFTDF oracle) with the
+    ``get_jk`` interface of :class:`~fftisdf_tpu_torch.isdf.kpoint.FFTISDF`.
+    Holds the full-grid AO tensor (nk, ngrid, nao) on ``device``."""
+
+    def __init__(self, cell, kpts, trunc=None, *, device="cuda"):
+        if trunc is not None:
+            raise NotImplementedError("truncated Coulomb kernels (trunc)")
+        self.device = resolve_device(device)
+        self.cell = cell
+        self.kpts = np.asarray(kpts)
+        self.coords = cell.gen_uniform_grids()
+        self.ao = make_evaluator(cell, kpts=self.kpts,
+                                 device=self.device)(self.coords)
+        self._madelung = None
+        self._s1e = None
+
+    def get_jk(self, dm, with_j=True, with_k=True, exxdiv=None, omega=None):
+        if exxdiv not in (None, "ewald"):
+            raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
+        if omega is not None and float(omega) != 0.0:
+            raise NotImplementedError("range separation (omega)")
+        dm = as_tensor(dm, self.device, COMPLEX)
+        if dm.ndim == 4:                                  # spin/set axis
+            out = [self.get_jk(d, with_j, with_k, exxdiv) for d in dm]
+            return (torch.stack([o[0] for o in out]) if with_j else None,
+                    torch.stack([o[1] for o in out]) if with_k else None)
+        vj = pw_jk.get_j_kpts(self.cell, dm, self.ao) if with_j else None
+        vk = (pw_jk.get_k_kpts(self.cell, dm, self.ao, self.kpts,
+                               coords=self.coords) if with_k else None)
+        if exxdiv == "ewald" and with_k:
+            if self._madelung is None:
+                kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
+                self._madelung = integrals.madelung(self.cell, kmesh)
+                self._s1e = integrals.get_ovlp(self.cell, self.ao)
+            vk = add_ewald_exx(vk, self._s1e, dm, self._madelung)
+        return vj, vk
 
 
 class DIIS:
@@ -51,14 +95,17 @@ class DIIS:
         n = len(self.errs)
         err_norm = float(np.abs(self.errs[-1]).max())
         valid = np.array([d is not None for d in self.dms])
+        focks = torch.from_numpy(np.asarray(self.focks))
         if (self.adiis_switch > 0 and self.dms[-1] is not None
                 and valid.sum() >= 2 and err_norm > self.adiis_switch):
             dms = np.stack([np.zeros_like(self.focks[0]) if d is None else d
                             for d in self.dms])
-            c = adiis_coeffs(dms, np.asarray(self.focks), n - 1, valid)
-            return np.einsum("i,il->l", c, np.asarray(self.focks))
-        return diis_extrapolate(np.asarray(self.errs), np.asarray(self.focks),
-                                np.ones(n, dtype=bool))
+            c = adiis_coeffs(torch.from_numpy(dms), focks, n - 1,
+                             torch.from_numpy(valid))
+            return (c.to(focks.dtype) @ focks).numpy()
+        return diis_extrapolate(torch.from_numpy(np.asarray(self.errs)),
+                                focks, torch.ones(n, dtype=torch.bool)
+                                ).numpy()
 
 
 def _eigh_gen(f, s, cutoff=1e-10):
@@ -106,19 +153,17 @@ def _setup_one_electron(cell, kpts, device, log):
 class KRHF:
     """Restricted HF over a uniform k-mesh (fixed or smeared occupations).
 
-    ``with_df`` is the J/K provider (required); ``device`` is where the
-    one-electron integrals are built."""
+    ``with_df`` is the J/K provider (None: a :class:`PWDF` on ``device``);
+    ``device`` is where the one-electron integrals are built; ``exxdiv``
+    None or ``'ewald'`` is passed to the provider."""
 
-    def __init__(self, cell, kpts, with_df, max_cycle=50, conv_tol=1e-8,
+    def __init__(self, cell, kpts, with_df=None, max_cycle=50, conv_tol=1e-8,
                  diis_space=8, adiis_switch=1e-2, exxdiv=None,
                  level_shift=0.0, damp=0.0, smearing=0.0,
                  smearing_method="fermi", ovlp_cutoff=1e-10, verbose=3, *,
                  device="cuda"):
-        if with_df is None:
-            raise NotImplementedError("the exact plane-wave J/K provider "
-                                      "(PWDF) is not ported: pass with_df")
-        if exxdiv is not None:
-            raise NotImplementedError(f"exxdiv={exxdiv!r}")
+        if exxdiv not in (None, "ewald"):
+            raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
         self.device = resolve_device(device)
         self.cell = cell
         self.kpts = np.asarray(kpts)
@@ -146,6 +191,8 @@ class KRHF:
         self.s1e, self.h1e = _setup_one_electron(cell, self.kpts,
                                                  self.device, self._log)
         self.e_nuc = integrals.ewald(cell)
+        if self.with_df is None:
+            self.with_df = PWDF(cell, self.kpts, device=self.device)
 
     @property
     def nocc(self):
@@ -248,7 +295,7 @@ class KUHF(KRHF):
     and in the Fock of the first ``bias_cycles`` cycles (AFM symmetry
     breaking); a caller-provided ``dm0`` skips the bias."""
 
-    def __init__(self, cell, kpts, with_df, init_spin=None, spin_bias=0.5,
+    def __init__(self, cell, kpts, with_df=None, init_spin=None, spin_bias=0.5,
                  bias_cycles=4, **kw):
         self.init_spin = dict(init_spin or {})
         self.spin_bias = spin_bias
@@ -264,20 +311,25 @@ class KUHF(KRHF):
             off += nfa
         return blocks
 
+    def _bias_matrices(self):
+        """The on-site level shifts (2, nk, nao, nao): -/+ spin_bias
+        init_spin[atom] S_k on each biased atom's block, spin up/down."""
+        bias = np.zeros((2,) + self.s1e.shape, dtype=np.complex128)
+        for ia, (off, nfa) in enumerate(self._atom_blocks()):
+            b = self.init_spin.get(ia, 0.0)
+            if b == 0.0:
+                continue
+            blk = self.s1e[:, off:off + nfa, off:off + nfa]
+            for s, sgn in ((0, -1.0), (1, +1.0)):
+                bias[s, :, off:off + nfa, off:off + nfa] += (
+                    sgn * self.spin_bias * b * blk)
+        return bias
+
     def _apply_bias(self, fock):
         """Spin-dependent on-site level shifts (AFM symmetry breaking)."""
         if not self.init_spin:
             return fock
-        fock = fock.copy()
-        for ia, (off, nfa) in enumerate(self._atom_blocks()):
-            bias = self.init_spin.get(ia, 0.0)
-            if bias == 0.0:
-                continue
-            blk = self.s1e[:, off:off + nfa, off:off + nfa]
-            for s, sgn in ((0, -1.0), (1, +1.0)):
-                fock[s, :, off:off + nfa, off:off + nfa] += (
-                    sgn * self.spin_bias * bias * blk)
-        return fock
+        return fock + self._bias_matrices()
 
     @property
     def nocc_ab(self):
@@ -287,16 +339,10 @@ class KUHF(KRHF):
 
     def get_init_guess(self):
         nk = self.h1e.shape[0]
+        bias = self._bias_matrices()
         dms = []
         for ispin, nocc in enumerate(self.nocc_ab):
-            h = self.h1e.copy()
-            if self.init_spin:
-                sgn = -1.0 if ispin == 0 else 1.0
-                for ia, (off, nfa) in enumerate(self._atom_blocks()):
-                    bias = self.init_spin.get(ia, 0.0)
-                    h[:, off:off + nfa, off:off + nfa] += (
-                        sgn * self.spin_bias * bias
-                        * self.s1e[:, off:off + nfa, off:off + nfa])
+            h = self.h1e + bias[ispin]
             es, cs = [], []
             for k in range(nk):
                 e, c = _eigh_gen(h[k], self.s1e[k], cutoff=self.ovlp_cutoff)
@@ -321,6 +367,35 @@ class KUHF(KRHF):
         ex = -0.5 * np.einsum("skmn,sknm->", dm, vk).real / nk
         return e1 + ecoul + ex
 
+    def _solve_fock(self, fock):
+        """Per-spin generalised eigensolves of ``fock`` (2, nk, nao, nao)
+        and their occupations: ``(es, cs, occs, dm, entropy, mus)``, with
+        a chemical potential per spin when smearing is on."""
+        nk = fock.shape[1]
+        es, cs, occs, mus = [], [], [], []
+        dm = np.empty_like(fock)
+        entropy = 0.0
+        for s, nocc in enumerate(self.nocc_ab):
+            es_s, cs_s = [], []
+            for k in range(nk):
+                e, c = _eigh_gen(fock[s, k], self.s1e[k],
+                                 cutoff=self.ovlp_cutoff)
+                es_s.append(e)
+                cs_s.append(c)
+            if self.smearing > 0:
+                occ_s, mu_s, ent_s = smeared_occupations(
+                    es_s, nocc, self.smearing, self.smearing_method,
+                    factor=1.0)
+                entropy += ent_s
+                mus.append(mu_s)
+            else:
+                occ_s = fixed_occupations(es_s, nocc, factor=1.0)
+            dm[s] = _build_dm(np.asarray(cs_s), np.asarray(occ_s))
+            es.append(es_s)
+            cs.append(cs_s)
+            occs.append(occ_s)
+        return es, cs, occs, dm, entropy, mus
+
     def kernel(self, dm0=None):
         log = self._log
         dm = self.get_init_guess() if dm0 is None else np.asarray(dm0)
@@ -329,7 +404,6 @@ class KUHF(KRHF):
         bias_cycles = self.bias_cycles if dm0 is None else 0
         diis = DIIS(self.diis_space, adiis_switch=self.adiis_switch)
         nk = self.h1e.shape[0]
-        na, nb = self.nocc_ab
         e_last = 0.0
         it = -1
         self.cycle_seconds = []
@@ -356,29 +430,7 @@ class KUHF(KRHF):
                               - self.s1e[k] @ dm[sp, k] @ self.s1e[k]
                               for k in range(nk)])
                     for sp in range(2)])
-            es, cs, occs = [], [], []
-            dm_new = np.empty_like(dm)
-            self.entropy = 0.0
-            mus = []
-            for s, nocc in enumerate((na, nb)):
-                es_s, cs_s = [], []
-                for k in range(nk):
-                    e, c = _eigh_gen(fock[s, k], self.s1e[k],
-                                     cutoff=self.ovlp_cutoff)
-                    es_s.append(e)
-                    cs_s.append(c)
-                if self.smearing > 0:
-                    occ_s, mu_s, ent_s = smeared_occupations(
-                        es_s, nocc, self.smearing, self.smearing_method,
-                        factor=1.0)
-                    self.entropy += ent_s
-                    mus.append(mu_s)
-                else:
-                    occ_s = fixed_occupations(es_s, nocc, factor=1.0)
-                dm_new[s] = _build_dm(np.asarray(cs_s), np.asarray(occ_s))
-                es.append(es_s)
-                cs.append(cs_s)
-                occs.append(occ_s)
+            es, cs, occs, dm_new, self.entropy, mus = self._solve_fock(fock)
             if mus:
                 self.mu = tuple(mus)
             if self.damp:

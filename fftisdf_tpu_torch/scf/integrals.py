@@ -11,9 +11,11 @@ Counterpart of the main-path part of ``fftisdf_tpu/scf/integrals.py``:
 - Ewald      point charges and a neutralising background, real-space sum
              through ``fftisdf_tpu_torch.native``
 
+- Madelung    the probe-charge constant of the exchange's q+G = 0 term
+- S_k        streamed over grid blocks (:func:`get_ovlp_kpts`)
+
 AO tensors are (nk, ngrid, nao) complex128 on any device; results stay on
-that device.  Truncated Coulomb kernels and the Madelung constant are not
-ported yet.
+that device.  Truncated Coulomb kernels are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from fftisdf_tpu_torch.basis import data as basis_data
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.lattice.cell import Shell
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
-from fftisdf_tpu_torch.utils.device import COMPLEX, REAL
+from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, free_memory_bytes,
+                                            resolve_device)
 
 
 # --------------------------------------------------------------- one-electron
@@ -191,10 +194,16 @@ def _ewald_real_py(coords, charges, ts, eta):
 
 
 def ewald(cell, eta=None):
-    """Ion-ion energy of point charges and a neutralising background."""
-    coords = np.asarray(cell.atom_coords(), dtype=float)
-    charges = np.asarray(cell.atom_charges(), dtype=float)
-    a = np.asarray(cell.a, dtype=float)
+    """Ion-ion energy of point charges and a neutralising background.
+    ``cell`` may be any object with ``atom_coords()``, ``atom_charges()``
+    and ``a`` (the probe lattice of :func:`madelung` is one)."""
+    return _ewald_points(np.asarray(cell.atom_coords(), dtype=float),
+                         np.asarray(cell.atom_charges(), dtype=float),
+                         np.asarray(cell.a, dtype=float), eta=eta)
+
+
+def _ewald_points(coords, charges, a, eta=None):
+    """Standard 3D Ewald energy of a point-charge set in the lattice ``a``."""
     vol = float(abs(np.linalg.det(a)))
     if eta is None:
         eta = np.pi / vol ** (2.0 / 3.0)
@@ -225,3 +234,44 @@ def ewald(cell, eta=None):
     e_self = np.sqrt(eta / np.pi) * np.sum(charges ** 2)
     e_bg = np.pi / (2.0 * eta * vol) * np.sum(charges) ** 2
     return float(e_real + e_recip - e_self - e_bg)
+
+
+def madelung(cell, kmesh) -> float:
+    """Madelung constant of the Born-von-Karman supercell: ``-2 *`` the
+    Ewald energy of one unit point charge (with its neutralising
+    background) on the kmesh-scaled lattice.  It is the probe-charge
+    correction of the q+G = 0 exchange term (``exxdiv='ewald'``)."""
+    a_sc = np.asarray(kmesh, dtype=np.float64)[:, None] * np.asarray(cell.a)
+
+    class _Probe:
+        a = a_sc
+
+        @staticmethod
+        def atom_charges():
+            return np.array([1.0])
+
+        @staticmethod
+        def atom_coords():
+            return np.zeros((1, 3))
+
+    return -2.0 * ewald(_Probe)
+
+
+def get_ovlp_kpts(cell, kpts, *, device="cuda"):
+    """Overlap S_k (nk, nao, nao) by grid quadrature, streamed over grid
+    blocks so that no full-grid AO tensor exists.  A block holds the
+    (nk, blk, nao) AO values and the evaluator's temporaries; it is sized
+    to a tenth of the device's free memory."""
+    device = resolve_device(device)
+    fn = make_evaluator(cell, kpts=kpts, device=device)
+    coords = torch.as_tensor(cell.gen_uniform_grids(), dtype=REAL,
+                             device=device)
+    ng = coords.shape[0]
+    nk, nao = len(kpts), fn.nao
+    blk = int(max(64, min(ng, 0.1 * free_memory_bytes(device)
+                          // (4 * nk * nao * 16))))
+    s = torch.zeros((nk, nao, nao), dtype=COMPLEX, device=device)
+    for g0 in range(0, ng, blk):
+        f = fn(coords[g0:g0 + blk])
+        s += f.mH @ f
+    return s * (cell.vol / ng)

@@ -1,7 +1,9 @@
 """The PyTorch port runs end to end in a process where neither JAX nor the
 JAX package can be imported (the GPU machine has no JAX, and the port keeps
-its own copy of every host module it needs): cell -> build -> get_jk -> two
-SCF cycles on a small He2 cell, on the CPU, with a ``sys.meta_path`` finder
+its own copy of every host module it needs): cell -> build -> get_jk (with
+exxdiv='ewald') and an ERI -> two SCF cycles of the host and of the
+device-resident loop, and the exact plane-wave oracle, on a small He2 cell,
+on the CPU, with a ``sys.meta_path`` finder
 that refuses ``jax``, ``jaxlib`` and ``fftisdf_tpu`` (exactly that package,
 not ``fftisdf_tpu_torch``); none of them may reach ``sys.modules``."""
 import os
@@ -30,7 +32,7 @@ SCRIPT = textwrap.dedent("""
     import numpy as np
     from fftisdf_tpu_torch.lattice.cell import Cell
     from fftisdf_tpu_torch.isdf import FFTISDF
-    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf import KRHF, DeviceKRHF, PWDF
 
     cell = Cell(a=np.diag([5.0, 5.0, 7.0]),
                 atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
@@ -41,9 +43,17 @@ SCRIPT = textwrap.dedent("""
                  device="cpu").build()
     vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
     assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
+    dm = np.stack([np.eye(2, dtype=complex)] * 2)
+    _, vk_e = df.get_jk(dm, exxdiv="ewald")
+    assert bool(vk_e.isfinite().all())
+    assert df.get_eri((0, 1, 1, 0)).shape == (2, 2, 2, 2)
+    vj_x, vk_x = PWDF(cell, kpts, device="cpu").get_jk(dm, exxdiv="ewald")
+    assert vj_x.shape == (2, 2, 2) and bool(vk_x.isfinite().all())
     mf = KRHF(cell, kpts, df, max_cycle=2, verbose=0, device="cpu")
     e = mf.kernel()
     assert np.isfinite(e) and mf.cycles == 2
+    mf = DeviceKRHF(cell, kpts, df, max_cycle=2, verbose=0, device="cpu")
+    assert np.isfinite(mf.kernel()) and mf.cycles == 2
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     assert "fftisdf_tpu_torch.native" in sys.modules

@@ -20,6 +20,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.lattice import structure as jax_structure
@@ -77,11 +78,12 @@ def test_scf_core_matches_jax():
     dms = rng.standard_normal((m, length)) + 1j * rng.standard_normal(
         (m, length))
     valid = np.array([True, True, False, True, True])
+    t = torch.from_numpy
     np.testing.assert_allclose(
-        core.diis_extrapolate(errs, focks, valid),
+        core.diis_extrapolate(t(errs), t(focks), t(valid)).numpy(),
         jax_core.diis_extrapolate(errs, focks, valid, np), atol=1e-12)
     np.testing.assert_allclose(
-        core.adiis_coeffs(dms, focks, 4, valid),
+        core.adiis_coeffs(t(dms), t(focks), 4, t(valid)).numpy(),
         jax_core.adiis_coeffs(dms, focks, 4, valid, np, jax_core.fori_host),
         atol=1e-12)
     es = [np.sort(rng.standard_normal(7)), np.sort(rng.standard_normal(6))]
@@ -94,7 +96,7 @@ def test_scf_core_matches_jax():
     e = rng.standard_normal((3, 6))
     ok = np.ones((3, 6), dtype=bool)
     ok[1, 5] = False
-    np.testing.assert_array_equal(core.aufbau_occ(e, ok, 2),
+    np.testing.assert_array_equal(core.aufbau_occ(t(e), t(ok), 2).numpy(),
                                   jax_core.aufbau_occ(e, ok, 2, np))
 
 
