@@ -14,13 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    complex128, both ``square`` values: the JAX package's Pallas test
    shapes, ragged shapes, the main-path shape (64, 3375, 26), the
    production width (64, 3375, 62) and a non-contiguous X.  At the two
-   large shapes (complex128, ``square=False``), CUDA-event times of the
-   kernel, the plain version and one PyTorch library call of the same
-   function (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on the (ng, K)
-   matrix, made before the timing), in 5 rounds of turns, each turn's SM
-   clock, power draw and temperature as nvidia-smi samples them every
-   20 ms; the median turn of each, with the spread, the flop rate of the
-   work done (the upper triangle) and the share of the bound;
+   large shapes (complex128 and complex64, ``square=False``), CUDA-event
+   times of the kernel, the plain version and one PyTorch library call of
+   the same function (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on
+   the (ng, K) matrix, made before the timing, TF32 off), in 5 rounds of
+   turns, each turn's SM clock, power draw and temperature as nvidia-smi
+   samples them every 20 ms; the median turn of each, with the spread, the
+   flop rate of the work done (the upper triangle) and the share of the
+   bound;
 2. device against host: diamond gth-szv ke 50, kmesh 1x1x2, c0 10, built and
    solved by KUHF on the GPU and on the CPU (J/K to 1e-10 relative, e_tot to
    1e-9 Ha);
@@ -52,7 +53,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    with Ni moments of opposite sign, equal to the host KUHF on the same
    build (3e-8 Ha); stage times, setup, warm get_jk, cycles, s/cycle and
    peak memory.  At both shapes the device loop's parts (eigensolve,
-   ADIIS, CDIIS, bisection) are timed on seeded random inputs.
+   ADIIS, CDIIS, bisection) are timed on seeded random inputs;
+7. every other way to build and serve the metric, through the
+   default-device entry points: (a) the float32 regime on the slice, once
+   with the default selection (float64, matrix-free, on the card) and once
+   with ``select_host_f64=False``, which must launch K1 in complex64 at
+   (64, 3375, 26); vj/vk_maxerr of each against phase 5c's float64 exact
+   J/K (finite, below 1e-2 with the default selection and below 2e-2 with
+   K1's float32 pivot order), KUHF and DeviceKUHF in float32 converged
+   (conv_tol 1e-6, the float32 noise floor),
+   |e_tot - the float64 slice's| per atom printed and gated; (b) the
+   production configuration in float32 at full width (nip 2480): stage
+   seconds, sector chunks, peak memory, warm get_jk, DeviceKUHF cycles and
+   s/cycle, dE/atom against phase 6b's float64 energy, each beside phase
+   6b's figure; (c) m0='auto' and ``select_keep`` on the production cell:
+   the mesh chosen, the densify steps, nip and rank; (d) diamond built
+   with each of lstsq | pinv | svd, J/K against the ridge build (lstsq =
+   pinv to 1e-10, svd to 1e-6, each within 1e-4 of ridge, relative);
+   (e) the anchor's ``get_jk(omega=w)`` for w > 0 and w < 0 against
+   ``PWDF.get_jk(omega=w)`` (below 1e-2) and erf + erfc = bare on w_q
+   (1e-10 relative); (f) He2 in a box, full rank, 0d and 2d truncation
+   against the exact oracle with the same kernel (1e-9).
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,14 +96,23 @@ K1_SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
              (1, 1, 1), (3, 129, 7), (5, 257, 3)]
 MAIN_SHAPE = (64, 3375, 26)       # NiO gth-szv, 4x4x4, m0 15^3
 PROD_SHAPE = (64, 3375, 62)       # the production basis width
-# H100 SXM data sheet, dense: FP64 tensor cores, HBM3
-PEAK_FP64_TC = 67e12
+# H100 SXM data sheet, dense: FP64 on the tensor cores, FP32 outside them
+# (K1's complex64 path is FP32 FMA; TF32 is off), HBM3
+PEAK_FLOPS = {"complex128": 67e12, "complex64": 67e12}
 PEAK_BYTES = 3.35e12
 AFM = {0: +1.0, 1: -1.0}
 SLICE_NIP = 1040
 SLICE_E_TOT = -360.3364120006     # the slice's converged energy on the H100
 PROD_NIP = 2480                   # c0 40 x nao 62
+PROD_E_TOT = -365.3099342755      # production, float64, on the H100
+# |e_tot(float32) - e_tot(float64)| per atom that the float32 regime must
+# hold (Ha), set from the first runs on an H100: 6.6e-3 and 7.1e-3 on the
+# slice (float64 and complex64 selection), 9.7e-3 at production
+F32_DE_ATOM = {"slice": 1e-2, "production": 2e-2}
 SCF_KW = dict(conv_tol=1e-8, max_cycle=80, init_spin=AFM, smearing=5e-3)
+# float32 J/K carry ~1e-6 Ha of noise into the energy, so a float32 SCF is
+# converged to 1e-6 (the setting of examples/nio_afm_kuhf.py)
+SCF_KW_F32 = dict(SCF_KW, conv_tol=1e-6)
 
 
 def log(*args):
@@ -198,15 +228,18 @@ def _describe_samples(samples):
             f"{len(samples)} samples")
 
 
-def k1_bound(shape):
-    """(flops, bound_ms, bound_by) of K1's complex128 work at ``shape``:
-    the upper triangle, 4 ng (ng + 1) K flops on the FP64 tensor cores,
-    against X read once and the (ng, ng) result written once."""
+def k1_bound(shape, dname="complex128"):
+    """(flops, bound_ms, bound_by) of K1's work at ``shape`` in ``dname``:
+    the upper triangle, 4 ng (ng + 1) K flops at the peak of the type
+    (FP64 tensor cores for complex128, FP32 outside the tensor cores for
+    complex64), against X read once and the (ng, ng) result written
+    once."""
     nk, ng, nao = shape
     kk = nk * nao
     flops = 4.0 * ng * (ng + 1) * kk
-    nbytes = 16.0 * ng * kk + 8.0 * ng * ng
-    t_ops, t_bytes = flops / PEAK_FP64_TC, nbytes / PEAK_BYTES
+    csize = 16.0 if dname == "complex128" else 8.0
+    nbytes = csize * ng * kk + 0.5 * csize * ng * ng
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
     return flops, 1e3 * max(t_ops, t_bytes), (
         "operations" if t_ops >= t_bytes else "bytes")
 
@@ -245,20 +278,22 @@ def phase1_kernel(torch):
         x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
         return torch.from_numpy(x.astype(dname)).cuda()
 
-    main_err = None
+    main_err = {}
     for shape in (*K1_SHAPES, MAIN_SHAPE, PROD_SHAPE):
         for dname in ("complex64", "complex128"):
             err = _k1_check(torch, sample(shape, dname), shape)
-            if shape == MAIN_SHAPE and dname == "complex128":
-                main_err = err
+            if shape == MAIN_SHAPE:
+                main_err[dname] = err
     for dname in ("complex64", "complex128"):
         x = sample((8, 300, 11), dname)[:, 7:250]
         _k1_check(torch, x, "(8, 300, 11)[:, 7:250] (non-contiguous)")
 
     res = {}
-    for key, shape in (("main", MAIN_SHAPE), ("production", PROD_SHAPE)):
+    for dname, (key, shape) in [(d, ks) for d in ("complex128", "complex64")
+                                for ks in (("main", MAIN_SHAPE),
+                                           ("production", PROD_SHAPE))]:
         nk, ng, nao = shape
-        x = sample(shape)
+        x = sample(shape, dname)
         xt = x.permute(1, 0, 2).reshape(ng, nk * nao).contiguous()
         fns = {
             "kernel": lambda: pair_gram_sq(x, square=False),
@@ -271,24 +306,27 @@ def phase1_kernel(torch):
             log(f"[1] K1 {shape} turn: {name} {t:.3f} ms; "
                 f"{_describe_samples(samples)}")
         ms = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
-        flops, bound_ms, bound_by = k1_bound(shape)
-        log(f"[1] K1 {shape} complex128: kernel {ms['kernel']:.3f} ms "
-            f"({flops / (ms['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s f64 of "
+        flops, bound_ms, bound_by = k1_bound(shape, dname)
+        log(f"[1] K1 {shape} {dname}: kernel {ms['kernel']:.3f} ms "
+            f"({flops / (ms['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of "
             f"triangle work done, {bound_ms / ms['kernel']:.1%} of the "
             f"{bound_ms:.3f} ms bound, {bound_by}), plain "
             f"{ms['plain']:.3f} ms, library {ms['library']:.3f} ms; each "
             "the median of 5 turns, spread: "
             + ", ".join(f"{n} {min(v):.3f}-{max(v):.3f}"
                         for n, v in times.items()))
-        res[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                        library_ms=ms["library"], bound_ms=bound_ms,
-                        bound_by=bound_by)
-    main, prod = res["main"], res["production"]
-    return {"max_abs_err": main_err, **main,
-            "production_ms": prod["ms"],
-            "production_plain_ms": prod["plain_ms"],
-            "production_library_ms": prod["library_ms"],
-            "production_bound_ms": prod["bound_ms"]}
+        res[dname, key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                               library_ms=ms["library"], bound_ms=bound_ms,
+                               bound_by=bound_by)
+    out = {}
+    for dname in ("complex128", "complex64"):
+        main, prod = res[dname, "main"], res[dname, "production"]
+        out[dname] = {"max_abs_err": main_err[dname], **main,
+                      "production_ms": prod["ms"],
+                      "production_plain_ms": prod["plain_ms"],
+                      "production_library_ms": prod["library_ms"],
+                      "production_bound_ms": prod["bound_ms"]}
+    return out
 
 
 def _diamond():
@@ -527,9 +565,11 @@ def _exact_slice(torch, ctx):
     torch.cuda.synchronize()
     t_jk = time.perf_counter() - t0
     del pw
+    ctx["slice_exact"] = (vj_e, vk_e)
     errs = {}
     for name, a, b in (("vj", vj_i, vj_e), ("vk", vk_i, vk_e)):
         errs[name] = (float((a - b).abs().max()), float(b.abs().max()))
+    ctx["slice_f64_err"] = errs
     log(f"[5] slice exact arm: AO tensor {t_ao:.2f}s, exact J/K "
         f"{t_jk:.2f}s; " + ", ".join(
             f"{n}_maxerr {e:.3e} (scale {sc:.3f})"
@@ -592,10 +632,7 @@ def _device_loop_parts(torch, mf):
 
 
 def phase6_device_scf(torch, ctx):
-    from fftisdf_tpu_torch.isdf import FFTISDF
-    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
     from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
-    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
 
     # (a) the slice: device loop against host loop on one build
     cell, kpts, df = _slice(ctx)
@@ -615,49 +652,9 @@ def phase6_device_scf(torch, ctx):
     torch.cuda.empty_cache()
 
     # (b) the production configuration
-    from fftisdf_tpu_torch.lattice import structure
-
-    cell = structure.to_cell(*structure.nio_afm(),
-                             basis="gth-dzvp-molopt-sr", pseudo="gth-pade",
-                             ke_cutoff=200.0, exp_to_discard=0.1)
-    kpts = cell.get_kpts([4, 4, 4])
-    log(f"[6] production NiO AFM gth-dzvp-molopt-sr ke 200 kmesh 4x4x4: "
-        f"nao {cell.nao_nr()} nelec {cell.nelectron} mesh "
-        f"{[int(m) for m in cell.mesh]} nk {len(kpts)}")
-    torch.cuda.reset_peak_memory_stats()
-    pair_gram_sq.launches = 0
-    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=3).build()
-    launches = pair_gram_sq.launches
-    t = df.timings
-    log(f"[6] production build: nip {df.nip}, selection {t['select_s']:.3f}s,"
-        f" metric pass {t['metric_s']:.3f}s (sweep {t['sweep_s']:.3f}s, "
-        f"solve/FFT/gram {t['solve_s']:.3f}s), total {t['build_s']:.3f}s, "
-        f"{df.nchunks} chunk(s); K1 launches {launches}; peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if launches < 1 or df.device.type != "cuda" or df.nip != PROD_NIP:
-        raise RuntimeError(f"the production build: K1 launches {launches}, "
-                           f"device {df.device}, nip {df.nip} (expected "
-                           f"{PROD_NIP})")
-    t0 = time.perf_counter()
-    mf = DeviceKUHF(cell, kpts, df, verbose=3, **SCF_KW)
-    log(f"[6] production one-electron setup {time.perf_counter() - t0:.2f}s")
-    dm0 = mf.get_init_guess()
-    df.get_jk(dm0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    df.get_jk(dm0)
-    torch.cuda.synchronize()
-    log(f"[6] production warm get_jk (2 spins) "
-        f"{time.perf_counter() - t0:.4f}s")
-    mf.kernel()
-    _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
-    log("[6] production " + _scf_line("DeviceKUHF", mf, mf.cycle_times)
-        + f"; Ni moments {mom[0]:+.4f} {mom[1]:+.4f}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    cell, kpts, df, mf, fig = _production_run(torch, "[6]")
+    ctx["production_f64"] = fig
     log(f"[6] production device-loop parts: {_device_loop_parts(torch, mf)}")
-    if not (mf.converged and mom[0] * mom[1] < 0):
-        raise RuntimeError("the production DeviceKUHF did not converge to "
-                           "an AFM state")
     host = KUHF(cell, kpts, df, verbose=0, **SCF_KW)
     host.kernel()
     de = abs(mf.e_tot - host.e_tot)
@@ -666,7 +663,295 @@ def phase6_device_scf(torch, ctx):
     if not (host.converged and de <= 3e-8):
         raise RuntimeError("DeviceKUHF and KUHF disagree on the production "
                            "configuration")
-    return launches
+    return fig["launches"]
+
+
+def _production_cell():
+    from fftisdf_tpu_torch.lattice import structure
+
+    cell = structure.to_cell(*structure.nio_afm(),
+                             basis="gth-dzvp-molopt-sr", pseudo="gth-pade",
+                             ke_cutoff=200.0, exp_to_discard=0.1)
+    return cell, cell.get_kpts([4, 4, 4])
+
+
+def _production_run(torch, tag, dtype=None):
+    """Build the production configuration in ``dtype`` through the
+    default-device entry points, with K1's count reset right before, and
+    converge DeviceKUHF on it.  Returns (cell, kpts, df, mf, figures)."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+    from fftisdf_tpu_torch.scf import DeviceKUHF
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+
+    cell, kpts = _production_cell()
+    log(f"{tag} production NiO AFM gth-dzvp-molopt-sr ke 200 kmesh 4x4x4 "
+        f"({dtype or 'torch.float64'}): nao {cell.nao_nr()} nelec "
+        f"{cell.nelectron} mesh {[int(m) for m in cell.mesh]} nk {len(kpts)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pair_gram_sq.launches = 0
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), dtype=dtype,
+                 verbose=3).build()
+    fig = dict(df.timings, launches=pair_gram_sq.launches,
+               nchunks=df.nchunks,
+               build_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{tag} production build: nip {df.nip}, selection "
+        f"{fig['select_s']:.3f}s, metric pass {fig['metric_s']:.3f}s (sweep "
+        f"{fig['sweep_s']:.3f}s, solve/FFT/gram {fig['solve_s']:.3f}s), "
+        f"total {fig['build_s']:.3f}s, {df.nchunks} chunk(s); K1 launches "
+        f"{fig['launches']}; peak {fig['build_peak_gb']:.2f} GB")
+    if df.device.type != "cuda" or df.nip != PROD_NIP:
+        raise RuntimeError(f"the production build: device {df.device}, nip "
+                           f"{df.nip} (expected {PROD_NIP})")
+    if dtype is None and fig["launches"] < 1:
+        raise RuntimeError("the production selection did not launch K1")
+    t0 = time.perf_counter()
+    mf = DeviceKUHF(cell, kpts, df, dtype=dtype, verbose=3,
+                    **(SCF_KW if dtype is None else SCF_KW_F32))
+    fig["setup_s"] = time.perf_counter() - t0
+    log(f"{tag} production one-electron setup {fig['setup_s']:.2f}s")
+    dm0 = mf.get_init_guess()
+    df.get_jk(dm0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df.get_jk(dm0)
+    torch.cuda.synchronize()
+    fig["jk_s"] = time.perf_counter() - t0
+    log(f"{tag} production warm get_jk (2 spins) {fig['jk_s']:.4f}s")
+    mf.kernel()
+    _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+    per = mf.cycle_times[1:] or mf.cycle_times
+    fig.update(e_tot=mf.e_tot, cycles=mf.cycles,
+               cycle_s=sum(per) / len(per),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{tag} production " + _scf_line("DeviceKUHF", mf, mf.cycle_times)
+        + f"; Ni moments {mom[0]:+.4f} {mom[1]:+.4f}; peak memory "
+        f"{fig['peak_gb']:.2f} GB")
+    if not (mf.converged and mom[0] * mom[1] < 0):
+        raise RuntimeError("the production DeviceKUHF did not converge to "
+                           "an AFM state")
+    return cell, kpts, df, mf, fig
+
+
+# ------------------------------------------------------------------ phase 7
+def phase7_every_way(torch, ctx):
+    _f32_slice(torch, ctx)
+    _f32_production(torch, ctx)
+    _auto_mesh(torch)
+    _solvers(torch)
+    _omega(torch)
+    _trunc(torch)
+    return ctx["f32_launches"]
+
+
+def _maxerrs(vj, vk, vj_e, vk_e):
+    return {name: (float((a.to(b.dtype) - b).abs().max()),
+                   float(b.abs().max()))
+            for name, a, b in (("vj", vj, vj_e), ("vk", vk, vk_e))}
+
+
+def _f32_slice(torch, ctx):
+    """(a) the float32 regime on the slice, both selection routes."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+    from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF, PWDF
+
+    f32 = torch.float32
+    cell, kpts = _nio(100.0, [4, 4, 4])
+    dm = _bench_density(cell, kpts)
+    if "slice_exact" not in ctx:
+        ctx["slice_exact"] = PWDF(cell, kpts).get_jk(dm)
+    vj_e, vk_e = ctx["slice_exact"]
+    ctx.pop("slice", None)
+    torch.cuda.empty_cache()
+    if "slice_f64_err" in ctx:
+        log("[7a] float64 build (phase 5c): " + ", ".join(
+            f"{n}_maxerr {e:.3e}" for n, (e, _) in
+            ctx["slice_f64_err"].items()))
+    # vj/vk_maxerr gates: 1e-2 as for every compressed build with the
+    # default selection; 2e-2 with the float32 pivot order of K1's route
+    # (measured 1.19e-2 / 5.7e-3, 1.8x the float64-ordered build's)
+    for label, sel, gate in (("float64 selection (default)", None, 1e-2),
+                             ("K1 complex64 selection", False, 2e-2)):
+        pair_gram_sq.launches = 0
+        pair_gram_sq.last_launch = None
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), dtype=f32,
+                     select_host_f64=sel, verbose=3).build()
+        launches, last = pair_gram_sq.launches, pair_gram_sq.last_launch
+        t = df.timings
+        log(f"[7a] slice float32, {label}: nip {df.nip}, selection "
+            f"{t['select_s']:.3f}s, sweep {t['sweep_s']:.3f}s, solve/FFT/"
+            f"gram {t['solve_s']:.3f}s, total {t['build_s']:.3f}s, "
+            f"{df.nchunks} chunk(s); K1 launches {launches} {last}")
+        if df.wq.dtype != torch.complex64 or df.nip != SLICE_NIP \
+                or df.device.type != "cuda":
+            raise RuntimeError(f"the float32 slice built {df.wq.dtype} on "
+                               f"{df.device} with nip {df.nip}")
+        if sel is False:
+            if launches < 1 or last != (MAIN_SHAPE, torch.complex64):
+                raise RuntimeError("select_host_f64=False did not launch K1 "
+                                   f"in complex64 at {MAIN_SHAPE}: {last}")
+            ctx["f32_launches"] = launches
+        elif launches:
+            raise RuntimeError("the float64 selection route launched K1")
+        vj, vk = df.get_jk(dm)
+        errs = _maxerrs(vj, vk, vj_e, vk_e)
+        log(f"[7a] {label}: " + ", ".join(
+            f"{n}_maxerr {e:.3e} (scale {sc:.3f})"
+            for n, (e, sc) in errs.items()) + " against the float64 exact "
+            f"J/K (gate {gate:.0e})")
+        if not all(np.isfinite(e) and e < gate for e, _ in errs.values()):
+            raise RuntimeError("the float32 slice's J/K miss the exact J/K")
+        for cls in (KUHF, DeviceKUHF):
+            mf = cls(cell, kpts, df, dtype=f32, verbose=0, **SCF_KW_F32)
+            mf.kernel()
+            de = abs(mf.e_tot - SLICE_E_TOT) / cell.natm
+            secs = getattr(mf, "cycle_times", None) or mf.cycle_seconds
+            log(f"[7a] {label} " + _scf_line(cls.__name__, mf, secs)
+                + f"; |e_tot - float64 slice| {de:.3e} Ha/atom (gate "
+                f"{F32_DE_ATOM['slice']:.0e})")
+            if not (mf.converged and de <= F32_DE_ATOM["slice"]):
+                raise RuntimeError(f"the float32 {cls.__name__} on the slice "
+                                   "did not converge to the float64 energy")
+        del df, mf
+        torch.cuda.empty_cache()
+
+
+def _f32_production(torch, ctx):
+    """(b) the production configuration in float32, beside phase 6b."""
+    cell, _, df, mf, fig = _production_run(torch, "[7b]", torch.float32)
+    if df.wq.dtype != torch.complex64:
+        raise RuntimeError(f"the float32 production build is {df.wq.dtype}")
+    ref = ctx.get("production_f64")
+    e64 = ref["e_tot"] if ref else PROD_E_TOT
+    de = abs(fig["e_tot"] - e64) / cell.natm
+    keys = ("select_s", "sweep_s", "solve_s", "build_s", "nchunks",
+            "build_peak_gb", "setup_s", "jk_s", "cycles", "cycle_s",
+            "peak_gb", "e_tot")
+    log("[7b] float32 | float64 (phase 6b): " + "; ".join(
+        f"{k} {fig[k]:.6g} | " + (f"{ref[k]:.6g}" if ref else "not run")
+        for k in keys))
+    log(f"[7b] |e_tot(float32) - e_tot(float64)| {de:.3e} Ha/atom (gate "
+        f"{F32_DE_ATOM['production']:.0e})")
+    if not de <= F32_DE_ATOM["production"]:
+        raise RuntimeError("the float32 production energy misses the "
+                           "float64 one")
+
+
+def _auto_mesh(torch):
+    """(c) m0='auto' and select_keep on the production cell (selection
+    only): the mesh chosen, the densify steps, nip and rank."""
+    import math
+    from fftisdf_tpu_torch.isdf.kpoint import (auto_selection_mesh,
+                                               select_interpolation_points)
+
+    cell, kpts = _production_cell()
+    start = auto_selection_mesh(cell, 40.0 * cell.nao_nr())
+    for dtype, keep in ((None, None), (torch.float32, 1e-9)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        x_k, mask, rank, m0 = select_interpolation_points(
+            cell, kpts, "auto", 40.0, dtype=dtype, keep_tol=keep)
+        torch.cuda.synchronize()
+        steps, m = 0, start
+        while m != m0 and steps < 3:
+            m = tuple(int(math.ceil(v * 2.0 ** (1.0 / 3.0))) for v in m)
+            steps += 1
+        log(f"[7c] m0='auto' ({dtype or 'torch.float64'}, select_keep "
+            f"{keep}): mesh {start} -> {m0} in {steps} densify step(s), nip "
+            f"{x_k.shape[1]}, rank {rank}, {time.perf_counter() - t0:.2f}s")
+        if m != m0 or not bool(torch.isfinite(
+                torch.view_as_real(x_k)).all()) or mask.max() >= math.prod(m0):
+            raise RuntimeError("m0='auto' selection is malformed")
+        del x_k
+
+
+def _solvers(torch):
+    """(d) diamond with each eigh-family solver against the ridge build."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+
+    cell, kpts = _diamond()
+    dm = _bench_density(cell, kpts)
+    out = {}
+    for solver in ("ridge", "lstsq", "pinv", "svd"):
+        df = FFTISDF(cell, kpts, c0=10.0, m0=(15, 15, 15), solver=solver,
+                     verbose=0).build(mask=out.get("mask"))
+        out.setdefault("mask", df.mask)
+        out[solver] = df.get_jk(dm)
+
+    def rel(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(out[a], out[b]))
+
+    pairs = (("pinv", "lstsq", 1e-10), ("svd", "lstsq", 1e-6),
+             ("lstsq", "ridge", 1e-4), ("pinv", "ridge", 1e-4),
+             ("svd", "ridge", 1e-4))
+    got = [(a, b, rel(a, b), tol) for a, b, tol in pairs]
+    log("[7d] diamond solvers, J/K relative: " + ", ".join(
+        f"{a} vs {b} {r:.2e} (tol {tol:.0e})" for a, b, r, tol in got))
+    if not all(r <= tol for _, _, r, tol in got):
+        raise RuntimeError("the eigh-family solvers disagree")
+
+
+def _omega(torch):
+    """(e) range separation on the anchor against the exact oracle."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import PWDF
+
+    cfg = json.loads(ANCHOR.read_text())["config"]
+    cell, kpts = _nio(cfg["ke_cutoff"], cfg["kmesh"])
+    dm = _bench_density(cell, kpts)
+    df = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]),
+                 verbose=0).build()
+    pw = PWDF(cell, kpts)
+    for omega in (0.6, -0.6):
+        errs = _maxerrs(*df.get_jk(dm, omega=omega),
+                        *pw.get_jk(dm, omega=omega))
+        log(f"[7e] anchor omega {omega:+g}: " + ", ".join(
+            f"{n}_maxerr {e:.3e} (scale {sc:.3f})"
+            for n, (e, sc) in errs.items()))
+        if not all(e < 1e-2 for e, _ in errs.values()):
+            raise RuntimeError("the screened ISDF J/K miss the exact ones")
+    # erf + erfc = bare wherever no q+G = 0 sample exists (q != 0)
+    wsum = df.get_wq_omega(0.6) + df.get_wq_omega(-0.6)
+    rel = float((wsum[1:] - df.wq[1:]).abs().max()
+                / df.wq[1:].abs().max())
+    log(f"[7e] erf + erfc - bare on w_q (q != 0): {rel:.2e} relative")
+    if not rel <= 1e-10:
+        raise RuntimeError("erf + erfc != bare on w_q")
+
+
+def _trunc(torch):
+    """(f) He2 in a box, full rank: truncated ISDF J/K against the exact
+    oracle with the same kernel."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice.cell import Cell
+    from fftisdf_tpu_torch.scf import PWDF
+
+    cell = Cell(a=np.diag([7.0, 7.0, 8.0]),
+                atom=[("He", (3.5, 3.5, 3.2)), ("He", (3.5, 3.5, 4.8))],
+                basis="sto-3g", pseudo=None, mesh=np.array([15, 15, 17]),
+                unit="bohr", precision=1e-12).build()
+    import warnings
+
+    for kind, kmesh in (("0d", [1, 1, 1]), ("2d", [2, 1, 1])):
+        kpts = cell.get_kpts(kmesh)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            df = FFTISDF(cell, kpts, c0=50.0, m0=tuple(cell.mesh),
+                         select_tol=1e-20, rcond=1e-13, trunc=kind,
+                         verbose=0).build()
+        dm = _bench_density(cell, kpts)
+        errs = _maxerrs(*df.get_jk(dm), *PWDF(cell, kpts,
+                                              trunc=kind).get_jk(dm))
+        log(f"[7f] He2 box trunc {df.trunc}: " + ", ".join(
+            f"{n}_maxerr {e:.3e}" for n, (e, _) in errs.items()))
+        if not all(e < 1e-9 for e, _ in errs.values()):
+            raise RuntimeError(f"the {kind}-truncated ISDF J/K miss the "
+                               "exact ones")
 
 
 def main():
@@ -694,19 +979,21 @@ def main():
     launches = timed(4, phase4_slice, [4, 4, 4], ctx) or 0
     timed(5, phase5_exact, ctx)
     prod_launches = timed(6, phase6_device_scf, ctx) or 0
+    f32_launches = timed(7, phase7_every_way, ctx) or 0
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
         return
-    kernels = {"kernels": [{
-        "name": "pair_gram_sq",
-        "route": "cuda",
-        "source": "fftisdf_tpu_torch/ops/csrc/pair_gram.cu",
-        "replaces": "fftisdf_tpu/ops/pallas_gram.py:110",
-        "launches": launches,
-        "production_launches": prod_launches,
-        **k1,
-    }]}
+    common = {"route": "cuda",
+              "source": "fftisdf_tpu_torch/ops/csrc/pair_gram.cu",
+              "replaces": "fftisdf_tpu/ops/pallas_gram.py:110"}
+    kernels = {"kernels": [
+        {"name": "pair_gram_sq", **common, "dtype": "complex128",
+         "launches": launches, "production_launches": prod_launches,
+         **k1["complex128"]},
+        {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
+         "launches": f32_launches, **k1["complex64"]},
+    ]}
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ Bloch phase, so the finite image lists stay exact everywhere.
 The evaluator works through the grid in blocks so that the largest
 temporary, a group's (blk, nT, nfunc) chi tensor, stays near a fixed byte
 budget whatever the grid size.
+
+``dtype`` (``torch.float64`` by default, or ``torch.float32``) is the
+precision the evaluator works in, coordinates included, as in the JAX
+package: the float32 regime evaluates its AOs in float32, and selection in
+float64 inside a float32 build uses a float64 evaluator.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 from fftisdf_tpu_torch import native
 from fftisdf_tpu_torch.basis.gto import (normalized_coeffs,
                                          real_solid_harmonics, shell_rcut)
-from fftisdf_tpu_torch.utils.device import COMPLEX, REAL, resolve_device
+from fftisdf_tpu_torch.utils.device import real_complex, resolve_device
 
 # per-block budget of the chi / distance temporaries
 _CHI_BLOCK_BYTES = 256 * 2**20
@@ -139,14 +144,15 @@ class Evaluator:
     Built by :func:`make_evaluator`; holds the shell groups, their image
     lists and the k-phases as device tensors."""
 
-    def __init__(self, cell, kpts, precision, shells, device):
+    def __init__(self, cell, kpts, precision, shells, device, dtype=None):
         self.device = device
+        self.rdtype, self.cdtype = real_complex(dtype)
         precision = cell.precision if precision is None else precision
         table = build_shell_table(cell, precision, shells)
         groups = _group_by_center(cell, table)
         self.gamma = kpts is None
         self.nao = sum(g.nfunc for g in groups)
-        t = lambda a: torch.as_tensor(np.asarray(a), dtype=REAL,
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.rdtype,
                                       device=device)
         self.ainv = t(np.linalg.inv(np.asarray(cell.a)))
         self.a = t(cell.a)
@@ -170,7 +176,8 @@ class Evaluator:
     def block_size(self, ng):
         """Grid points per block for the chi byte budget."""
         return int(max(64, min(ng, _CHI_BLOCK_BYTES
-                               // (8 * self.max_chi_row))))
+                               // (self.rdtype.itemsize
+                                   * self.max_chi_row))))
 
     def _block(self, coords):
         # wrap into the home cell: r = r0 + T, phi_k(r) = e^{ik.T} phi_k(r0)
@@ -194,15 +201,17 @@ class Evaluator:
         return out
 
     def __call__(self, coords):
-        coords = torch.as_tensor(coords, dtype=REAL, device=self.device)
+        coords = torch.as_tensor(coords, dtype=self.rdtype,
+                                 device=self.device)
         ng = coords.shape[0]
         blk = self.block_size(ng)
         if blk >= ng:
             return self._block(coords)
         shape = ((ng, self.nao) if self.gamma
                  else (len(self.kpts), ng, self.nao))
-        out = torch.empty(shape, dtype=REAL if self.gamma else COMPLEX,
-                          device=self.device)
+        out = torch.empty(
+            shape, dtype=self.rdtype if self.gamma else self.cdtype,
+            device=self.device)
         for g0 in range(0, ng, blk):
             g1 = min(g0 + blk, ng)
             if self.gamma:
@@ -212,18 +221,20 @@ class Evaluator:
         return out
 
 
-def make_evaluator(cell, kpts=None, precision=None, shells=None, *,
-                   device="cuda"):
-    """Bloch AO evaluator ``fn(coords) -> (nk, ng, nao)`` on ``device``.
+def make_evaluator(cell, kpts=None, precision=None, dtype=None, shells=None,
+                   *, device="cuda"):
+    """Bloch AO evaluator ``fn(coords) -> (nk, ng, nao)`` on ``device``,
+    working in ``dtype`` (float64 when None).
 
     ``kpts=None`` gives the gamma-point real evaluator (``(ng, nao)``);
     ``shells`` overrides the cell basis with explicit (center, Shell)
     pairs."""
     return Evaluator(cell, None if kpts is None else np.asarray(kpts),
-                     precision, shells, resolve_device(device))
+                     precision, shells, resolve_device(device), dtype)
 
 
-def eval_ao_kpts(cell, coords, kpts, precision=None, *, device="cuda"):
+def eval_ao_kpts(cell, coords, kpts, precision=None, dtype=None, *,
+                 device="cuda"):
     """One-shot evaluation: (nk, ng, nao) complex Bloch AOs."""
-    return make_evaluator(cell, kpts=kpts, precision=precision,
+    return make_evaluator(cell, kpts=kpts, precision=precision, dtype=dtype,
                           device=device)(coords)

@@ -1,25 +1,32 @@
 """FFT-ISDF with k-point sampling (PyTorch): selection, metric pass, serve.
 
-Counterpart of ``fftisdf_tpu/isdf/kpoint.py`` on its f64 device path.  The
-built state is ``(x_k, w_q)``: (nk, nip, nao) interpolation vectors and
-(nk, nip, nip) Coulomb metrics, which determine J and K.
+Counterpart of ``fftisdf_tpu/isdf/kpoint.py``.  The built state is
+``(x_k, w_q)``: (nk, nip, nao) interpolation vectors and (nk, nip, nip)
+Coulomb metrics, which determine J and K.
 
 - Selection: pivoted Cholesky of the squared pair gram of the AOs on a
-  coarse parent mesh ``m0``; the gram is kernel K1
-  (:func:`fftisdf_tpu_torch.ops.pair_gram.pair_gram_sq`).
+  coarse parent mesh ``m0`` (explicit, or ``'auto'``: derived from a cutoff
+  and densified while the pool saturates).  Two routes: in the build dtype
+  through kernel K1 (:func:`fftisdf_tpu_torch.ops.pair_gram.pair_gram_sq`)
+  and the dense pivoted Cholesky, or in float64 through the matrix-free
+  blocked factorisation, which a float32 build takes by default because
+  pivot ordering degrades in float32.  Both run on the object's device.
 - Metric pass, in its plain form: for each chunk of time-reversal
   canonical momentum sectors the grid is swept in blocks, each block's RHS
   (:func:`_rhs_block`, the stripe trick) is stored for the chunk's sectors,
-  and every sector then gets :func:`_sector_wq`: the split ridge operator,
-  the FFT of ``g e^{-iqr}``, the PSD Coulomb split and the gram
+  and every sector then gets :func:`_sector_wq`: the split fitting operator
+  (ridge, or the eigh family), the FFT of ``g e^{-iqr}``, the split of the
+  Coulomb kernel (bare, range-separated or truncated) and the gram
   ``h h^H``.  Non-canonical sectors are conjugate mirrors.
-
 - Serve: J/K with ``exxdiv=None`` or ``'ewald'`` (the Madelung probe-charge
-  correction), and ERIs of momentum-conserving k quadruples.
+  correction), with ``omega`` from a screened metric over the same
+  interpolation basis, and ERIs of momentum-conserving k quadruples.
 
-Not ported yet (``NotImplementedError``): ``m0='auto'`` with densify, the
-f32 regime (host-f64 selection, ``select_keep``), omega, truncated kernels
-and ``kpts_band``.
+Everything runs in the build ``dtype``: float64 (the default on every
+device) or float32 (the JAX package's accelerator default).
+
+Not ported (``NotImplementedError``): band k-points (``kpts_band``), and
+``exxdiv`` with a truncated or screened kernel.
 """
 from __future__ import annotations
 
@@ -32,24 +39,91 @@ import torch
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.isdf import jk as jk_mod
 from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
-from fftisdf_tpu_torch.linalg.coulomb import get_coulG_batched
+from fftisdf_tpu_torch.linalg.coulomb import get_coulG_batched, trunc_for_cell
 from fftisdf_tpu_torch.linalg.fft import fft3
-from fftisdf_tpu_torch.linalg.pivoted_cholesky import pivoted_cholesky
+from fftisdf_tpu_torch.linalg.pivoted_cholesky import (
+    pivot_selection, pivoted_cholesky, pivoted_cholesky_pairgram)
 from fftisdf_tpu_torch.linalg.solvers import (finish_apply, half_apply_rows,
                                               half_factor_data,
                                               fitting_half_operator)
 from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
 from fftisdf_tpu_torch.pw.poisson import eiqr
-from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, as_tensor,
-                                            free_memory_bytes, resolve_device)
+from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
+                                            real_complex, resolve_device)
 from fftisdf_tpu_torch.utils.logging import Logger
+
+# Selection in float64 inside a float32 build: the pool it accepts is
+# capped by the device's free memory (:func:`select_f64_max_ng0`) and by
+# this ceiling (64^3).  Past the cap selection runs in the build dtype,
+# whose pivot ordering is what the float64 route exists to avoid, so the
+# densify loop of m0='auto' never crosses it.
+SELECT_F64_MAX_NG0 = 262144
+
+
+def select_f64_max_ng0(cell, kpts, c0, use_trs=True, *, device="cuda"):
+    """Largest selection pool (grid points) the float64 route accepts on
+    ``device``: half of its free memory over the bytes a pool point costs,
+    which are the (probe, ng0) float64 factor with one candidate block, and
+    the (ng0, 2 nku nao) float64 columns held as the evaluator's complex
+    values, their weighted copy and its real and imaginary planes."""
+    device = resolve_device(device)
+    nk = len(kpts)
+    nao = cell.nao_nr()
+    nku = nk
+    if use_trs:
+        mirror = _trs_mirror(cell, kpts)
+        if not (mirror < 0).any():
+            nku = sum(1 for k in range(nk) if k <= mirror[k])
+    probe = int(min(c0, 1e6) * nao * 1.15) + 8
+    per_point = 8 * (probe + 96) + 4 * 16 * nku * nao
+    cap_mem = 0.5 * free_memory_bytes(device) / per_point
+    return int(min(SELECT_F64_MAX_NG0, cap_mem))
 
 
 class PoolSaturationWarning(UserWarning):
     """Interpolation-point selection is candidate-pool limited: the
     requested compression sits within 10% of the parent grid's numerical
     pair-density rank, so raising ``c0`` buys almost nothing — densify
-    ``m0``."""
+    ``m0`` (or use ``m0='auto'``, which densifies itself)."""
+
+
+_saturation_warned = set()   # one warning per (m0, nip) per process
+
+
+def auto_selection_mesh(cell, nip_target, pool_factor=2.5, k0=None,
+                        floor=(15, 15, 15)):
+    """Cutoff-derived, basis-scaled selection (parent) mesh.
+
+    - ``k0`` given: ``cell.cutoff_to_mesh(k0)``, no floor.
+    - ``k0=None``: the smallest cutoff whose mesh carries at least
+      ``pool_factor * nip_target`` candidate points, so that the pivoted
+      Cholesky's pool is not the accuracy limiter, elementwise-maxed with
+      ``floor`` so that small systems keep the dense default mesh.
+
+    Deriving the mesh through ``cutoff_to_mesh`` (not a bare cube root)
+    keeps the per-axis density proportional to the reciprocal lattice:
+    anisotropic cells get anisotropic pools."""
+    if k0 is not None:
+        return tuple(int(v) for v in cell.cutoff_to_mesh(float(k0)))
+    target = float(pool_factor) * float(nip_target)
+    ke_hi = 1.0
+    while np.prod(cell.cutoff_to_mesh(ke_hi)) < target and ke_hi < 1e6:
+        ke_hi *= 2.0
+    ke_lo = ke_hi / 2.0
+    for _ in range(40):
+        ke_mid = 0.5 * (ke_lo + ke_hi)
+        if np.prod(cell.cutoff_to_mesh(ke_mid)) >= target:
+            ke_hi = ke_mid
+        else:
+            ke_lo = ke_mid
+    m = np.asarray(cell.cutoff_to_mesh(ke_hi))
+    if floor is not None:
+        m = np.maximum(m, np.asarray(floor))
+    return tuple(int(v) for v in m)
+
+
+def _is_auto(m0):
+    return m0 is None or (isinstance(m0, str) and m0 == "auto")
 
 
 def _trs_mirror(cell, kpts):
@@ -59,64 +133,201 @@ def _trs_mirror(cell, kpts):
                      for q in range(len(s))])
 
 
+def _trs_scatter(w_sel, sel, mirror, device):
+    """Full-axis tensor from its canonical entries ``w_sel`` (listed by
+    ``sel``): entry q is ``w_sel`` at q's position, or the conjugate of its
+    mirror's.  A canonical index with neither raises ``KeyError``."""
+    pos = {int(q): i for i, q in enumerate(sel)}
+    n = len(mirror)
+    order = torch.as_tensor(
+        [pos[q] if q in pos else pos[int(mirror[q])] for q in range(n)],
+        device=device)
+    flip = torch.as_tensor([q not in pos for q in range(n)], device=device)
+    w = w_sel[order]
+    return torch.where(flip[:, None, None], w.conj(), w)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 # ---------------------------------------------------------------- selection
-def select_interpolation_points(cell, kpts, m0, c0, select_tol=None,
-                                log=None, *, device="cuda"):
+def select_interpolation_points(cell, kpts, m0, c0, dtype=None,
+                                select_tol=None, log=None, host_f64=None,
+                                auto_densify=False, max_densify=2,
+                                use_trs=True, keep_tol=None, *,
+                                device="cuda"):
     """Pivoted-Cholesky selection of interpolation points on the parent
-    mesh ``m0`` (an explicit 3-tuple).
+    mesh ``m0`` (a 3-tuple; ``'auto'`` derives it with
+    :func:`auto_selection_mesh` and densifies).
 
     Returns ``(x_k (nk, nip, nao) tensor, mask (nip,) numpy, rank, m0)``:
     the gram ``x4 = (Re sum_k X_k X_k^H)^2 / nk`` of the parent-mesh AOs is
-    pivoted and ``nip = min(nao c0, rank)`` pivots are kept.  Warns with
-    :class:`PoolSaturationWarning` when nip is within 10% of the pool's
-    numerical rank."""
-    if isinstance(m0, str) or m0 is None:
-        raise NotImplementedError("m0='auto' (auto-densified selection "
-                                  "mesh): pass an explicit m0")
+    pivoted and ``nip = min(nao c0, rank)`` pivots are kept.
+
+    ``host_f64`` (the JAX package's name; here the route runs on
+    ``device``): None selects in float64 when ``dtype`` is float32 and the
+    pool fits :func:`select_f64_max_ng0`; True and False force the float64
+    route or the build-dtype route through K1.
+
+    ``auto_densify=True`` (the ``m0='auto'`` path): while the saturation
+    detector fires (nip within 10% of the pool's numerical rank) and
+    densifying still buys rank, each axis of the mesh grows by 2^(1/3)
+    (pool x2), at most ``max_densify`` times, and selection runs again.
+    With an explicit m0 one :class:`PoolSaturationWarning` per (m0, nip) is
+    raised instead."""
+    device = resolve_device(device)
+    log = log or Logger()
+    if _is_auto(m0):
+        m0 = auto_selection_mesh(cell, c0 * cell.nao_nr())
+        auto_densify = True
     m0 = tuple(int(v) for v in m0)
-    x_k, mask, rank, saturated, ng0, nip = _select_once(
-        cell, kpts, m0, c0, select_tol=select_tol, log=log,
-        device=resolve_device(device))
-    if saturated:
-        warnings.warn(
-            f"interpolation-point selection is pool-saturated: nip={nip} "
-            f"vs parent-grid rank {rank} (ng0={ng0}). Accuracy is limited "
-            f"by the m0={m0} candidate pool, not by c0 — increase m0 for "
-            "more accuracy.", PoolSaturationWarning, stacklevel=2)
+    f64_build = real_complex(dtype)[0] == torch.float64
+    prev_rank = -1
+    for attempt in range(max_densify + 1):
+        x_k, mask, rank, saturated, ng0, nip = _select_once(
+            cell, kpts, m0, c0, dtype=dtype, select_tol=select_tol, log=log,
+            host_f64=host_f64, use_trs=use_trs, keep_tol=keep_tol,
+            device=device)
+        if not saturated:
+            break
+        if rank <= prev_rank:
+            # densifying bought no rank: the physical pair-density space
+            # is exhausted, not the candidate pool
+            break
+        prev_rank = rank
+        if auto_densify and attempt < max_densify:
+            m0_new = tuple(int(np.ceil(v * 2.0 ** (1.0 / 3.0))) for v in m0)
+            ng0_cap = select_f64_max_ng0(cell, kpts, c0, use_trs=use_trs,
+                                         device=device)
+            if (not f64_build and host_f64 is not True
+                    and np.prod(m0_new) > ng0_cap):
+                # a denser pool would move selection from float64 to the
+                # build dtype, which loses more than the pool gains
+                log.info(
+                    "select: pool still saturated (nip=%d vs rank %d on "
+                    "ng0=%d) but m0 %s -> %s would exceed the float64 "
+                    "selection cap (%d points): keeping the float64-"
+                    "ordered pool", nip, rank, ng0, m0, m0_new, ng0_cap)
+                break
+            log.info("select: pool saturated (nip=%d vs rank %d on ng0=%d):"
+                     " densifying m0 %s -> %s", nip, rank, ng0, m0, m0_new)
+            m0 = m0_new
+            continue
+        key = (m0, nip)
+        if key not in _saturation_warned:
+            _saturation_warned.add(key)
+            warnings.warn(
+                f"interpolation-point selection is pool-saturated: nip={nip} "
+                f"vs parent-grid rank {rank} (ng0={ng0}). Accuracy is "
+                f"limited by the m0={m0} candidate pool, not by c0 — "
+                "increase m0 (or use m0='auto') for more accuracy.",
+                PoolSaturationWarning, stacklevel=2)
+        break
     return x_k, mask, rank, m0
 
 
-def _select_once(cell, kpts, m0, c0, select_tol, log, device):
+def _select_once(cell, kpts, m0, c0, dtype=None, select_tol=None, log=None,
+                 host_f64=None, use_trs=True, keep_tol=None, *, device):
     """One selection pass at a fixed parent mesh.  Returns
     (x_k, mask, rank, saturated, ng0, nip)."""
     log = log or Logger()
     t0 = time.perf_counter()
+    rdt, cdt = real_complex(dtype)
+    f64_build = rdt == torch.float64
+    kpts = np.asarray(kpts)
+    nk = len(kpts)
     coords0 = cell.gen_uniform_grids(m0)
-    x0 = make_evaluator(cell, kpts=kpts, device=device)(coords0)
-    nk, ng0, nao = x0.shape
-    # K1 gives |G|^2 / nk^2; times nk this is the JAX CPU path's
-    # (Re G)^2 / nk wherever the k-mesh is closed under k -> -k (there
-    # Im G = 0).  The pivot threshold is relative, so pivots are unchanged.
-    x4 = pair_gram_sq(x0, square=False) * nk
+    ng0 = coords0.shape[0]
+    nao = cell.nao_nr()
+    if host_f64 is None:
+        # pivot ordering degrades in float32: the greedy Schur diagonal is
+        # noise past the first few hundred pivots, and the scrambled tail
+        # picks near-duplicate points that ill-condition the fit
+        host_f64 = (not f64_build
+                    and ng0 <= select_f64_max_ng0(cell, kpts, c0,
+                                                  use_trs=use_trs,
+                                                  device=device))
     max_rank = min(int(min(c0, 1e6) * nao), ng0)
-    _, piv, rank, hist = pivoted_cholesky(x4, max_rank=max_rank,
-                                          tol=select_tol)
-    del x4
-    piv = piv.cpu().numpy()
+    ksel = mirror = None
+    if host_f64:
+        # time-reversal halving (x_{-k} = conj(x_k), exact for real AOs):
+        # only the canonical k half is evaluated, conjugate pairs weigh 2
+        # in the gram (their real parts are equal), and the full-k x at the
+        # selected points is a conjugate scatter.  use_trs=False keeps
+        # every k.
+        mirror = _trs_mirror(cell, kpts)
+        if use_trs and not (mirror < 0).any():
+            ksel = np.array([k for k in range(nk) if k <= mirror[k]])
+        if ksel is None or len(ksel) == nk:
+            ksel, wk = None, np.ones(nk)
+        else:
+            wk = np.where(mirror[ksel] == ksel, 1.0, 2.0)
+        x0 = make_evaluator(cell, kpts=kpts if ksel is None else kpts[ksel],
+                            dtype=torch.float64, device=device)(coords0)
+        nku = x0.shape[0]
+        flat = x0.permute(1, 0, 2).reshape(ng0, nku * nao)
+        flat = flat * torch.as_tensor(np.repeat(np.sqrt(wk), nao),
+                                      dtype=torch.float64, device=device)
+        # ~15% past the requested rank: the rank is otherwise capped at
+        # max_rank and a saturated pool could not be told from a full one
+        rank_cap = min(int(max_rank * 1.15) + 8, ng0)
+        piv, rank, hist = pivoted_cholesky_pairgram(flat, nk, rank_cap,
+                                                    tol=select_tol)
+        del flat
+        x0 = x0.to(cdt)
+    else:
+        x0 = make_evaluator(cell, kpts=kpts, dtype=rdt,
+                            device=device)(coords0)
+        # K1 gives |G|^2 / nk^2; times nk this is the JAX CPU path's
+        # (Re G)^2 / nk wherever the k-mesh is closed under k -> -k (there
+        # Im G = 0).  The pivot threshold is relative: same pivots.
+        x4 = pair_gram_sq(x0, square=False) * nk
+        rank_cap = max_rank
+        if f64_build:
+            _, piv, rank, hist = pivoted_cholesky(x4, max_rank=max_rank,
+                                                  tol=select_tol)
+        else:
+            # float32 rank detection is noise-limited (the Schur diagonal
+            # goes non-positive long before the true rank), so selection
+            # takes all max_rank greedy pivots; the ridge fit damps the
+            # redundant directions
+            piv, rank_fp, hist = pivot_selection(
+                x4, max_rank=max_rank,
+                tol=0.0 if select_tol is None else select_tol)
+            log.debug("select: float32 fp-rank %d of %d pivots (all are "
+                      "kept)", rank_fp, max_rank)
+            rank = max_rank
+        del x4
+        piv, hist = piv.cpu().numpy(), hist.cpu().numpy()
     nip = min(int(nao * c0), rank)
+    # saturation: the requested compression is within 10% of the parent
+    # grid's numerical pair-density rank.  It is read before the near-null
+    # trim below, which would otherwise hide it.
+    saturated = nip >= 0.9 * rank and rank < rank_cap
+    if keep_tol is not None:
+        # near-null-pivot guard: at pair-space rank exhaustion the last
+        # pivots sit at the selection tolerance, noise directions that a
+        # float32 serve amplifies.  Keep the pivots whose Schur diagonal
+        # exceeds keep_tol * hist[0].
+        nip_keep = int(np.sum(hist > float(keep_tol)
+                              * max(float(hist[0]), 0.0)))
+        if nip_keep < nip:
+            log.info("select: keep_tol=%.1e trims %d near-null pivots "
+                     "(nip %d -> %d)", keep_tol, nip - nip_keep, nip,
+                     nip_keep)
+            nip = max(nip_keep, 1)
     mask = piv[:nip]
-    saturated = nip >= 0.9 * rank and rank < max_rank
     if log.verbose >= 3:
         err = float(hist[min(nip, len(hist) - 1)])
         log.info("select_interpolation_points: ng0=%d rank=%d nip=%d "
-                 "pivot-residual=%.2e (%.2fs)", ng0, rank, nip, err,
+                 "pivot-residual=%.2e (%s, %.2fs)", ng0, rank, nip, err,
+                 "float64 matrix-free" if host_f64 else f"K1 {cdt}",
                  time.perf_counter() - t0)
     x_k = x0[:, torch.as_tensor(mask, device=device)].contiguous()
+    if ksel is not None:
+        x_k = _trs_scatter(x_k, ksel, mirror, device)
     return x_k, mask, rank, saturated, ng0, nip
 
 
@@ -155,21 +366,26 @@ def _rhs_block(f_k, x_k, phase, phase_cols):
     return y.reshape(phase_cols.shape[1], bg, nip)
 
 
-def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, rcond=1e-10,
-               refine=0, col_block=128):
+def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
+               rcond=1e-10, refine=0, col_block=128, neg_cols=None):
     """One momentum sector's metric w_q (nip, nip) from its normal matrix
     ``x4_q``, its RHS ``y_q`` (ngrid, nip), the Coulomb kernel and the
     e^{iqr} phases.
 
-    w_q = S_q (B_q K_q^T B_q^H) S_q through the split ridge operator
+    w_q = S_q (B_q K_q^T B_q^H) S_q through the split fitting operator
     S_q = H^H H: g = H B_q, then by Parseval g K g^H =
     (vol/ngrid^2) Gf diag(coulG) Gf^H with Gf = FFT[g e^{-iqr}] row-wise,
-    and the PSD split h = Gf sqrt(coulG vol/ngrid^2) leaves w = finish(h
+    and the split h = Gf sqrt(|coulG| vol/ngrid^2) leaves w = finish(h
     h^H).  Works in the transposed (grid-major) layout: ``y_q`` is
     overwritten (scaled by D), and the FFT runs over column slabs of
-    ``col_block`` interpolation points so its workspace stays small."""
+    ``col_block`` interpolation points so its workspace stays small.
+
+    ``neg_cols``: indices of the grid columns where the kernel is negative
+    (the 2D-truncated kernel's q+G = 0 sample, -2 pi rc^2).  The split
+    takes |coulG|, so each such column a enters the gram as +a a^H where
+    the metric wants -a a^H: 2 a a^H is taken off again."""
     ngrid, nip = y_q.shape
-    data = half_factor_data(x4_q, rcond=rcond, refine=refine)
+    data = half_factor_data(x4_q, method=solver, rcond=rcond, refine=refine)
     gt = half_apply_rows(data, y_q)                      # (ngrid, nip) = g^T
     gt.mul_(eiqr_q.conj()[:, None])
     sq = torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
@@ -180,29 +396,34 @@ def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, rcond=1e-10,
         gt[:, c0:c1] = (fft3(slab, mesh) * sq[None, :]).T
     # h h^H = gt^T conj(gt) = conj(gt^H gt)
     m = torch.matmul(gt.mH, gt).conj().resolve_conj()
+    if neg_cols is not None and len(neg_cols):
+        a = gt[neg_cols]                                 # (nneg, nip)
+        m -= 2.0 * (a.T @ a.conj())
     del gt
     return finish_apply(data, m)
 
 
 def _sector_wq_reference(x4_q, y_q, coulG_q, eiqr_q, mesh, vol,
-                         rcond=1e-10, refine=0):
+                         solver="ridge", rcond=1e-10, refine=0):
     """Row-major form of :func:`_sector_wq` through the closure operator
-    (the JAX package's ``_sector_wq`` line by line); the test oracle."""
+    (the JAX package's ``_sector_wq`` with ``signed=True``, line by line);
+    the test oracle."""
     ngrid = y_q.shape[0]
-    half, finish, _ = fitting_half_operator(x4_q, rcond=rcond,
+    half, finish, _ = fitting_half_operator(x4_q, method=solver, rcond=rcond,
                                             refine=refine)
     g = half(y_q.T)
     gf = fft3(g * eiqr_q.conj()[None, :], mesh)
     h = gf * torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
-    return finish(h @ h.mH)
+    return finish((h * torch.sign(coulG_q)[None, :]) @ h.mH)
 
 
-def _trs_sectors(cell, kpts):
+def _trs_sectors(cell, kpts, use_trs=True):
     """(mirror, qsel): each sector's -q partner and the canonical sectors
-    q <= mirror(q).  A mesh without full -k pairing keeps every sector."""
+    q <= mirror(q).  A mesh without full -k pairing, or ``use_trs=False``,
+    keeps every sector."""
     nk = len(kpts)
     mirror = _trs_mirror(cell, kpts)
-    if (mirror < 0).any():
+    if (mirror < 0).any() or not use_trs:
         mirror = np.arange(nk)
     qsel = np.array([q for q in range(nk) if q <= mirror[q]])
     return mirror, qsel
@@ -211,44 +432,92 @@ def _trs_sectors(cell, kpts):
 class FFTISDF:
     """Interpolative separable density fitting with FFT Coulomb kernels.
 
-    Configure, :meth:`build`, then :meth:`get_jk`.  Knobs follow the JAX
-    package's ``FFTISDF``:
+    Configure, :meth:`build`, then :meth:`get_jk`.  The knobs are the JAX
+    package's ``FFTISDF``'s, with the same meaning:
 
       c0             interpolation points per AO
-      m0             parent (selection) mesh, an explicit 3-tuple
-      solver         'ridge' (the only ported fitting solver)
-      rcond, refine  ridge regularisation and refinement steps
+      m0             parent (selection) mesh: 'auto' (the default: derived
+                     from a cutoff and the basis size by
+                     :func:`auto_selection_mesh`, densified at build time
+                     while the pool saturates) or an explicit 3-tuple
+      k0             selection cutoff in Ha: m0 = cell.cutoff_to_mesh(k0)
+                     ('auto' only)
+      m0_pool        'auto': candidate pool >= m0_pool * nip
+      m0_floor       'auto': elementwise floor of the mesh
+      solver         'ridge' (the default) | 'lstsq' | 'pinv' | 'svd'
+      rcond          spectral cutoff / ridge regularisation of the fit;
+                     None: 1e-10 in float64, 1e-5 in float32
+      refine         refinement steps; None: 0 in float64, 2 in float32
       select_tol     pivot threshold (None: n eps max diag)
+      select_keep    relative Schur-diagonal floor: pivots below
+                     select_keep * hist[0] are trimmed (None keeps all)
+      blksize        upper limit of the grid block of the sweep
       max_memory_gb  byte budget of the metric pass; None sizes it from
                      the device's free memory
+      use_trs        exploit w_{-q} = conj(w_q) in the build and
+                     x_{-k} = conj(x_k) in float64 selection; False
+                     disables both
+      trunc          Coulomb truncation: None | '0d' | '2d' (radius from
+                     the cell) | ('0d'|'2d', rc)
+      select_host_f64  None: a float32 build selects in float64 (pivot
+                     ordering degrades in float32); True / False force the
+                     float64 route or the build-dtype route through K1.
+                     The JAX package's name: it runs that route on the
+                     host, the port runs it on ``device``.
+      dtype          torch.float64 (None, the default on every device) or
+                     torch.float32
+      validate       check the stripe-reality invariant at build time
       device         'cuda' (the default) or 'cpu'
     """
 
-    def __init__(self, cell, kpts, c0=20.0, m0=(15, 15, 15), solver="ridge",
-                 rcond=1e-10, refine=0, select_tol=None, max_memory_gb=None,
-                 verbose=3, *, device="cuda"):
-        if isinstance(m0, str) or m0 is None:
-            raise NotImplementedError("m0='auto' (auto-densified selection "
-                                      "mesh): pass an explicit m0")
-        if solver != "ridge":
-            raise NotImplementedError(f"solver {solver!r}: only 'ridge' is "
-                                      "ported")
+    def __init__(self, cell, kpts, c0=20.0, m0="auto", k0=None, m0_pool=2.5,
+                 m0_floor=(15, 15, 15), solver="ridge", rcond=None,
+                 refine=None, select_tol=None, select_keep=None,
+                 blksize=16384, max_memory_gb=None, use_trs=True, trunc=None,
+                 select_host_f64=None, dtype=None, verbose=3, validate=False,
+                 *, device="cuda"):
+        if solver not in ("ridge", "lstsq", "pinv", "svd"):
+            raise ValueError(f"unknown solver {solver!r}")
         self.device = resolve_device(device)
+        self.rdtype, self.cdtype = real_complex(dtype)
+        self.dtype = self.rdtype
+        f64 = self.rdtype == torch.float64
         self.cell = cell
         self.kpts = np.asarray(kpts)
         self.kmesh = np.asarray(kpt_mod.kpts_to_kmesh(cell, self.kpts))
         self.c0 = float(c0)
-        self.m0 = tuple(int(v) for v in m0)
+        self.k0, self.m0_pool, self.m0_floor = k0, m0_pool, m0_floor
         self.solver = solver
-        self.rcond = float(rcond)
-        self.refine = int(refine)
+        # the cutoff must sit above the factorisation's noise floor:
+        # float32 eigenvalues carry O(eps wmax) errors that a 1e-10 cutoff
+        # would keep and amplify by 1/w
+        self.rcond = float(rcond) if rcond is not None else (
+            1e-10 if f64 else 1e-5)
+        # refinement in the metric-side build is O(nip^3), free next to
+        # the O(nip^2 ngrid) passes
+        self.refine = int(refine) if refine is not None else (0 if f64 else 2)
         self.select_tol = select_tol
+        self.select_keep = select_keep
+        self.blksize = int(blksize)
         self.max_memory_gb = max_memory_gb
+        self.use_trs = bool(use_trs)
+        self.trunc = (trunc_for_cell(cell, trunc) if isinstance(trunc, str)
+                      else trunc)
+        self.select_host_f64 = select_host_f64
+        self.validate = bool(validate)
         self._log = Logger(verbose)
+        self._m0_auto = _is_auto(m0)
+        if self._m0_auto:
+            self.m0 = auto_selection_mesh(
+                cell, self.c0 * cell.nao_nr(), pool_factor=m0_pool, k0=k0,
+                floor=m0_floor)
+        else:
+            self.m0 = tuple(int(v) for v in m0)
         self.x_k = None
         self.wq = None
         self.mask = None
         self._ws = None
+        self._wq_omega = {}
         self._madelung = None
         self._s1e = None
         self._kconserv2 = None
@@ -259,10 +528,14 @@ class FFTISDF:
     @classmethod
     def from_numpy(cls, cell, kpts, x_k, wq, mask, m0, *, device="cuda",
                    **kw):
-        """A built object from host arrays (e.g. the JAX package's state)."""
+        """A built object from host arrays (e.g. the JAX package's state),
+        in the arrays' own precision unless ``dtype`` is given."""
+        if kw.get("dtype") is None:
+            kw["dtype"] = (torch.float32 if np.asarray(wq).dtype
+                           == np.complex64 else torch.float64)
         df = cls(cell, kpts, m0=m0, device=device, **kw)
-        df.x_k = as_tensor(x_k, df.device, COMPLEX)
-        df.wq = as_tensor(wq, df.device, COMPLEX)
+        df.x_k = as_tensor(x_k, df.device, df.cdtype)
+        df.wq = as_tensor(wq, df.device, df.cdtype)
         df.mask = np.asarray(mask)
         return df
 
@@ -273,6 +546,10 @@ class FFTISDF:
     @property
     def nip(self):
         return None if self.x_k is None else self.x_k.shape[1]
+
+    @property
+    def w0(self):
+        return None if self.wq is None else self.wq[0]
 
     @property
     def phase(self):
@@ -294,27 +571,32 @@ class FFTISDF:
 
         ``mask``: indices into the ``m0`` parent mesh of interpolation
         points chosen elsewhere (e.g. by the JAX package's selection); when
-        given, selection is skipped and x_k is evaluated at those points.
-        Selection on a symmetric cell meets exact ties between symmetry-
-        equivalent points, which two implementations break differently, so
-        a comparison of the two packages past selection needs the same
-        mask."""
+        given, selection is skipped and x_k is evaluated at those points
+        (in float64, then cast to the build dtype).  Selection on a
+        symmetric cell meets exact ties between symmetry-equivalent points,
+        which two implementations break differently, so a comparison of
+        the two packages past selection needs the same mask."""
         dev = self.device
         t_all = time.perf_counter()
         if mask is None:
             self.x_k, self.mask, _, self.m0 = select_interpolation_points(
-                self.cell, self.kpts, self.m0, self.c0,
-                select_tol=self.select_tol, log=self._log, device=dev)
+                self.cell, self.kpts, self.m0, self.c0, dtype=self.rdtype,
+                select_tol=self.select_tol, log=self._log,
+                host_f64=self.select_host_f64, auto_densify=self._m0_auto,
+                use_trs=self.use_trs, keep_tol=self.select_keep, device=dev)
         else:
             self.mask = np.asarray(mask, dtype=np.int64)
             coords0 = self.cell.gen_uniform_grids(self.m0)[self.mask]
             self.x_k = make_evaluator(self.cell, kpts=self.kpts,
-                                      device=dev)(coords0)
+                                      device=dev)(coords0).to(self.cdtype)
         _sync(dev)
         t_sel = time.perf_counter() - t_all
+        if self.validate:
+            self._validate_stripe()
         self.timings = {}
-        self.wq = self._metric_pass()
+        self._wq_omega = {}
         self._ws = None
+        self.wq = self._metric_pass(omega=0.0)
         _sync(dev)
         total = time.perf_counter() - t_all
         self.timings.update(select_s=t_sel, metric_s=total - t_sel,
@@ -322,89 +604,128 @@ class FFTISDF:
         self._log.info("build: total %.2fs", total)
         return self
 
-    def _memory_plan(self, nsec, nk_sw, nip, nao, ngrid):
-        """(qchunk, blk, budget bytes) of the metric pass.
+    def _validate_stripe(self):
+        """The image-space pair products of x_k must be real (they are on a
+        k-mesh consistent with the lattice)."""
+        x_k = self.x_k
+        phase = torch.as_tensor(self.phase, dtype=self.cdtype,
+                                device=self.device)
+        x2_k = (x_k.conj() @ x_k.transpose(1, 2)).reshape(len(x_k), -1)
+        imag_max = float((phase @ x2_k).imag.abs().max())
+        tol_real = 1e-10 if self.rdtype == torch.float64 else 1e-4
+        if not imag_max < tol_real * max(1.0, float(x2_k.abs().max())):
+            raise AssertionError(
+                f"stripe reality violated: imag {imag_max:.2e} (k-mesh "
+                "inconsistent with lattice?)")
+        self._log.debug("validate: x2 stripe imag max %.2e", imag_max)
 
-        The port's model, in bytes (itemsize 16 for complex128):
-          persistent  x_k, x4_k (nk nip^2), w_q (nsec + nk nip^2), the
-                      chunk's factors, eiqr and the Coulomb kernels;
-          plane       one sector's RHS y_q, ngrid nip 16; a chunk of nq
+    def _memory_plan(self, nsec, nk_sw, nip, nao, ngrid):
+        """(qchunk, blk, budget bytes) of one metric pass.
+
+        The model, in bytes, with r and c = 2 r the sizes of a real and a
+        complex number of the build dtype:
+          persistent  what the pass itself allocates and keeps: x4_k
+                      (nk nip^2 c), the canonical w_q and their scatter
+                      ((nsec + 2 nk) nip^2 c), a few nip^2 factors, the
+                      sweep's copy of x_k, and per sector the e^{iqr}
+                      phases (ngrid c) and the kernel (ngrid r);
+          plane       one sector's RHS y_q, ngrid nip c; a chunk of nq
                       sectors holds nq planes through its sweep;
           sweep       per grid point of a block: the projected pairs on the
                       swept k axis (complex, plus real/imag copies), the
                       real image stripe and its products, the chunk's
-                      complex RHS rows: nip (32 nk_sw + 24 nimg + 32 nq)
-                      + AO values;
+                      RHS rows (complex, plus real/imag): nip r (4 nk_sw
+                      + 3 nimg + 4 nq) + AO values;
           solve       the g plane of one sector (the y plane it came from
                       is released right after) plus three FFT slabs of 128
                       columns and a few nip^2 temporaries.
-        The budget is ``max_memory_gb`` or 90% of the free device memory
-        (``torch.cuda.mem_get_info`` on CUDA).  Sweep temporaries get at
-        most a quarter of it and 4 GB; the sector chunk takes what is
-        left."""
+        The budget is ``max_memory_gb`` or 90% of the device's free memory
+        when the pass starts, so whatever the object already holds (x_k,
+        the bare metric and its image-space form under a screened pass) is
+        outside it, and the float64 factor of a selection inside a float32
+        build is released before.  Sweep temporaries get at most a quarter
+        of it and 4 GB, the grid block at most ``blksize`` points; the
+        sector chunk takes what is left."""
         nk = self.nkpt
+        r = self.rdtype.itemsize
+        c = 2 * r
         if self.max_memory_gb is not None:
             budget = float(self.max_memory_gb) * 1e9
         else:
             budget = 0.9 * free_memory_bytes(self.device)
-        plane = ngrid * nip * 16
-        persist = ((3 * nk + nsec + 4) * nip * nip + nk * nip * nao
-                   + 3 * nsec * ngrid) * 16
-        solve = plane + 3 * 128 * ngrid * 16 + 6 * nip * nip * 16
+        plane = ngrid * nip * c
+        persist = ((3 * nk + nsec + 4) * nip * nip * c + nk * nip * nao * c
+                   + nsec * ngrid * (c + r) + 3 * ngrid * r)
+        solve = plane + 3 * 128 * ngrid * c + 6 * nip * nip * c
 
         def sweep_bytes(nq, blk):
-            return blk * (nip * (32 * nk_sw + 24 * nk + 32 * nq)
-                          + 16 * nk_sw * nao)
+            return blk * (nip * r * (4 * nk_sw + 3 * nk + 4 * nq)
+                          + c * nk_sw * nao)
 
         sweep_cap = min(4e9, 0.25 * budget)
-        blk = int(max(64, min(ngrid, sweep_cap // max(sweep_bytes(nsec, 1),
-                                                       1))))
+        blk = int(max(64, min(ngrid, self.blksize,
+                              sweep_cap // max(sweep_bytes(nsec, 1), 1))))
         room = budget - persist - max(sweep_bytes(nsec, blk), solve)
         qchunk = int(max(1, min(nsec, room // plane)))
         return qchunk, blk, budget
 
-    def _metric_pass(self):
+    def _metric_pass(self, omega=0.0):
         """RHS grid sweep + per-sector solve / FFT kernel / gram, chunked
-        over canonical momentum sectors.  Returns w_q (nk, nip, nip)."""
+        over canonical momentum sectors, for the Coulomb kernel that
+        ``omega`` and ``self.trunc`` select (0: the full kernel).  Returns
+        w_q (nk, nip, nip).
+
+        :meth:`build` runs it with the full kernel; :meth:`get_wq_omega`
+        runs it again with a screened kernel over the same interpolation
+        vectors (w_q is linear in the kernel: only the spectral scale
+        differs)."""
         cell, kpts, dev, log = self.cell, self.kpts, self.device, self._log
+        rdt, cdt = self.rdtype, self.cdtype
         x_k = self.x_k
         nk, nip, nao = x_k.shape
         coords = cell.gen_uniform_grids()
         ngrid = coords.shape[0]
         mesh = tuple(int(m) for m in cell.mesh)
         vol = float(cell.vol)
-        phase = torch.as_tensor(self.phase, dtype=COMPLEX, device=dev)
+        phase = torch.as_tensor(self.phase, dtype=cdt, device=dev)
 
         # w_{-q} = conj(w_q) for real AOs: only canonical sectors are
         # solved.  The sweep's AO evaluation and projection run on the
         # canonical half of the k axis too, conjugate pairs weighted 2 in
         # the stripe phase (see _rhs_block).
-        mirror, qsel = _trs_sectors(cell, kpts)
+        mirror, qsel = _trs_sectors(cell, kpts, self.use_trs)
         nsec = len(qsel)
         ksel = qsel
         kw = np.where(mirror[ksel] == ksel, 1.0, 2.0)
         ksel_t = torch.as_tensor(ksel, device=dev)
         x_sw = x_k[ksel_t]
-        phase_sw = phase[:, ksel_t] * torch.as_tensor(kw, dtype=REAL,
+        phase_sw = phase[:, ksel_t] * torch.as_tensor(kw, dtype=rdt,
                                                       device=dev)
-        fn = make_evaluator(cell, kpts=kpts[ksel], device=dev)
+        fn = make_evaluator(cell, kpts=kpts[ksel], dtype=rdt, device=dev)
 
         qchunk, blk, budget = self._memory_plan(nsec, len(ksel), nip, nao,
                                                 ngrid)
-        log.info("build: nk=%d nip=%d nao=%d ngrid=%d sectors=%d "
-                 "(qchunk=%d blk=%d, plane %.2f GB, budget %.1f GB)", nk,
-                 nip, nao, ngrid, nsec, qchunk, blk,
-                 ngrid * nip * 16 / 1e9, budget / 1e9)
+        log.info("build: nk=%d nip=%d nao=%d ngrid=%d sectors=%d %s omega=%g"
+                 " (qchunk=%d blk=%d, plane %.2f GB, budget %.1f GB)", nk,
+                 nip, nao, ngrid, nsec, cdt, omega, qchunk, blk,
+                 ngrid * nip * cdt.itemsize / 1e9, budget / 1e9)
 
         x4_k = _stripe_quartic(x_k, phase)
         qsel_t = torch.as_tensor(qsel, device=dev)
-        kq = torch.as_tensor(kpts[qsel], dtype=REAL, device=dev)
+        kq = torch.as_tensor(kpts[qsel], dtype=rdt, device=dev)
         coulG = get_coulG_batched(
-            cell, kq, torch.as_tensor(cell.get_Gv(mesh), dtype=REAL,
-                                      device=dev))
-        coords_t = torch.as_tensor(coords, dtype=REAL, device=dev)
+            cell, kq, torch.as_tensor(cell.get_Gv(mesh), dtype=rdt,
+                                      device=dev),
+            omega=omega, trunc=self.trunc)
+        # a truncated 2D kernel carries a finite negative q+G = 0 sample,
+        # whose sign the |coulG| split strips (see _sector_wq)
+        neg_cols = [None] * nsec
+        if self.trunc is not None:
+            for i in torch.nonzero((coulG < 0).any(dim=1))[:, 0].tolist():
+                neg_cols[i] = torch.nonzero(coulG[i] < 0)[:, 0]
+        coords_t = torch.as_tensor(coords, dtype=rdt, device=dev)
         ph = eiqr(coords_t, kq)
-        wq_sel = torch.empty((nsec, nip, nip), dtype=COMPLEX, device=dev)
+        wq_sel = torch.empty((nsec, nip, nip), dtype=cdt, device=dev)
 
         # stage times: one device sync after each chunk's sweep and solves
         t0 = time.perf_counter()
@@ -415,7 +736,7 @@ class FFTISDF:
             nchunks += 1
             t_c = time.perf_counter()
             phase_cols = phase[:, qsel_t[q0:q1]]
-            ys = [torch.empty((ngrid, nip), dtype=COMPLEX, device=dev)
+            ys = [torch.empty((ngrid, nip), dtype=cdt, device=dev)
                   for _ in range(q1 - q0)]
             for g0 in range(0, ngrid, blk):
                 g1 = min(g0 + blk, ngrid)
@@ -431,9 +752,10 @@ class FFTISDF:
                 iq = q0 + i
                 y_q = ys[i]
                 ys[i] = None      # the solve overwrites and releases it
-                wq_sel[iq] = _sector_wq(x4_k[qsel[iq]], y_q, coulG[iq],
-                                        ph[iq], mesh, vol,
-                                        rcond=self.rcond, refine=self.refine)
+                wq_sel[iq] = _sector_wq(
+                    x4_k[qsel[iq]], y_q, coulG[iq], ph[iq], mesh, vol,
+                    solver=self.solver, rcond=self.rcond,
+                    refine=self.refine, neg_cols=neg_cols[iq])
                 del y_q
             _sync(dev)
             stage["solve_s"] += time.perf_counter() - t_c
@@ -442,14 +764,7 @@ class FFTISDF:
         # scatter canonical sectors and their conjugate mirrors.  w_q is
         # not symmetrised: on even FFT meshes the discrete Coulomb operator
         # carries a small skew part that the exact oracle shares.
-        pos = {int(q): i for i, q in enumerate(qsel)}
-        order = torch.as_tensor(
-            [pos.get(q, pos.get(int(mirror[q]))) for q in range(nk)],
-            device=dev)
-        flip = torch.as_tensor([q not in pos for q in range(nk)],
-                               device=dev)
-        wq = wq_sel[order]
-        wq = torch.where(flip[:, None, None], wq.conj(), wq)
+        wq = _trs_scatter(wq_sel, qsel, mirror, dev) if nsec < nk else wq_sel
         log.info("build: %d/%d sectors solved in %d chunk(s) (%.2fs)", nsec,
                  nk, nchunks, time.perf_counter() - t0)
         return wq
@@ -462,34 +777,79 @@ class FFTISDF:
             self._ws = jk_mod.wq_to_ws(self.wq, self.kmesh)
         return self._ws
 
+    def get_wq_omega(self, omega):
+        """Screened (range-separated) Coulomb metric over the same
+        interpolation basis, cached per omega (erf for omega > 0, erfc for
+        omega < 0; see ``linalg.coulomb``).  The first call for an omega
+        pays one metric pass; selection and x_k are reused."""
+        key = float(omega)
+        if key not in self._wq_omega:
+            if self.x_k is None:
+                raise RuntimeError("call build() first")
+            self._log.info("building screened metric (omega=%g)", key)
+            self._wq_omega[key] = {"wq": self._metric_pass(omega=key),
+                                   "ws": None}
+        return self._wq_omega[key]["wq"]
+
+    def get_ws_omega(self, omega):
+        """Image-space form of :meth:`get_wq_omega` (cached)."""
+        wq_o = self.get_wq_omega(omega)
+        entry = self._wq_omega[float(omega)]
+        if entry["ws"] is None:
+            entry["ws"] = jk_mod.wq_to_ws(wq_o, self.kmesh)
+        return entry["ws"]
+
     def get_jk(self, dm_kpts, with_j=True, with_k=True, exxdiv=None,
                omega=None, kpts_band=None):
-        """(vj, vk) tensors on the object's device for ``dm_kpts``
-        (nk, nao, nao) or (nset, nk, nao, nao); ``None`` for a skipped
-        part.  ``exxdiv='ewald'`` adds the Madelung probe-charge term
-        to vk."""
+        """(vj, vk) tensors on the object's device, in the metric's dtype,
+        for ``dm_kpts`` (nk, nao, nao) or (nset, nk, nao, nao); ``None``
+        for a skipped part.  ``exxdiv='ewald'`` adds the Madelung
+        probe-charge term to vk; ``omega`` serves from the screened metric
+        of :meth:`get_wq_omega`."""
+        if kpts_band is not None:
+            raise NotImplementedError("band k-points (kpts_band)")
         if omega is not None and float(omega) != 0.0:
-            raise NotImplementedError("range separation (omega)")
+            if exxdiv is not None:
+                raise NotImplementedError(
+                    "exxdiv with omega: the probe-charge Madelung constant "
+                    "of a screened kernel differs from the bare one")
+            return self._get_jk_metric(
+                dm_kpts, self.get_wq_omega(omega),
+                self.get_ws_omega(omega) if with_k else None,
+                with_j=with_j, with_k=with_k)[:2]
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
-        if kpts_band is not None:
-            raise NotImplementedError("kpts_band")
+        if exxdiv == "ewald" and self.trunc is not None:
+            raise NotImplementedError(
+                "exxdiv with a truncated kernel: its probe-charge constant "
+                "(madelung_trunc) belongs to SCF-level truncation")
+        vj, vk, dm = self._get_jk_metric(
+            dm_kpts, self.wq, self.get_ws() if with_k else None,
+            with_j=with_j, with_k=with_k)
+        if exxdiv == "ewald" and with_k:
+            single = vk.ndim == 3
+            vk = jk_mod.add_ewald_exx(vk[None] if single else vk,
+                                      self.get_ovlp(), dm, self.madelung())
+            vk = vk[0] if single else vk
+        return vj, vk
+
+    def _get_jk_metric(self, dm_kpts, wq, ws, with_j=True, with_k=True):
+        """J/K serve against an explicit metric pair (wq, ws), shared by the
+        bare and the range-separated paths.  Returns (vj, vk, the density
+        on the device with its set axis)."""
         if self.x_k is None:
             raise RuntimeError("call build() first")
-        dm = as_tensor(dm_kpts, self.device, COMPLEX)
+        dm = as_tensor(dm_kpts, self.device, wq.dtype)
         single = dm.ndim == 3
         if single:
             dm = dm[None]
-        vj = jk_mod.get_j_kpts(self.x_k, self.wq[0], dm) if with_j else None
-        vk = (jk_mod.get_k_kpts_img(self.x_k, self.get_ws(), dm, self.kmesh)
+        vj = jk_mod.get_j_kpts(self.x_k, wq[0], dm) if with_j else None
+        vk = (jk_mod.get_k_kpts_img(self.x_k, ws, dm, self.kmesh)
               if with_k else None)
-        if exxdiv == "ewald" and with_k:
-            vk = jk_mod.add_ewald_exx(vk, self.get_ovlp(), dm,
-                                      self.madelung())
         if single:
             vj = None if vj is None else vj[0]
             vk = None if vk is None else vk[0]
-        return vj, vk
+        return vj, vk, dm
 
     def madelung(self):
         """Probe-charge Madelung constant of the BvK supercell (cached)."""
@@ -505,6 +865,8 @@ class FFTISDF:
             from fftisdf_tpu_torch.scf.integrals import get_ovlp_kpts
 
             self._s1e = get_ovlp_kpts(self.cell, self.kpts,
+                                      dtype=self.rdtype,
+                                      blksize=self.blksize,
                                       device=self.device)
         return self._s1e
 
@@ -527,8 +889,8 @@ class FFTISDF:
         serialization.save_isdf_state(path, self)
 
     @classmethod
-    def load(cls, path, cell, kpts, *, device="cuda"):
+    def load(cls, path, cell, kpts, dtype=None, *, device="cuda"):
         from fftisdf_tpu_torch.utils import serialization
 
-        return serialization.load_isdf_state(path, cell, kpts, device=device)
-
+        return serialization.load_isdf_state(path, cell, kpts, dtype=dtype,
+                                             device=device)

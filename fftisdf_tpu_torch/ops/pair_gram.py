@@ -9,9 +9,10 @@ Pallas kernel).  For X (nk, ng, nao) complex,
 (``csrc/pair_gram.cu``, built at first use by :mod:`._build`) for a CUDA
 tensor and takes the plain version, :func:`pair_gram_sq_reference`, for a
 CPU tensor.  It never falls back from the kernel to the plain version.
-``pair_gram_sq.launches`` counts kernel launches.  complex128 runs on the
-FP64 tensor cores and reads X in place; complex64 runs on FP32 FMA from
-contiguous real/imag planes.
+``pair_gram_sq.launches`` counts kernel launches and
+``pair_gram_sq.last_launch`` holds the shape and dtype of the latest one.
+complex128 runs on the FP64 tensor cores and reads X in place; complex64
+runs on FP32 FMA from contiguous real/imag planes.
 """
 from __future__ import annotations
 
@@ -95,7 +96,9 @@ def pair_gram_sq(x, square=True):
         raise RuntimeError(f"pair_gram_sq kernel launch failed: CUDA error "
                            f"{rc}")
     pair_gram_sq.launches += 1
+    pair_gram_sq.last_launch = ((nk, ng, nao), x.dtype)
     return out
 
 
 pair_gram_sq.launches = 0
+pair_gram_sq.last_launch = None

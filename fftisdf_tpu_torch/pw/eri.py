@@ -11,7 +11,7 @@ import numpy as np
 
 from fftisdf_tpu_torch.linalg.fft import fft3
 from fftisdf_tpu_torch.pw.poisson import eiqr, pair_potential
-from fftisdf_tpu_torch.utils.device import REAL, as_tensor
+from fftisdf_tpu_torch.utils.device import as_tensor, real_complex
 
 
 def get_ao_pairs_G(ao1, ao2, q, coords, mesh, sign=+1):
@@ -19,7 +19,8 @@ def get_ao_pairs_G(ao1, ao2, q, coords, mesh, sign=+1):
     (ngrid, nao*nao), FFT[conj(ao1_m) ao2_n e^{-i sign q.r}]."""
     ng = ao1.shape[0]
     rho = (ao1.conj()[:, :, None] * ao2[:, None, :]).reshape(ng, -1)
-    ph = eiqr(as_tensor(coords, ao1.device, REAL), -sign * np.asarray(q))
+    ph = eiqr(as_tensor(coords, ao1.device, real_complex(ao1.dtype)[0]),
+              -sign * np.asarray(q))
     return fft3((rho * ph[:, None]).T, mesh).T
 
 

@@ -13,6 +13,10 @@ the device's free memory unless ``max_memory_gb`` is given); when one
 pair's nao rows do not fit, the pair's bra rows are split into blocks.
 Partial sums go into vk with ``index_add_`` on the device, and the loop
 makes no host synchronisation.
+
+The AO tensor's precision (complex128 or complex64) is the oracle's.
+``omega`` selects a range-separated kernel and ``trunc`` a truncated one,
+in the convention of ``linalg.coulomb``; band k-points are not ported.
 """
 from __future__ import annotations
 
@@ -21,11 +25,12 @@ import math
 import numpy as np
 import torch
 
-from fftisdf_tpu_torch.linalg.coulomb import _check_bare, get_coulG
+from fftisdf_tpu_torch.linalg.coulomb import (_coulG_vec, _screen,
+                                              check_trunc, get_coulG)
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
 from fftisdf_tpu_torch.pw.poisson import eiqr
-from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, as_tensor,
-                                            free_memory_bytes)
+from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
+                                            real_complex)
 
 # complex temporaries of one work item (k-pair, bra row) per AO and grid
 # point: the pair density, its transform, cuFFT's workspace, the potential
@@ -41,16 +46,18 @@ def get_j_kpts(cell, dm_kpts, ao_kpts, mesh=None, ao_band=None, omega=0.0,
     mesh = tuple(int(m) for m in (cell.mesh if mesh is None else mesh))
     nk, ng, _ = ao_kpts.shape
     dev = ao_kpts.device
-    dm = as_tensor(dm_kpts, dev, COMPLEX)
-    coulG = get_coulG(cell, mesh=mesh, omega=omega, trunc=trunc, device=dev)
+    rdt, cdt = real_complex(ao_kpts.dtype)
+    dm = as_tensor(dm_kpts, dev, cdt)
+    coulG = get_coulG(cell, mesh=mesh, omega=omega, trunc=trunc, dtype=rdt,
+                      device=dev)
     n_g = ((ao_kpts @ dm) * ao_kpts.conj()).sum(dim=(0, 2)) / nk
     vcoul = ifft3(fft3(n_g, mesh) * coulG, mesh)
     return (cell.vol / ng) * (ao_kpts.mH @ (vcoul[None, :, None] * ao_kpts))
 
 
-def _pair_plan(nk, ng, nao, budget):
+def _pair_plan(nk, ng, nao, budget, itemsize=16):
     """(pairs per batch, bra rows per batch) for a byte budget."""
-    per_row = _ITEM_TEMPS * nao * ng * 16
+    per_row = _ITEM_TEMPS * nao * ng * itemsize
     rows = max(1, int(budget // per_row))
     if rows >= nao:
         return min(nk * nk, rows // nao), nao
@@ -70,27 +77,34 @@ def get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
 
     ``g0_thresh``: kernel samples with |q+G|^2 at or below it are excluded;
     the default removes exactly the singular q+G = 0 term (the
-    ``exxdiv=None`` convention).  ``max_memory_gb``: the batch's byte
-    budget (default: a quarter of the device's free memory)."""
+    ``exxdiv=None`` convention).  ``omega``: range-separated kernel; the
+    long-range (erf, omega > 0) divergence is dropped like the bare
+    kernel's, the short-range (erfc, omega < 0) kernel takes its finite
+    limit pi/omega^2 at the samples at or below ``g0_thresh``.  ``trunc``:
+    a truncated kernel is finite everywhere, so nothing is excluded.
+    ``max_memory_gb``: the batch's byte budget (default: a quarter of the
+    device's free memory)."""
     if ao_band is not None or kpts_band is not None:
         raise NotImplementedError("band k-points (ao_band, kpts_band)")
     if g0_argmin_thresh is not None:
         raise NotImplementedError("g0_argmin_thresh (band paths)")
-    _check_bare(omega, trunc)
+    omega = float(omega)
+    trunc = check_trunc(trunc, omega)
     mesh = tuple(int(m) for m in (cell.mesh if mesh is None else mesh))
     if coords is None:
         coords = cell.gen_uniform_grids(mesh)
     nk, ng, nao = ao_kpts.shape
     dev = ao_kpts.device
-    dm = as_tensor(dm_kpts, dev, COMPLEX)
-    kpts_t = as_tensor(np.asarray(kpts), dev, REAL)
-    coords_t = as_tensor(coords, dev, REAL)
-    gv = as_tensor(cell.get_Gv(mesh), dev, REAL)
+    rdt, cdt = real_complex(ao_kpts.dtype)
+    dm = as_tensor(dm_kpts, dev, cdt)
+    kpts_t = as_tensor(np.asarray(kpts), dev, rdt)
+    coords_t = as_tensor(coords, dev, rdt)
+    gv = as_tensor(cell.get_Gv(mesh), dev, rdt)
     u = ao_kpts.conj() @ dm.transpose(1, 2)                # (nk, ng, nao)
     budget = (0.25 * free_memory_bytes(dev) if max_memory_gb is None
               else float(max_memory_gb) * 1e9)
-    pb, rb = _pair_plan(nk, ng, nao, budget)
-    vk = torch.zeros((nk, nao, nao), dtype=COMPLEX, device=dev)
+    pb, rb = _pair_plan(nk, ng, nao, budget, cdt.itemsize)
+    vk = torch.zeros((nk, nao, nao), dtype=cdt, device=dev)
     scale = cell.vol / ng / nk
     npair = nk * nk
     for p0 in range(0, npair, pb):
@@ -100,12 +114,22 @@ def get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
         q = kpts_t[k2] - kpts_t[k1]                        # (P, 3)
         ph = eiqr(coords_t, q)                             # (P, ng)
         gk = gv[None] + q[:, None, :]
-        absg2 = (gk * gk).sum(dim=-1)
-        keep = absg2 > g0_thresh
-        coulG = torch.where(
-            keep, 4.0 * math.pi / torch.where(keep, absg2,
-                                              torch.ones_like(absg2)),
-            torch.zeros_like(absg2)).reshape(np_, 1, 1, *mesh)
+        if trunc is not None:
+            coulG = _coulG_vec(gk, 0.0, trunc)
+        else:
+            absg2 = (gk * gk).sum(dim=-1)
+            keep = absg2 > g0_thresh
+            one = torch.ones_like(absg2)
+            coulG = torch.where(keep,
+                                4.0 * math.pi / torch.where(keep, absg2, one),
+                                torch.zeros_like(absg2))
+            if omega > 0:
+                coulG = coulG * _screen(absg2, omega)
+            elif omega < 0:
+                coulG = torch.where(
+                    keep, coulG * (1.0 - _screen(absg2, omega)),
+                    math.pi / (omega * omega) * one)
+        coulG = coulG.reshape(np_, 1, 1, *mesh)
         a1 = ao_kpts[k1]                                   # (P, ng, nao)
         b2 = (ao_kpts[k2] * ph.conj()[:, :, None]).transpose(1, 2)
         b2 = b2.contiguous()                               # (P, nao, ng)
@@ -130,8 +154,8 @@ def get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
 
 def get_jk_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
                 with_j=True, with_k=True, omega=0.0, trunc=None):
-    """(vj, vk) exact plane-wave build; either may be None if not
-    requested."""
+    """(vj, vk) exact plane-wave build with the kernel of ``omega`` and
+    ``trunc``; either may be None if not requested."""
     vj = (get_j_kpts(cell, dm_kpts, ao_kpts, mesh, omega=omega, trunc=trunc)
           if with_j else None)
     vk = (get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh, coords, omega=omega,

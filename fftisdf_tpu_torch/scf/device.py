@@ -14,7 +14,11 @@ once a cycle to check its result.
 Scope: KUHF/KRHF with fixed or smeared occupations, the AFM on-site bias
 and linear density damping (``damp``); ``level_shift`` stays with the
 host loop, and ``exxdiv`` is refused (the loop serves exxdiv=None).
-The converged energy and orbitals are recomputed once on the host in f64.
+The loop runs in the SCF object's ``dtype`` (float64 unless float32 is
+asked for); J/K are served in the provider's own precision and cast.  A
+float32 loop's energy reduction is float32-granular (~6e-5 Ha at
+|E| ~ 340), so the converged energy and orbitals are recomputed once on
+the host in f64 either way.
 """
 from __future__ import annotations
 
@@ -27,15 +31,19 @@ from fftisdf_tpu_torch.isdf import jk as jk_mod
 from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
 from fftisdf_tpu_torch.scf import core
 from fftisdf_tpu_torch.scf.hf import KUHF, _eigh_gen
-from fftisdf_tpu_torch.utils.device import COMPLEX, REAL, as_tensor, to_numpy
+from fftisdf_tpu_torch.utils.device import as_tensor, real_complex, to_numpy
 
-# Dropped (near-null) overlap directions keep their column and get a
-# +1e6 Ha diagonal penalty in the orthogonal basis, so they are never
-# occupied.  The eigensolve sorts them to the top of each spectrum, so the
-# validity mask comes from the eigenvalues (below the gate), never from the
-# per-column penalty vector.
+# Dropped (near-null) overlap directions keep their column, which is zero
+# in the orthogonalisation basis X, so they are exactly decoupled in
+# X^H F X.  Each gets a diagonal entry above the spectrum, so it is never
+# occupied.  The entry is scaled to the matrix's own norm (twice its largest
+# absolute row sum, plus one): an eigensolver's backward error is
+# eps ||A||, and a fixed 1e6 would put 0.06 Ha of it into every float32
+# eigenvalue.  The eigensolve sorts the entries to the top of each
+# spectrum, so the validity mask comes from the eigenvalues (below a gate
+# between the row-sum bound and the entry), never from column positions.
+# ``orth_and_penalty`` marks the dropped columns with a positive number.
 _PENALTY = 1e6
-_PENALTY_GATE = 0.5e6
 
 
 def orth_and_penalty(s1e, cutoff):
@@ -83,16 +91,17 @@ def _diis_update(errs, focks, dms, ok, n, err, fock, dm, adiis_switch,
     return fock_c, n
 
 
-def _smeared_occ(e, nocc, sigma, factor, method="fermi"):
-    """Smeared occupations of (nk, nmo) eigenvalues; penalised slots get
-    occupation 0.  Returns (occupations, entropy) tensors."""
-    f, s, _ = core.smeared_occ(e, e < _PENALTY_GATE,
-                               float(nocc * e.shape[0]), sigma, method)
+def _smeared_occ(e, ok, nocc, sigma, factor, method="fermi"):
+    """Smeared occupations of (nk, nmo) eigenvalues; slots where ``ok`` is
+    False (penalised) get occupation 0.  Returns (occupations, entropy)
+    tensors."""
+    f, s, _ = core.smeared_occ(e, ok, float(nocc * e.shape[0]), sigma,
+                               method)
     return factor * f, factor * s
 
 
-def _fixed_occ(e, nocc, factor):
-    return (factor * core.aufbau_occ(e, e < _PENALTY_GATE, nocc),
+def _fixed_occ(e, ok, nocc, factor):
+    return (factor * core.aufbau_occ(e, ok, nocc),
             torch.zeros((), dtype=e.dtype, device=e.device))
 
 
@@ -118,21 +127,22 @@ class DeviceKUHF(KUHF):
         dev = df.device
         nk, nao = self.h1e.shape[:2]
         na, nb = self.nocc_ab
-        cplx = lambda a: as_tensor(a, dev, COMPLEX)
+        rdt, cdt = real_complex(self.dtype)
+        cplx = lambda a: as_tensor(a, dev, cdt)
         x_np, pen_np = orth_and_penalty(self.s1e, self.ovlp_cutoff)
         h1e, s1e, xo = cplx(self.h1e), cplx(self.s1e), cplx(x_np)
         xo_h = xo.mH
-        pen = torch.diag_embed(cplx(pen_np))
+        dropped = torch.as_tensor(pen_np > 0, device=dev)
         bias = cplx(self._bias_matrices())
         kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
         # the serve reads w0 = wq[0] (a view) and the image-space metric;
         # the full wq is never copied
         x_k, w0, ws = df.x_k, df.wq[0], df.get_ws()
-        phase_cs = jk_mod._phase_cs(kmesh, REAL, dev)
+        phase_cs = jk_mod._phase_cs(kmesh, ws.dtype, dev)
 
         m = self.diis_space
         L = 2 * nk * nao * nao
-        errs, focks, dms = (torch.zeros((m, L), dtype=COMPLEX, device=dev)
+        errs, focks, dms = (torch.zeros((m, L), dtype=cdt, device=dev)
                             for _ in range(3))
         ok = torch.zeros(m, dtype=torch.bool, device=dev)
         n = 0
@@ -145,9 +155,10 @@ class DeviceKUHF(KUHF):
         has_bias = bool(self.init_spin)
 
         def step(dm, it):
-            vj = jk_mod.get_j_kpts(x_k, w0, dm)
-            vk = jk_mod.get_k_kpts_img(x_k, ws, dm, kmesh,
-                                       phase_cs=phase_cs)
+            dm_s = dm.to(x_k.dtype)       # the provider's precision
+            vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
+            vk = jk_mod.get_k_kpts_img(x_k, ws, dm_s, kmesh,
+                                       phase_cs=phase_cs).to(cdt)
             vj_tot = vj[0] + vj[1]
             fock = torch.stack([h1e + vj_tot - vk[0], h1e + vj_tot - vk[1]])
             dm_t = dm.transpose(-1, -2)
@@ -162,18 +173,23 @@ class DeviceKUHF(KUHF):
             fock = fock_x.reshape(fock.shape)
             if it < bias_cycles:
                 fock = fock + bias
-            e, c = torch.linalg.eigh(xo_h @ fock @ xo + pen)
-            occs, ent = [], torch.zeros((), dtype=REAL, device=dev)
+            fo = xo_h @ fock @ xo
+            bound = fo.abs().sum(dim=-1).amax(dim=-1, keepdim=True)
+            pen = torch.where(dropped, 2.0 * bound + 1.0, 0.0)
+            e, c = torch.linalg.eigh(fo + torch.diag_embed(pen).to(cdt))
+            valid = e < 1.5 * bound + 0.5
+            occs, ent = [], torch.zeros((), dtype=rdt, device=dev)
             for sp, nocc in ((0, na), (1, nb)):
                 if sigma > 0.0:
-                    occ_s, ent_s = _smeared_occ(e[sp], nocc, sigma, 1.0,
+                    occ_s, ent_s = _smeared_occ(e[sp], valid[sp], nocc,
+                                                sigma, 1.0,
                                                 method=self.smearing_method)
                 else:
-                    occ_s, ent_s = _fixed_occ(e[sp], nocc, 1.0)
+                    occ_s, ent_s = _fixed_occ(e[sp], valid[sp], nocc, 1.0)
                 occs.append(occ_s)
                 ent = ent + ent_s
             mo = xo @ c
-            dm_new = (mo * torch.stack(occs)[:, :, None, :].to(COMPLEX)) \
+            dm_new = (mo * torch.stack(occs)[:, :, None, :].to(cdt)) \
                 @ mo.mH
             if damp:
                 dm_new = (1.0 - damp) * dm_new + damp * dm

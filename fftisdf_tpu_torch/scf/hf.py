@@ -7,9 +7,15 @@ come from the provider ``with_df`` on its device: an
 one-electron setup runs on ``device``; the per-k algebra of the loop
 (generalised eigensolves, densities, DIIS) is small and runs on the host
 in complex128 (``scf.device`` keeps it on the card).  ``exxdiv`` is None
-(the reference's convention) or ``'ewald'``.
+(the reference's convention) or ``'ewald'``.  ``dtype`` (float64 unless
+``torch.float32`` is asked for) is the precision of the one-electron
+integrals and of a default :class:`PWDF`; the overlap cutoff of the
+canonical orthogonalisation follows it (1e-10 / 2e-6).
 
-Not ported yet: band structures, checkpoints and truncated kernels.
+Not ported: band structures, checkpoints, and SCF-level Coulomb truncation
+(``trunc`` on the SCF classes: the truncated local pseudopotential, Ewald
+sum and Madelung constant); :class:`PWDF` itself serves truncated and
+range-separated J/K.
 """
 from __future__ import annotations
 
@@ -21,47 +27,56 @@ import torch
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.isdf.jk import add_ewald_exx
 from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+from fftisdf_tpu_torch.linalg.coulomb import trunc_for_cell
 from fftisdf_tpu_torch.pw import jk as pw_jk
 from fftisdf_tpu_torch.scf import integrals
 from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
                                         fixed_occupations,
                                         smeared_occupations)
-from fftisdf_tpu_torch.utils.device import (COMPLEX, as_tensor,
-                                            free_memory_bytes,
-                                            resolve_device, to_numpy)
+from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
+                                            real_complex, resolve_device,
+                                            to_numpy)
 from fftisdf_tpu_torch.utils.logging import Logger
 
 
 class PWDF:
     """Exact plane-wave J/K provider (the FFTDF oracle) with the
     ``get_jk`` interface of :class:`~fftisdf_tpu_torch.isdf.kpoint.FFTISDF`.
-    Holds the full-grid AO tensor (nk, ngrid, nao) on ``device``."""
+    Holds the full-grid AO tensor (nk, ngrid, nao) on ``device``, in
+    ``dtype``; ``trunc`` ('0d' | '2d' | (kind, rc)) serves the truncated
+    kernel."""
 
-    def __init__(self, cell, kpts, trunc=None, *, device="cuda"):
-        if trunc is not None:
-            raise NotImplementedError("truncated Coulomb kernels (trunc)")
+    def __init__(self, cell, kpts, dtype=None, trunc=None, *, device="cuda"):
         self.device = resolve_device(device)
         self.cell = cell
         self.kpts = np.asarray(kpts)
         self.coords = cell.gen_uniform_grids()
-        self.ao = make_evaluator(cell, kpts=self.kpts,
+        self.ao = make_evaluator(cell, kpts=self.kpts, dtype=dtype,
                                  device=self.device)(self.coords)
+        self.trunc = (trunc_for_cell(cell, trunc) if isinstance(trunc, str)
+                      else trunc)
         self._madelung = None
         self._s1e = None
 
     def get_jk(self, dm, with_j=True, with_k=True, exxdiv=None, omega=None):
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
-        if omega is not None and float(omega) != 0.0:
-            raise NotImplementedError("range separation (omega)")
-        dm = as_tensor(dm, self.device, COMPLEX)
+        omega = float(omega or 0.0)
+        if exxdiv is not None and (omega != 0.0 or self.trunc is not None):
+            # a range-separated kernel has no q+G = 0 divergence to
+            # correct; a truncated one needs its own probe-charge constant
+            raise NotImplementedError("exxdiv with omega or trunc")
+        dm = as_tensor(dm, self.device, self.ao.dtype)
         if dm.ndim == 4:                                  # spin/set axis
-            out = [self.get_jk(d, with_j, with_k, exxdiv) for d in dm]
+            out = [self.get_jk(d, with_j, with_k, exxdiv, omega=omega)
+                   for d in dm]
             return (torch.stack([o[0] for o in out]) if with_j else None,
                     torch.stack([o[1] for o in out]) if with_k else None)
-        vj = pw_jk.get_j_kpts(self.cell, dm, self.ao) if with_j else None
+        vj = (pw_jk.get_j_kpts(self.cell, dm, self.ao, omega=omega,
+                               trunc=self.trunc) if with_j else None)
         vk = (pw_jk.get_k_kpts(self.cell, dm, self.ao, self.kpts,
-                               coords=self.coords) if with_k else None)
+                               coords=self.coords, omega=omega,
+                               trunc=self.trunc) if with_k else None)
         if exxdiv == "ewald" and with_k:
             if self._madelung is None:
                 kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
@@ -122,24 +137,26 @@ def _build_dm(mo_coeff, mo_occ):
     return np.einsum("kmi,ki,kni->kmn", mo_coeff, mo_occ, mo_coeff.conj())
 
 
-def _setup_one_electron(cell, kpts, device, log):
-    """(s1e, h1e) on the host, from AO tensors built on ``device`` in
-    k-chunks sized from its free memory: the full-grid AO tensor of one k
-    plus the kinetic FFT planes and the projector values cost about
-    ngrid (3 nao + nproj) 16 bytes."""
+def _setup_one_electron(cell, kpts, device, log, dtype=None):
+    """(s1e, h1e) on the host in complex128, from AO tensors built on
+    ``device`` in ``dtype``, in k-chunks sized from its free memory: the
+    full-grid AO tensor of one k plus the kinetic FFT planes and the
+    projector values cost about ngrid (3 nao + nproj) complex numbers."""
+    rdt, cdt = real_complex(dtype)
     coords = cell.gen_uniform_grids()
     ng = coords.shape[0]
     nao = cell.nao_nr()
     nproj = len(integrals._projector_shells(cell)[1])
     nk = len(kpts)
-    per_k = ng * (3 * nao + nproj) * 16
+    per_k = ng * (3 * nao + nproj) * cdt.itemsize
     kchunk = int(max(1, min(nk, 0.5 * free_memory_bytes(device) // per_k)))
-    coords_t = torch.as_tensor(coords, dtype=torch.float64, device=device)
-    vgrid = integrals.vloc_on_grid(cell, device=device)
+    coords_t = torch.as_tensor(coords, dtype=rdt, device=device)
+    vgrid = integrals.vloc_on_grid(cell, dtype=rdt, device=device)
     s_parts, h_parts = [], []
     for k0 in range(0, nk, kchunk):
         kp = kpts[k0:k0 + kchunk]
-        ao = make_evaluator(cell, kpts=kp, device=device)(coords_t)
+        ao = make_evaluator(cell, kpts=kp, dtype=rdt,
+                            device=device)(coords_t)
         s_parts.append(to_numpy(integrals.get_ovlp(cell, ao)))
         h = (integrals.get_kinetic(cell, ao, kp, coords)
              + integrals.get_vloc(cell, ao, vgrid)
@@ -147,24 +164,35 @@ def _setup_one_electron(cell, kpts, device, log):
         h_parts.append(to_numpy(h))
         del ao, h
     log.debug("setup: %d k-chunk(s) of %d", -(-nk // kchunk), kchunk)
-    return np.concatenate(s_parts), np.concatenate(h_parts)
+    return (np.concatenate(s_parts).astype(np.complex128),
+            np.concatenate(h_parts).astype(np.complex128))
 
 
 class KRHF:
     """Restricted HF over a uniform k-mesh (fixed or smeared occupations).
 
     ``with_df`` is the J/K provider (None: a :class:`PWDF` on ``device``);
-    ``device`` is where the one-electron integrals are built; ``exxdiv``
+    ``device`` is where the one-electron integrals are built, in ``dtype``
+    (float64 when None); ``ovlp_cutoff`` None is 1e-10 for float64
+    integrals and 2e-6 for float32 ones, whose quadrature noise in
+    near-null overlap directions would otherwise be amplified; ``exxdiv``
     None or ``'ewald'`` is passed to the provider."""
 
     def __init__(self, cell, kpts, with_df=None, max_cycle=50, conv_tol=1e-8,
                  diis_space=8, adiis_switch=1e-2, exxdiv=None,
                  level_shift=0.0, damp=0.0, smearing=0.0,
-                 smearing_method="fermi", ovlp_cutoff=1e-10, verbose=3, *,
-                 device="cuda"):
+                 smearing_method="fermi", trunc=None, ovlp_cutoff=None,
+                 dtype=None, verbose=3, *, device="cuda"):
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
+        if trunc is not None or getattr(with_df, "trunc", None) is not None:
+            raise NotImplementedError(
+                "SCF-level Coulomb truncation: the truncated local "
+                "pseudopotential, Ewald sum and Madelung constant")
         self.device = resolve_device(device)
+        self.dtype = real_complex(dtype)[0]
+        if ovlp_cutoff is None:
+            ovlp_cutoff = 1e-10 if self.dtype == torch.float64 else 2e-6
         self.cell = cell
         self.kpts = np.asarray(kpts)
         self.with_df = with_df
@@ -188,11 +216,12 @@ class KRHF:
         self.converged = False
         self.cycles = 0
         self.cycle_seconds = []
-        self.s1e, self.h1e = _setup_one_electron(cell, self.kpts,
-                                                 self.device, self._log)
+        self.s1e, self.h1e = _setup_one_electron(
+            cell, self.kpts, self.device, self._log, dtype=self.dtype)
         self.e_nuc = integrals.ewald(cell)
         if self.with_df is None:
-            self.with_df = PWDF(cell, self.kpts, device=self.device)
+            self.with_df = PWDF(cell, self.kpts, dtype=self.dtype,
+                                device=self.device)
 
     @property
     def nocc(self):
@@ -214,7 +243,8 @@ class KRHF:
 
     def _jk(self, dm):
         vj, vk = self.with_df.get_jk(dm, exxdiv=self.exxdiv)
-        return to_numpy(vj), to_numpy(vk)
+        return (to_numpy(vj).astype(np.complex128, copy=False),
+                to_numpy(vk).astype(np.complex128, copy=False))
 
     def get_fock(self, dm):
         vj, vk = self._jk(dm)

@@ -14,8 +14,10 @@ Counterpart of the main-path part of ``fftisdf_tpu/scf/integrals.py``:
 - Madelung    the probe-charge constant of the exchange's q+G = 0 term
 - S_k        streamed over grid blocks (:func:`get_ovlp_kpts`)
 
-AO tensors are (nk, ngrid, nao) complex128 on any device; results stay on
-that device.  Truncated Coulomb kernels are not ported yet.
+AO tensors are (nk, ngrid, nao) complex128 or complex64 on any device;
+results stay on that device, in that precision.  The truncated local
+pseudopotential, Ewald sum and Madelung constant (SCF-level truncation) are
+not ported.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from fftisdf_tpu_torch.basis import data as basis_data
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.lattice.cell import Shell
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
-from fftisdf_tpu_torch.utils.device import (COMPLEX, REAL, free_memory_bytes,
+from fftisdf_tpu_torch.utils.device import (free_memory_bytes, real_complex,
                                             resolve_device)
 
 
@@ -45,9 +47,10 @@ def get_kinetic(cell, ao_kpts, kpts, coords=None):
     ng = ao_kpts.shape[1]
     if coords is None:
         coords = cell.gen_uniform_grids()
-    gv = torch.as_tensor(cell.get_Gv(), dtype=REAL, device=dev)
-    kpts = torch.as_tensor(np.asarray(kpts), dtype=REAL, device=dev)
-    coords = torch.as_tensor(coords, dtype=REAL, device=dev)
+    rdt = real_complex(ao_kpts.dtype)[0]
+    gv = torch.as_tensor(cell.get_Gv(), dtype=rdt, device=dev)
+    kpts = torch.as_tensor(np.asarray(kpts), dtype=rdt, device=dev)
+    coords = torch.as_tensor(coords, dtype=rdt, device=dev)
     vol = float(cell.vol)
     out = []
     for ao_k, kpt in zip(ao_kpts, kpts):
@@ -87,8 +90,9 @@ def gth_vloc_G0(pseudo):
             * (c[0] + 3.0 * c[1] + 15.0 * c[2] + 105.0 * c[3]))
 
 
-def vloc_on_grid(cell, *, device="cuda"):
-    """Total local pseudopotential on the FFT grid: real (ngrid,)."""
+def vloc_on_grid(cell, dtype=None, *, device="cuda"):
+    """Total local pseudopotential on the FFT grid: real (ngrid,) of
+    ``dtype``.  The form factors are summed on the host in float64."""
     mesh = tuple(int(m) for m in cell.mesh)
     gv = cell.get_Gv()
     G2 = np.einsum("gi,gi->g", gv, gv)
@@ -105,13 +109,14 @@ def vloc_on_grid(cell, *, device="cuda"):
             vG = gth_vloc_G(ps, G2)
             vG[g0] = gth_vloc_G0(ps)
         f += vG * np.exp(-1j * gv @ np.asarray(xyz))
-    f_t = torch.as_tensor(f, dtype=COMPLEX, device=device)
+    f_t = torch.as_tensor(f, dtype=real_complex(dtype)[1], device=device)
     return ifft3(f_t, mesh).real * (ng / cell.vol)
 
 
 def get_vloc(cell, ao_kpts, vgrid=None):
     if vgrid is None:
-        vgrid = vloc_on_grid(cell, device=ao_kpts.device)
+        vgrid = vloc_on_grid(cell, dtype=ao_kpts.dtype,
+                             device=ao_kpts.device)
     w = cell.vol / ao_kpts.shape[1]
     return w * (ao_kpts.mH @ (vgrid[None, :, None] * ao_kpts))
 
@@ -161,11 +166,13 @@ def get_vnl(cell, ao_kpts, kpts):
     dev = ao_kpts.device
     if not shells:
         return torch.zeros((nk, nao, nao), dtype=ao_kpts.dtype, device=dev)
-    p_k = make_evaluator(cell, kpts=kpts, shells=shells, device=dev)(
+    rdt = real_complex(ao_kpts.dtype)[0]
+    p_k = make_evaluator(cell, kpts=kpts, dtype=rdt, shells=shells,
+                         device=dev)(
         cell.gen_uniform_grids())                       # (nk, ng, nproj)
     b = (cell.vol / ng) * (p_k.mH @ ao_kpts)            # (nk, nproj, nao)
     del p_k
-    h = torch.as_tensor(hmat, dtype=COMPLEX, device=dev)
+    h = torch.as_tensor(hmat, dtype=ao_kpts.dtype, device=dev)
     return b.mH @ h @ b
 
 
@@ -257,20 +264,24 @@ def madelung(cell, kmesh) -> float:
     return -2.0 * ewald(_Probe)
 
 
-def get_ovlp_kpts(cell, kpts, *, device="cuda"):
-    """Overlap S_k (nk, nao, nao) by grid quadrature, streamed over grid
-    blocks so that no full-grid AO tensor exists.  A block holds the
-    (nk, blk, nao) AO values and the evaluator's temporaries; it is sized
-    to a tenth of the device's free memory."""
+def get_ovlp_kpts(cell, kpts, dtype=None, blksize=None, *, device="cuda"):
+    """Overlap S_k (nk, nao, nao) by grid quadrature in ``dtype``, streamed
+    over grid blocks so that no full-grid AO tensor exists.  A block holds
+    the (nk, blk, nao) AO values and the evaluator's temporaries; it is
+    sized to a tenth of the device's free memory, and to at most
+    ``blksize`` points when that is given."""
     device = resolve_device(device)
-    fn = make_evaluator(cell, kpts=kpts, device=device)
-    coords = torch.as_tensor(cell.gen_uniform_grids(), dtype=REAL,
+    rdt, cdt = real_complex(dtype)
+    fn = make_evaluator(cell, kpts=kpts, dtype=rdt, device=device)
+    coords = torch.as_tensor(cell.gen_uniform_grids(), dtype=rdt,
                              device=device)
     ng = coords.shape[0]
     nk, nao = len(kpts), fn.nao
     blk = int(max(64, min(ng, 0.1 * free_memory_bytes(device)
-                          // (4 * nk * nao * 16))))
-    s = torch.zeros((nk, nao, nao), dtype=COMPLEX, device=device)
+                          // (4 * nk * nao * cdt.itemsize))))
+    if blksize is not None:
+        blk = max(1, min(blk, int(blksize)))
+    s = torch.zeros((nk, nao, nao), dtype=cdt, device=device)
     for g0 in range(0, ng, blk):
         f = fn(coords[g0:g0 + blk])
         s += f.mH @ f

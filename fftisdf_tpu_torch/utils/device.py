@@ -5,18 +5,36 @@ a caller passes ``"cpu"`` to run on the host.  :func:`resolve_device`
 turns the argument into a ``torch.device`` and raises when CUDA is asked
 for and absent: nothing falls back to the CPU on its own.
 
-The port computes in float64 / complex128 on every device.  The JAX package
-needs full-precision matmuls (it pins 'highest' everywhere, and its README
-records that a lower matmul precision NaNs the fitting solve); on Hopper
-the FP64 tensor-core rate is of the same order as the full-FP32 rate, so
-f64 costs mainly memory.  The f32 regime of the JAX package is not ported.
+The port computes in float64 / complex128 unless the caller asks for
+``dtype=torch.float32`` (the JAX package's accelerator default): CUDA has
+complex128, so no default flips with the device.  :func:`real_complex` is
+the one place that maps a build dtype to its real/complex pair.  The JAX
+package needs full-precision matmuls (it pins 'highest' everywhere, and its
+README records that a lower matmul precision NaNs the fitting solve), so
+TF32 stays off in float32 too.
 """
 from __future__ import annotations
 
 import torch
 
-REAL = torch.float64
-COMPLEX = torch.complex128
+_PAIRS = {
+    torch.float64: (torch.float64, torch.complex128),
+    torch.complex128: (torch.float64, torch.complex128),
+    torch.float32: (torch.float32, torch.complex64),
+    torch.complex64: (torch.float32, torch.complex64),
+}
+
+
+def real_complex(dtype=None):
+    """``(real, complex)`` torch dtypes of a build dtype: float64 and
+    complex128 for None or ``torch.float64``, float32 and complex64 for
+    ``torch.float32``.  A complex dtype maps to its own pair."""
+    if dtype is None:
+        return _PAIRS[torch.float64]
+    if dtype not in _PAIRS:
+        raise ValueError(f"unsupported dtype {dtype}: use torch.float32 or "
+                         "torch.float64")
+    return _PAIRS[dtype]
 
 
 def _forbid_tf32():

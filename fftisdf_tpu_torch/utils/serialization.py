@@ -2,8 +2,9 @@
 
 Counterpart of ``fftisdf_tpu/utils/serialization.py::{save,load}_isdf_state``:
 one ``.npz`` with ``x_k``, ``wq``, ``mask``, ``kpts``, ``kmesh``, ``mesh``,
-``c0``, ``m0``, ``solver`` and the truncation spec.  A state written by
-either package loads in the other.
+``c0``, ``m0`` (the densified mesh that ``mask`` indexes), ``solver`` and
+the truncation spec.  A state written by either package, in complex128 or
+complex64, with or without a truncated kernel, loads in the other.
 """
 from __future__ import annotations
 
@@ -24,15 +25,19 @@ def save_isdf_state(path, df):
         c0=df.c0,
         m0=np.asarray(df.m0),
         solver=df.solver,
-        trunc_kind="",
-        trunc_rc=0.0,
+        # the metric has the truncated kernel baked in, so a reload must
+        # carry the spec ('' = none)
+        trunc_kind="" if df.trunc is None else str(df.trunc[0]),
+        trunc_rc=0.0 if df.trunc is None else float(df.trunc[1]),
     )
 
 
-def load_isdf_state(path, cell, kpts, *, device="cuda"):
+def load_isdf_state(path, cell, kpts, dtype=None, *, device="cuda"):
     """A built :class:`~fftisdf_tpu_torch.isdf.kpoint.FFTISDF` on ``device``
-    serving from the state stored at ``path``.  The stored k-points and FFT
-    mesh must match ``kpts`` and ``cell``."""
+    serving from the state stored at ``path``, in ``dtype`` or, when None,
+    in the stored arrays' precision (the JAX package widens a float32
+    state to complex128 on disk; the port stores complex64).  The stored
+    k-points and FFT mesh must match ``kpts`` and ``cell``."""
     from fftisdf_tpu_torch.isdf.kpoint import FFTISDF
 
     with np.load(path, allow_pickle=False) as data:
@@ -40,11 +45,11 @@ def load_isdf_state(path, cell, kpts, *, device="cuda"):
             raise ValueError("stored k-points do not match")
         if not np.array_equal(data["mesh"], np.asarray(cell.mesh)):
             raise ValueError("stored FFT mesh does not match cell")
+        trunc = None
         if "trunc_kind" in data.files and str(data["trunc_kind"]):
-            raise NotImplementedError("truncated-Coulomb states are not "
-                                      "served by the port yet")
-        # the stored solver is not needed to serve: J/K read x_k and w_q
+            trunc = (str(data["trunc_kind"]), float(data["trunc_rc"]))
         return FFTISDF.from_numpy(
             cell, kpts, data["x_k"], data["wq"], data["mask"],
             m0=tuple(int(v) for v in data["m0"]), c0=float(data["c0"]),
+            solver=str(data["solver"]), trunc=trunc, dtype=dtype,
             device=device)

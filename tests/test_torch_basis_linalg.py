@@ -97,9 +97,11 @@ def test_coulG_batched_matches_jax():
     out = t_coulomb.get_coulG_batched(
         cell, torch.from_numpy(kpts), torch.from_numpy(gv))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-12, rtol=1e-12)
+    # a screened truncated kernel is refused, as in the JAX package
     with pytest.raises(NotImplementedError):
         t_coulomb.get_coulG_batched(cell, torch.from_numpy(kpts),
-                                    torch.from_numpy(gv), omega=0.3)
+                                    torch.from_numpy(gv), omega=0.3,
+                                    trunc=("0d", 3.0))
 
 
 def test_pivoted_cholesky_matches_jax():
@@ -159,8 +161,8 @@ def test_ridge_half_operator_matches_jax(refine):
         t_solvers.half_factor_data(torch.from_numpy(a), refine=refine),
         torch.from_numpy(b.T.copy()))
     np.testing.assert_allclose(rows.numpy().T, g, atol=1e-12 * abs(g).max())
-    with pytest.raises(NotImplementedError):
-        t_solvers.fitting_half_operator(torch.from_numpy(a), method="lstsq")
+    with pytest.raises(ValueError):
+        t_solvers.fitting_half_operator(torch.from_numpy(a), method="qr")
 
 
 def test_ridge_operator_matches_jax():

@@ -11,7 +11,9 @@ not a multiple of the MMA depth, ng below one tile), the main-path shape
 (64, 3375, 26), the production width (64, 3375, 62) and on a
 non-contiguous X: 2e-5 * scale in complex64, 1e-12 * scale in complex128.
 The exact plane-wave J/K and the device-resident SCF loop on the card are
-held against the same calls on the CPU.
+held against the same calls on the CPU.  The float32 regime on the card:
+the build-dtype selection route launches K1 in complex64, the float64
+route does not, and both serve the CPU's J/K to float32 accuracy.
 """
 import numpy as np
 import pytest
@@ -142,3 +144,90 @@ def test_device_kuhf_on_cuda_matches_cpu(cuda):
     e_host = KUHF(cell, kpts, df, device=cuda, **kw).kernel()
     assert abs(e[str(cuda)] - e["cpu"]) <= 3e-8
     assert abs(e[str(cuda)] - e_host) <= 3e-8
+
+
+@pytest.mark.gpu
+def test_f32_selection_routes_on_cuda(cuda):
+    """A float32 build with ``select_host_f64=False`` launches K1 in
+    complex64 and keeps all max_rank pivots; the default route selects in
+    float64 on the card without K1 and picks the CPU's points.  J/K of both
+    against the CPU's float32 build: 2e-3 (float32 fits of different
+    roundoff, amplified by up to eps / rcond = 6e-3; measured 3.4e-4 on
+    the same points, on a J of scale 0.2)."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+
+    cell, kpts = _diamond()
+    nao = cell.nao_nr()
+    dm = np.stack([np.eye(nao, dtype=complex)] * 2)
+    kw = dict(c0=10.0, m0=(9, 9, 9), verbose=0, dtype=torch.float32)
+    ref = FFTISDF(cell, kpts, device="cpu", **kw).build()
+    vj_c, vk_c = ref.get_jk(dm)
+    before = pair_gram.pair_gram_sq.launches
+    df = FFTISDF(cell, kpts, device=cuda, **kw).build()
+    assert pair_gram.pair_gram_sq.launches == before
+    np.testing.assert_array_equal(df.mask, ref.mask)
+    df_k1 = FFTISDF(cell, kpts, device=cuda, select_host_f64=False,
+                    **kw).build()
+    assert pair_gram.pair_gram_sq.launches == before + 1
+    assert df_k1.nip == int(10.0 * nao)
+    assert df_k1.wq.dtype == torch.complex64
+    for d in (df, df_k1):
+        vj, vk = d.get_jk(dm)
+        assert vj.dtype == torch.complex64
+        assert float((vj.cpu() - vj_c).abs().max()) < 2e-3
+        assert float((vk.cpu() - vk_c).abs().max()) < 2e-3
+
+
+@pytest.mark.gpu
+def test_pairgram_factorisation_on_cuda_matches_cpu(cuda):
+    """The matrix-free factorisation on the card gives the CPU's pivots."""
+    from fftisdf_tpu_torch.linalg.pivoted_cholesky import (
+        pivoted_cholesky_pairgram)
+
+    rng = np.random.default_rng(7)
+    flat = rng.standard_normal((500, 40)) + 1j * rng.standard_normal(
+        (500, 40))
+    piv_c, rank_c, hist_c = pivoted_cholesky_pairgram(
+        torch.from_numpy(flat), 4, 200, block=29)
+    piv_g, rank_g, hist_g = pivoted_cholesky_pairgram(
+        torch.from_numpy(flat).to(cuda), 4, 200, block=29)
+    assert rank_g == rank_c
+    np.testing.assert_array_equal(piv_g, piv_c)
+    np.testing.assert_allclose(hist_g, hist_c, rtol=1e-9,
+                               atol=1e-12 * hist_c[0])
+
+
+@pytest.mark.gpu
+def test_device_f32_loop_with_dropped_directions_on_cuda(cuda):
+    """The float32 device loop on the card with dropped (near-null) overlap
+    directions: He2 with two nearly identical s shells per atom.  Their
+    diagonal entry is scaled to the Fock norm, so cuSOLVER's backward error
+    stays at the float32 floor: the float32 loop lands within 1e-4 Ha of
+    the float64 loop over the same float32 provider (measured 2.3e-5; a
+    fixed 1e6 entry costs ~0.06 Ha per eigenvalue in float32)."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+    from fftisdf_tpu_torch.scf import DeviceKRHF
+    from fftisdf_tpu_torch.scf.device import orth_and_penalty
+
+    shells = [Shell(l=0, exps=np.array([0.8, 0.3]),
+                    coeffs=np.array([[0.4], [0.7]])),
+              Shell(l=0, exps=np.array([0.8, 0.3]),
+                    coeffs=np.array([[0.4 * (1 + 1e-7)], [0.7]]))]
+    cell = Cell(a=np.diag([8.0, 8.0, 8.0]),
+                atom=[("He", np.full(3, 4.0)),
+                      ("He", np.array([4.0, 4.0, 6.5]))],
+                basis={"He": shells}, pseudo=None, mesh=np.array([16] * 3),
+                unit="bohr", precision=1e-12).build()
+    kpts = cell.get_kpts([1, 1, 2])
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                 dtype=torch.float32, device=cuda).build()
+    kw = dict(verbose=0, conv_tol=1e-7, ovlp_cutoff=1e-4, max_cycle=60,
+              device=cuda)
+    mf64 = DeviceKRHF(cell, kpts, df, **kw)
+    e64 = mf64.kernel()
+    mf32 = DeviceKRHF(cell, kpts, df, dtype=torch.float32, **kw)
+    e32 = mf32.kernel()
+    assert (orth_and_penalty(mf32.s1e, 1e-4)[1] > 0).any()
+    assert mf64.converged and mf32.converged
+    assert abs(e32 - e64) < 1e-4

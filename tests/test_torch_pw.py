@@ -132,8 +132,9 @@ def test_pwdf_ewald_matches_jax(diamond):
     assert vj.shape == dms.shape
     assert _rel(vj.numpy(), vj_j) < 1e-10
     assert _rel(vk.numpy(), vk_j) < 1e-10
+    # a screened kernel has no q+G = 0 divergence to correct
     with pytest.raises(NotImplementedError):
-        PWDF(cell, kpts, device="cpu").get_jk(dm, omega=0.3)
+        PWDF(cell, kpts, device="cpu").get_jk(dm, omega=0.3, exxdiv="ewald")
 
 
 def test_exact_krhf_matches_jax(diamond):

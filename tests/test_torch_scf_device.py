@@ -132,6 +132,34 @@ def test_device_dropped_overlap_directions():
     np.testing.assert_allclose(e2, e0, atol=1e-6)
 
 
+def test_device_f32_dropped_overlap_directions():
+    """The float32 loop with dropped overlap directions: their diagonal
+    entry is scaled to the Fock matrix's norm and the validity gate to its
+    row-sum bound, so an eigensolver's backward error (eps ||A||) stays at
+    the float32 floor.  The float32 loop lands within 2e-5 Ha of the
+    float64 loop over the same float32 provider and of the host loop.
+    (LAPACK on the CPU keeps the decoupled blocks apart whatever the
+    entry; cuSOLVER does not, which tests/test_torch_gpu.py and the smoke
+    script's float32 production run hold on the card.)"""
+    cell_j, cell = _near_dependent_cells()
+    kpts = cell.get_kpts([1, 1, 2])
+    _, df64 = _pair(cell_j, cell, kpts, (9, 9, 9))
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                 dtype=torch.float32, device="cpu").build(mask=df64.mask)
+    kw = dict(verbose=0, conv_tol=1e-7, ovlp_cutoff=1e-4, max_cycle=60,
+              device="cpu")
+    mf64 = DeviceKRHF(cell, kpts, df, **kw)
+    e64 = mf64.kernel()
+    mf32 = DeviceKRHF(cell, kpts, df, dtype=torch.float32, **kw)
+    e32 = mf32.kernel()
+    _, pen = orth_and_penalty(mf32.s1e, 1e-4)
+    assert (pen > 0).any(), "fixture no longer drops any direction"
+    assert mf64.converged and mf32.converged
+    assert abs(e32 - e64) < 2e-5
+    e_host = KRHF(cell, kpts, df, dtype=torch.float32, **kw).kernel()
+    assert abs(e32 - e_host) < 2e-5
+
+
 def test_device_kuhf_bias_symmetry_breaking():
     """Stretched H2 with the on-site bias: the device loop reproduces the
     host loops' broken-symmetry solution."""
