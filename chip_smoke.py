@@ -8,20 +8,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 0. environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the builds, started together, of kernel K1 from
    ops/csrc/pair_gram.cu (nvcc) and of the port's native lattice engine
-   from native/csrc/lattice_engine.cpp (g++), with their build times and
-   K1's ptxas registers, shared memory and spills;
+   from native/csrc/lattice_engine.cpp (g++), with their build times,
+   K1's ptxas registers, shared memory and spills (the complex64 kernel
+   must not spill), and the tensor-core instructions of each K1 kernel in
+   the built library (cuobjdump -sass; the complex64 kernel must hold TF32
+   HMMA);
 1. K1 against its plain PyTorch version on the card, in complex64 and
    complex128, both ``square`` values: the JAX package's Pallas test
    shapes, ragged shapes, the main-path shape (64, 3375, 26), the
-   production width (64, 3375, 62) and a non-contiguous X.  At the two
-   large shapes (complex128 and complex64, ``square=False``), CUDA-event
-   times of the kernel, the plain version and one PyTorch library call of
-   the same function (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on
-   the (ng, K) matrix, made before the timing, TF32 off), in 5 rounds of
-   turns, each turn's SM clock, power draw and temperature as nvidia-smi
+   production width (64, 3375, 62), a non-contiguous X, an 8-byte-aligned
+   view ``x[..., 1:]`` and a conjugate view.  Every complex64 case is also
+   held against the complex128 gram of the same input: the kernel's error
+   may be at most 4x that of the plain complex64 version (cuBLAS in full
+   FP32), or 4 x 2^-21 of the scale where that is larger (3xTF32's own
+   error for a single product).  At the two large shapes (complex128 and
+   complex64, ``square=False``), CUDA-event times of the kernel, the plain
+   version and one PyTorch library call of the same function
+   (``(xt.conj() @ xt.mT).abs().square() / nk**2`` on the (ng, K) matrix,
+   made before the timing, TF32 off; for complex64 also the kernel on the
+   same shape with an odd row stride, which takes the loader's 8-B copies
+   in place of 16-B ones), in 5 rounds of turns, each turn's SM clock, power draw and temperature as nvidia-smi
    samples them every 20 ms; the median turn of each, with the spread, the
    flop rate of the work done (the upper triangle) and the share of the
-   bound;
+   bound (complex64: of the 3xTF32 tensor-core bound, beside the FP32
+   bound outside the tensor cores);
 2. device against host: diamond gth-szv ke 50, kmesh 1x1x2, c0 10, built and
    solved by KUHF on the GPU and on the CPU (J/K to 1e-10 relative, e_tot to
    1e-9 Ha);
@@ -83,6 +93,7 @@ The line before the last holds the kernel table as JSON; the last line is
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,13 +103,21 @@ REPO = Path(__file__).resolve().parent
 ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
 EXACT = REPO / "tests" / "data" / "nio_afm_kuhf_exact.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
+# the complex64 kernel's error against the complex128 gram: at most this
+# many times the plain complex64 version's, or K1_C64_FLOOR of the scale
+# where that is larger: 3xTF32 drops the small x small term, 2^-22 of a
+# product, which the modulus doubles; at K = 1 no sum averages it
+K1_C64_REF_RATIO = 4.0
+K1_C64_FLOOR = 2.0**-21
 K1_SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40),
              (1, 1, 1), (3, 129, 7), (5, 257, 3)]
 MAIN_SHAPE = (64, 3375, 26)       # NiO gth-szv, 4x4x4, m0 15^3
 PROD_SHAPE = (64, 3375, 62)       # the production basis width
-# H100 SXM data sheet, dense: FP64 on the tensor cores, FP32 outside them
-# (K1's complex64 path is FP32 FMA; TF32 is off), HBM3
-PEAK_FLOPS = {"complex128": 67e12, "complex64": 67e12}
+# H100 SXM data sheet, dense: FP64 on the tensor cores (K1 complex128),
+# TF32 on the tensor cores (K1 complex64 in 3xTF32: 3 passes of the flops),
+# FP32 outside them (K1 complex64's earlier SIMT route), HBM3
+PEAK_FLOPS = {"fp64_tc": 67e12, "tf32_tc": 495e12, "fp32": 67e12}
+ROUTE = {"complex128": ("fp64_tc", 1), "complex64": ("tf32_tc", 3)}
 PEAK_BYTES = 3.35e12
 AFM = {0: +1.0, 1: -1.0}
 SLICE_NIP = 1040
@@ -154,14 +173,57 @@ def phase0_environment(torch):
         lib, eng_s = eng.result()
     log(f"[0] K1 build {LIBRARY.build_seconds:.2f}s (load {k1_s:.2f}s) -> "
         f"{LIBRARY.path().name}")
-    for line in LIBRARY.ptxas_log.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling")):
-            log(f"[0] ptxas: {line.strip()}")
+    _k1_build_report()
     if lib is None:
         raise RuntimeError("the native lattice engine did not build")
     log(f"[0] native lattice engine build+load {eng_s:.2f}s -> "
         f"{native.LIB_PATH.name}")
     return smi
+
+
+def _k1_build_report():
+    """ptxas registers and spills of each K1 kernel (when this process built
+    the library) and its tensor-core instructions in the built SASS; the
+    complex64 kernels must not spill and must run TF32 HMMA."""
+    from collections import Counter
+    from fftisdf_tpu_torch.ops._build import find_nvcc
+    from fftisdf_tpu_torch.ops.pair_gram import LIBRARY
+
+    fn = None
+    if not LIBRARY.ptxas_log:
+        log("[0] ptxas: the library was built earlier, no log")
+    for line in LIBRARY.ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        if any(w in line for w in ("registers", "spill", "Compiling")):
+            log(f"[0] ptxas: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and "pair_gram_c_kernel" in fn and m.group(1, 2) != (
+                "0", "0"):
+            raise RuntimeError(f"the complex64 K1 kernel spills: {line}")
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(LIBRARY.path())],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = Counter()
+            continue
+        m = re.search(r"\b[HD]MMA\.\S+", line)
+        if m and fn in counts:
+            counts[fn][m.group(0)] += 1
+    for fn, c in counts.items():
+        log(f"[0] sass {fn}: " + (", ".join(f"{n} {op}" for op, n in
+                                            sorted(c.items()))
+                                  or "no tensor-core instruction"))
+    c64 = [c for fn, c in counts.items() if "pair_gram_c_kernel" in fn]
+    if not c64 or not all(any("TF32" in op for op in c) for c in c64):
+        raise RuntimeError("the complex64 K1 kernels hold no TF32 HMMA")
 
 
 def _cuda_ms(torch, fn, reps):
@@ -228,18 +290,21 @@ def _describe_samples(samples):
             f"{len(samples)} samples")
 
 
-def k1_bound(shape, dname="complex128"):
+def k1_bound(shape, dname="complex128", route=None):
     """(flops, bound_ms, bound_by) of K1's work at ``shape`` in ``dname``:
-    the upper triangle, 4 ng (ng + 1) K flops at the peak of the type
-    (FP64 tensor cores for complex128, FP32 outside the tensor cores for
-    complex64), against X read once and the (ng, ng) result written
-    once."""
+    the upper triangle, 4 ng (ng + 1) K flops, times the passes of the
+    route, at its peak (``route``: the one the kernel runs, FP64 tensor
+    cores for complex128 and 3xTF32 on the tensor cores for complex64, or
+    "fp32", FP32 outside the tensor cores), against X read once and the
+    (ng, ng) result written once."""
     nk, ng, nao = shape
     kk = nk * nao
     flops = 4.0 * ng * (ng + 1) * kk
+    unit, passes = ROUTE[dname] if route is None else (route, 1)
     csize = 16.0 if dname == "complex128" else 8.0
     nbytes = csize * ng * kk + 0.5 * csize * ng * ng
-    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    t_ops = passes * flops / PEAK_FLOPS[unit]
+    t_bytes = nbytes / PEAK_BYTES
     return flops, 1e3 * max(t_ops, t_bytes), (
         "operations" if t_ops >= t_bytes else "bytes")
 
@@ -257,9 +322,20 @@ def _k1_check(torch, x, label):
         scale = float(ref.abs().max())
         err = float((out - ref).abs().max())
         ok = bool(torch.isfinite(out).all()) and err <= K1_TOL[dname] * scale
-        log(f"[1] K1 {label} {dname} square={square}: max_abs_err "
-            f"{err:.3e} (scale {scale:.3e}, tol {K1_TOL[dname]:.0e})"
-            f" {'ok' if ok else 'FAIL'}")
+        line = (f"[1] K1 {label} {dname} square={square}: max_abs_err "
+                f"{err:.3e} (scale {scale:.3e}, tol {K1_TOL[dname]:.0e})")
+        if dname == "complex64":
+            # both complex64 results against the complex128 gram
+            ref128 = pair_gram_sq_reference(x.to(torch.complex128),
+                                            square=square)
+            e_k = float((out.double() - ref128).abs().max())
+            e_p = float((ref.double() - ref128).abs().max())
+            ratio = e_k / max(e_p, K1_C64_FLOOR * scale)
+            ok = ok and ratio <= K1_C64_REF_RATIO
+            line += (f"; against complex128: kernel {e_k:.3e}, plain "
+                     f"{e_p:.3e}, ratio {ratio:.2f} (limit "
+                     f"{K1_C64_REF_RATIO:g})")
+        log(line + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"K1 disagrees with its plain version at "
                                f"{label} {dname} square={square}")
@@ -272,6 +348,9 @@ def phase1_kernel(torch):
     from fftisdf_tpu_torch.ops.pair_gram import (pair_gram_sq,
                                                  pair_gram_sq_reference)
 
+    # the plain versions and the library call in full FP32/FP64
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
 
     def sample(shape, dname="complex128"):
@@ -287,6 +366,9 @@ def phase1_kernel(torch):
     for dname in ("complex64", "complex128"):
         x = sample((8, 300, 11), dname)[:, 7:250]
         _k1_check(torch, x, "(8, 300, 11)[:, 7:250] (non-contiguous)")
+        x = sample((8, 300, 12), dname)
+        _k1_check(torch, x[..., 1:], "(8, 300, 12)[..., 1:] (offset view)")
+        _k1_check(torch, x.conj(), "(8, 300, 12).conj() (conjugate view)")
 
     res = {}
     for dname, (key, shape) in [(d, ks) for d in ("complex128", "complex64")
@@ -300,6 +382,11 @@ def phase1_kernel(torch):
             "plain": lambda: pair_gram_sq_reference(x, square=False),
             "library": lambda: (xt.conj() @ xt.mT).abs().square() / nk**2,
         }
+        if dname == "complex64":
+            # the same shape with an odd row stride: the loader's 8-B copies
+            xp = sample((nk, ng, nao + 1), dname)[..., :nao]
+            fns["kernel, 8-B copies"] = lambda: pair_gram_sq(xp,
+                                                             square=False)
         times = {name: [] for name in fns}
         for name, t, samples in _sampled_turns(torch, fns, 5, 20):
             times[name].append(t)
@@ -307,10 +394,15 @@ def phase1_kernel(torch):
                 f"{_describe_samples(samples)}")
         ms = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
         flops, bound_ms, bound_by = k1_bound(shape, dname)
+        fp32 = ""
+        if dname == "complex64":
+            fp32_ms = k1_bound(shape, dname, "fp32")[1]
+            fp32 = (f"; {fp32_ms / ms['kernel']:.1%} of the {fp32_ms:.3f} ms "
+                    "FP32 bound outside the tensor cores")
         log(f"[1] K1 {shape} {dname}: kernel {ms['kernel']:.3f} ms "
             f"({flops / (ms['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of "
             f"triangle work done, {bound_ms / ms['kernel']:.1%} of the "
-            f"{bound_ms:.3f} ms bound, {bound_by}), plain "
+            f"{bound_ms:.3f} ms bound, {bound_by}{fp32}), plain "
             f"{ms['plain']:.3f} ms, library {ms['library']:.3f} ms; each "
             "the median of 5 turns, spread: "
             + ", ".join(f"{n} {min(v):.3f}-{max(v):.3f}"
@@ -318,6 +410,9 @@ def phase1_kernel(torch):
         res[dname, key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                library_ms=ms["library"], bound_ms=bound_ms,
                                bound_by=bound_by)
+        if dname == "complex64":
+            res[dname, key].update(bound_fp32_ms=fp32_ms,
+                                   ms_8b_copies=ms["kernel, 8-B copies"])
     out = {}
     for dname in ("complex128", "complex64"):
         main, prod = res[dname, "main"], res[dname, "production"]
@@ -326,6 +421,10 @@ def phase1_kernel(torch):
                       "production_plain_ms": prod["plain_ms"],
                       "production_library_ms": prod["library_ms"],
                       "production_bound_ms": prod["bound_ms"]}
+        if dname == "complex64":
+            out[dname].update(
+                production_bound_fp32_ms=prod["bound_fp32_ms"],
+                production_ms_8b_copies=prod["ms_8b_copies"])
     return out
 
 

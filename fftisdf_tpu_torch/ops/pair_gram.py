@@ -11,28 +11,25 @@ tensor and takes the plain version, :func:`pair_gram_sq_reference`, for a
 CPU tensor.  It never falls back from the kernel to the plain version.
 ``pair_gram_sq.launches`` counts kernel launches and
 ``pair_gram_sq.last_launch`` holds the shape and dtype of the latest one.
-complex128 runs on the FP64 tensor cores and reads X in place; complex64
-runs on FP32 FMA from contiguous real/imag planes.
+Both entries read X in place through its strides: complex128 runs on the
+FP64 tensor cores (DMMA), complex64 on the TF32 tensor cores in 3xTF32
+(each FP32 operand split into two TF32 halves, FP32 accumulation).
 """
 from __future__ import annotations
 
-from ctypes import c_double, c_float, c_int, c_int64, c_void_p
+from ctypes import c_double, c_int, c_int64, c_void_p
 
 import torch
 
 from fftisdf_tpu_torch.ops._build import KernelLibrary
 
 LIBRARY = KernelLibrary("pair_gram")
-# entry point and argument types: complex128 reads X in place through its
-# strides, complex64 takes contiguous real/imag planes
-_ENTRY = {
-    torch.complex128: ("pair_gram_sq_z", [
-        c_void_p, c_int64, c_int64, c_int64, c_int, c_int, c_int, c_void_p,
-        c_double, c_int, c_void_p]),
-    torch.complex64: ("pair_gram_sq_f32", [
-        c_void_p, c_void_p, c_void_p, c_int, c_int, c_float, c_int,
-        c_void_p]),
-}
+# entry point and the byte alignment it needs of X, per dtype
+_ENTRY = {torch.complex128: ("pair_gram_sq_z", 16),
+          torch.complex64: ("pair_gram_sq_f32", 8)}
+# (x, sk, sg, sm, nk, ng, nao, out, inv_nk, square, stream) of both entries
+_ARGTYPES = [c_void_p, c_int64, c_int64, c_int64, c_int, c_int, c_int,
+             c_void_p, c_double, c_int, c_void_p]
 
 
 def pair_gram_sq_reference(x, square=True):
@@ -68,27 +65,19 @@ def pair_gram_sq(x, square=True):
                          "kernel's 32-bit extents")
     if ng == 0 or kk == 0:
         return torch.zeros((ng, ng), dtype=x.real.dtype, device=x.device)
+    # read in place through the strides; a conjugate view carries a flag,
+    # not conjugated data
+    x = x.resolve_conj()
+    name, align = _ENTRY[x.dtype]
+    if x.data_ptr() % align:
+        raise ValueError(f"pair_gram_sq: {x.dtype} input must be "
+                         f"{align}-byte aligned")
     out = torch.empty((ng, ng), dtype=x.real.dtype, device=x.device)
-    name, argtypes = _ENTRY[x.dtype]
     fn = getattr(LIBRARY.load(), name)
     fn.restype = c_int
-    fn.argtypes = argtypes
-    if x.dtype == torch.complex128:
-        # read in place through the strides; a conjugate view carries a
-        # flag, not conjugated data
-        x = x.resolve_conj()
-        if x.data_ptr() % 16:
-            raise ValueError("pair_gram_sq: complex128 input must be "
-                             "16-byte aligned")
-        args = (x.data_ptr(), *x.stride(), nk, ng, nao, out.data_ptr(),
-                1.0 / nk, int(bool(square)))
-    else:
-        # (k, ao) flattened into the contraction axis; contiguous planes
-        xt = x.permute(1, 0, 2).reshape(ng, kk)
-        xr = xt.real.contiguous()
-        xi = xt.imag.contiguous()
-        args = (xr.data_ptr(), xi.data_ptr(), out.data_ptr(), ng, kk,
-                1.0 / nk, int(bool(square)))
+    fn.argtypes = _ARGTYPES
+    args = (x.data_ptr(), *x.stride(), nk, ng, nao, out.data_ptr(), 1.0 / nk,
+            int(bool(square)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*args, stream)

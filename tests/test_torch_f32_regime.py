@@ -11,7 +11,9 @@ KUHF / DeviceKUHF in float32 against the JAX package's float32 KUHF.
 JAX runs on the CPU (its float32 selection takes its numpy route there,
 its float64 one the einsum gram).
 """
+import json
 import warnings
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -240,17 +242,21 @@ def test_m0_auto_densifies_like_jax(monkeypatch):
     where both select through the dense gram), and a saturated explicit
     mesh warns once per (m0, nip).  In a float32 build the loop does not
     densify past the float64 selection cap."""
-    cell_j, cell = he2_cells()
+    _, cell = he2_cells()
     kpts = cell.get_kpts([1, 1, 2])
+    # the JAX package's build of this configuration, recorded by
+    # tools/jax_port_refs.py
+    ref = json.loads((Path(__file__).resolve().parent / "data"
+                      / "jax_port_refs.json").read_text())[
+        "test_m0_auto_densifies_like_jax"]
     kw = dict(c0=10.0, m0="auto", m0_pool=1.0, m0_floor=(2, 2, 2), verbose=0)
     ctx = _quiet()
-    df_j = JaxISDF(cell_j, kpts, **kw).build()
     df = FFTISDF(cell, kpts, device="cpu", **kw).build()
     ctx.__exit__(None, None, None)
     m0_start = t_kp.auto_selection_mesh(cell, 20.0, pool_factor=1.0,
                                         floor=(2, 2, 2))
-    assert df.m0 == tuple(df_j.m0) and np.prod(df.m0) > np.prod(m0_start)
-    assert df.nip == df_j.nip
+    assert df.m0 == tuple(ref["m0"]) and np.prod(df.m0) > np.prod(m0_start)
+    assert df.nip == ref["nip"]
     assert df.mask.max() < np.prod(df.m0)
 
     t_kp._saturation_warned.clear()

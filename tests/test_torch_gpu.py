@@ -10,6 +10,11 @@ Pallas test shapes, ragged shapes (ng not a multiple of the 64-row tile, K
 not a multiple of the MMA depth, ng below one tile), the main-path shape
 (64, 3375, 26), the production width (64, 3375, 62) and on a
 non-contiguous X: 2e-5 * scale in complex64, 1e-12 * scale in complex128.
+The complex64 kernel (3xTF32 on the tensor cores) is held against the
+complex128 gram too, on the cases its loader and epilogue branch on: its
+error at most 4x the plain complex64 version's (cuBLAS in full FP32), or
+4 x 2^-21 of the scale (3xTF32's error for a single product) where that
+is larger.
 The exact plane-wave J/K and the device-resident SCF loop on the card are
 held against the same calls on the CPU.  The float32 regime on the card:
 the build-dtype selection route launches K1 in complex64, the float64
@@ -67,6 +72,33 @@ def test_k1_kernel_non_contiguous(cuda, dtype):
     x = _x((8, 300, 11), dtype, cuda)[:, 7:250]
     assert not x.is_contiguous()
     _check_k1(x, False, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odd-nao", "ragged-ng", "offset-view",
+                                  "conj-view", "square"])
+def test_k1_complex64_against_complex128(cuda, case):
+    """odd nao (8-B copies: a 16-B pair would cross a k-point), ng not a
+    multiple of the 128-row tile (16-B copies), an 8-B-aligned view
+    x[..., 1:], a conjugate view, and ``square=True``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _x((5, 257, 3) if case == "odd-nao" else (8, 300, 12),
+           np.complex64, cuda)
+    if case == "offset-view":
+        x = x[..., 1:]
+        assert x.data_ptr() % 16 == 8
+    elif case == "conj-view":
+        x = x.conj()
+    square = case == "square"
+    _check_k1(x, square, np.complex64)
+    out = pair_gram.pair_gram_sq(x, square=square)
+    plain = pair_gram.pair_gram_sq_reference(x, square=square)
+    ref = pair_gram.pair_gram_sq_reference(x.to(torch.complex128),
+                                           square=square)
+    e_k = float((out.double() - ref).abs().max())
+    e_p = float((plain.double() - ref).abs().max())
+    assert e_k <= 4.0 * max(e_p, 2.0**-21 * float(ref.abs().max())), (
+        e_k, e_p)
 
 
 @pytest.mark.gpu

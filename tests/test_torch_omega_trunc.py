@@ -198,6 +198,15 @@ def he2_box():
     return JaxCell(**HE2_BOX).build(), Cell(**HE2_BOX).build()
 
 
+@pytest.fixture(scope="module")
+def box_0d(he2_box):
+    """The port's compressed 0d-truncated build of the box at the gamma
+    point (c0 10, m0 9x9x11)."""
+    cell = he2_box[1]
+    kpts = cell.get_kpts([1, 1, 1])
+    return kpts, _build(cell, kpts, c0=10.0, m0=(9, 9, 11), trunc="0d")
+
+
 @pytest.mark.parametrize("kind,kmesh,rc", [("0d", [1, 1, 1], 3.5),
                                            ("2d", [2, 1, 1], 4.0)])
 def test_isdf_trunc_jk_exact(he2_box, kind, kmesh, rc):
@@ -248,12 +257,11 @@ def test_compressed_trunc_2d_matches_jax(he2_box):
         assert _rel(vj, vj_j) < 1e-8 and _rel(vk, vk_j) < 1e-8, use_trs
 
 
-def test_trunc_guards(he2_box):
+def test_trunc_guards(he2_box, box_0d):
     """exxdiv with a truncated kernel and ``trunc`` on the SCF classes stay
     refused (SCF-level truncation), omega with truncation too."""
     _, cell = he2_box
-    kpts = cell.get_kpts([1, 1, 1])
-    df = _build(cell, kpts, c0=10.0, m0=(9, 9, 11), trunc="0d")
+    kpts, df = box_0d
     dm = np.eye(2)[None].astype(complex)
     with pytest.raises(NotImplementedError):
         df.get_jk(dm, exxdiv="ewald")
@@ -267,17 +275,16 @@ def test_trunc_guards(he2_box):
         KRHF(cell, kpts, trunc="0d", verbose=0, device="cpu")
 
 
-def test_trunc_serialization_roundtrip(tmp_path, he2_box):
+def test_trunc_serialization_roundtrip(tmp_path, he2_box, box_0d):
     """A truncated state carries its spec through the .npz format: the
     port's own round trip (1e-12), the JAX package's state into the port
     and the port's into the JAX package (same J/K to 1e-12 relative)."""
     cell_j, cell = he2_box
-    kpts = cell.get_kpts([1, 1, 1])
+    kpts, df = box_0d
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
                        trunc="0d").build()
-    df = _build(cell, kpts, c0=10.0, m0=(9, 9, 11), trunc="0d")
     dm = trs_dm(cell, kpts, 2)
     path = str(tmp_path / "trunc_state.npz")
     df.save(path)

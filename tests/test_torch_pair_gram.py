@@ -8,6 +8,11 @@ against the plain version on the card in tests/test_torch_gpu.py.
 Tolerances: 2e-5 * scale in complex64 (the Pallas test's bound, f32
 accumulation over K <= 640), 1e-12 * scale in complex128 (f64 roundoff of
 a K-term sum).
+
+The complex64 kernel's arithmetic, 3xTF32 (each float32 operand split into
+two TF32 halves, three products accumulated in float32), is emulated here
+and held against the JAX package's complex128 gram at that tolerance;
+single-pass TF32 misses it.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -53,6 +58,59 @@ def test_reference_matches_pallas_interpret(shape, square):
                                            square=square).numpy()
     scale = max(abs(ref).max(), 1e-30)
     np.testing.assert_allclose(out, ref, atol=2e-5 * scale, rtol=0)
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32 on a float32 tensor: the mantissa rounded to 10
+    bits, ties away from zero (the low 13 bits cleared)."""
+    return ((a.view(torch.int32) + (1 << 12)) & -(1 << 13)).view(
+        torch.float32)
+
+
+def _gram_tf32(x, passes, square):
+    """The gram of the complex64 kernel's arithmetic, from numpy complex64
+    x: each real product from TF32 halves (big = tf32(a), small =
+    tf32(a - big)) accumulated in float32, as small.big + big.small +
+    big.big (passes=3) or big.big alone (single-pass TF32)."""
+    nk, ng, nao = x.shape
+    xt = torch.from_numpy(x).permute(1, 0, 2).reshape(ng, nk * nao)
+    halves = {}
+    for name, part in (("r", xt.real.contiguous()),
+                       ("i", xt.imag.contiguous())):
+        big = _tf32(part)
+        halves[name] = (big, _tf32(part - big))
+
+    def prod(a, b):
+        (a_big, a_small), (b_big, b_small) = halves[a], halves[b]
+        if passes == 1:
+            return a_big @ b_big.T
+        return a_small @ b_big.T + a_big @ b_small.T + a_big @ b_big.T
+
+    re = prod("r", "r") + prod("i", "i")
+    im = prod("r", "i") - prod("i", "r")
+    out = (re * re + im * im) / nk**2
+    return (out * out if square else out).numpy()
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("shape", SHAPES + [(64, 200, 26)])
+def test_3xtf32_gram_matches_jax_complex128(shape, square):
+    x = _x(shape, np.complex64)
+    ref = np.asarray(jax_ref(jnp.asarray(x.astype(np.complex128)),
+                             square=square))
+    out = _gram_tf32(x, 3, square)
+    scale = abs(ref).max()
+    np.testing.assert_allclose(out, ref, atol=2e-5 * scale, rtol=0)
+
+
+def test_single_pass_tf32_misses_tolerance():
+    """The measurement behind the rule against plain TF32: at the slice's
+    width its gram misses 2e-5 * scale (measured 5e-5)."""
+    x = _x((64, 200, 26), np.complex64)
+    ref = np.asarray(jax_ref(jnp.asarray(x.astype(np.complex128)),
+                             square=False))
+    err = abs(_gram_tf32(x, 1, False) - ref).max()
+    assert err > 2e-5 * abs(ref).max()
 
 
 def test_cpu_wrapper_takes_plain_version():

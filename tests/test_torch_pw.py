@@ -6,8 +6,13 @@ Tolerances are the JAX package's own: exact J/K and ERIs to 1e-10
 relative, Madelung to 1e-12, compressed ISDF serves to 1e-8 relative
 (test_torch_isdf_kpoint.py), full-rank ISDF against the exact oracle to
 1e-9 (test_full_rank_jk_exact).  The port's ISDF is given the JAX
-package's interpolation points.
+package's interpolation points.  The exact KRHF energy of the JAX package
+is read from its record, tests/data/jax_port_refs.json
+(tools/jax_port_refs.py, same configuration).
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,7 +21,7 @@ from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.pw import eri as jax_pw_eri, jk as jax_pw_jk
 from fftisdf_tpu.scf import integrals as jax_integrals
-from fftisdf_tpu.scf.hf import PWDF as JaxPWDF, KRHF as JaxKRHF
+from fftisdf_tpu.scf.hf import PWDF as JaxPWDF
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
@@ -139,9 +144,12 @@ def test_pwdf_ewald_matches_jax(diamond):
 
 def test_exact_krhf_matches_jax(diamond):
     """KRHF with no provider runs on a PWDF, with exxdiv passed through."""
-    cell_j, cell, kpts = diamond[:3]
+    cell, kpts = diamond[1:3]
+    ref = json.loads((Path(__file__).resolve().parent / "data"
+                      / "jax_port_refs.json").read_text())[
+        "test_exact_krhf_matches_jax"]
+    e_j = ref["e_tot"]
     kw = dict(verbose=0, conv_tol=1e-10, exxdiv="ewald")
-    e_j = JaxKRHF(cell_j, kpts, **kw).kernel()
     mf = KRHF(cell, kpts, device="cpu", **kw)
     assert isinstance(mf.with_df, PWDF)
     assert abs(mf.kernel() - e_j) < 1e-8 and mf.converged

@@ -14,20 +14,22 @@
   converges.
 
 Each package gets its own cell, built by its own structure constructors from
-the same arguments.
+the same arguments.  The two KUHF runs read the JAX package's energies (and
+the NiO mask and moments) from its records: tests/data/jax_port_refs.json
+(tools/jax_port_refs.py) and tests/data/nio_afm_kuhf_anchor.json, written
+on the CPU in float64 with the same configurations.
 """
-import warnings
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.lattice import structure as jax_structure
-from fftisdf_tpu.scf import KRHF as JaxKRHF, KUHF as JaxKUHF
+from fftisdf_tpu.scf import KRHF as JaxKRHF
 from fftisdf_tpu.scf import core as jax_core
 from fftisdf_tpu.scf import integrals as jax_int
-from fftisdf_tpu.scf.analysis import atom_charges_and_moments as jax_moments
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import KUHF, core, integrals
@@ -35,6 +37,7 @@ from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 AFM = {0: +1.0, 1: -1.0}
+DATA = Path(__file__).resolve().parent / "data"
 
 
 def _cells(maker, **kw):
@@ -101,42 +104,45 @@ def test_scf_core_matches_jax():
 
 
 def test_isdf_kuhf_diamond_matches_jax(diamond):
-    cell_j, cell, kpts = diamond
+    """The JAX package's energy: tests/data/jax_port_refs.json, same
+    configuration (diamond c0 10, m0 15^3, this kw)."""
+    _, cell, kpts = diamond
+    ref = json.loads((DATA / "jax_port_refs.json").read_text())[
+        "test_isdf_kuhf_diamond_matches_jax"]
     kw = dict(verbose=0, conv_tol=1e-10, max_cycle=80, init_spin=AFM,
               smearing=5e-3)
-    df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(15, 15, 15), verbose=0).build()
-    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, **kw)
-    e_j = mf_j.kernel()
     df_t = FFTISDF(cell, kpts, c0=10.0, m0=(15, 15, 15), verbose=0,
                    device="cpu").build()
     mf_t = KUHF(cell, kpts, df_t, device="cpu", **kw)
     e_t = mf_t.kernel()
-    assert mf_j.converged and mf_t.converged
-    assert abs(e_t - e_j) < 1e-8, (e_t, e_j)
+    assert ref["converged"] and mf_t.converged
+    assert abs(e_t - ref["e_tot"]) < 1e-8, (e_t, ref["e_tot"])
 
 
 def test_nio_example_slice_matches_jax():
     """NiO AFM, gth-szv ke 50, 1x1x2, c0 20, m0 15^3, smearing 5e-3 — the
-    defaults of examples/nio_afm_kuhf.py — through both packages."""
-    cell_j, cell = _cells("nio_afm", basis="gth-szv", pseudo="gth-pade",
-                          ke_cutoff=50.0, exp_to_discard=0.1)
-    kpts = cell.get_kpts([1, 1, 2])
-    kw = dict(verbose=0, conv_tol=1e-8, max_cycle=80, init_spin=AFM,
-              smearing=5e-3)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=20.0, m0=(15, 15, 15),
-                       verbose=0).build()
-    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, **kw)
-    e_j = mf_j.kernel()
-    _, mom_j = jax_moments(cell_j, mf_j.dm, mf_j.s1e)
-
-    df_t = FFTISDF(cell, kpts, c0=20.0, m0=(15, 15, 15), verbose=0,
-                   device="cpu").build(mask=np.asarray(df_j.mask))
+    defaults of examples/nio_afm_kuhf.py — through the port, against the
+    JAX package's run of the same configuration recorded in
+    tests/data/nio_afm_kuhf_anchor.json (e_tot, moments, mask)."""
+    anchor = json.loads((DATA / "nio_afm_kuhf_anchor.json").read_text())
+    cfg = anchor["config"]
+    cell = structure.to_cell(*structure.nio_afm(), basis=cfg["basis"],
+                             pseudo=cfg["pseudo"],
+                             ke_cutoff=cfg["ke_cutoff"],
+                             exp_to_discard=cfg["exp_to_discard"])
+    kpts = cell.get_kpts(cfg["kmesh"])
+    kw = dict(verbose=0, conv_tol=cfg["conv_tol"],
+              max_cycle=cfg["max_cycle"], init_spin=AFM,
+              smearing=cfg["smearing"])
+    assert (cfg["structure"], cfg["c0"], tuple(cfg["m0"])) == (
+        "nio_afm", 20.0, (15, 15, 15))
+    assert {int(k): v for k, v in cfg["init_spin"].items()} == AFM
+    df_t = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]), verbose=0,
+                   device="cpu").build(mask=np.asarray(anchor["mask"]))
     mf_t = KUHF(cell, kpts, df_t, device="cpu", **kw)
     e_t = mf_t.kernel()
     _, mom_t = atom_charges_and_moments(cell, mf_t.dm, mf_t.s1e)
-    assert mf_j.converged and mf_t.converged
-    assert abs(e_t - e_j) < 1e-6, (e_t, e_j)
-    np.testing.assert_allclose(mom_t[:2], mom_j[:2], atol=1e-3)
+    assert anchor["converged"] and mf_t.converged
+    assert abs(e_t - anchor["e_tot"]) < 1e-6, (e_t, anchor["e_tot"])
+    np.testing.assert_allclose(mom_t[:2], anchor["moments"][:2], atol=1e-3)
     assert mom_t[0] > 1.0 > -1.0 > mom_t[1]

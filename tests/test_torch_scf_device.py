@@ -5,18 +5,19 @@ on the fixtures of tests/test_scf_device.py (CPU, f64).
 The device loop runs here on CPU tensors; the tolerances are
 tests/test_scf_device.py's.  The port is given the JAX package's
 interpolation points (``build(mask=...)``), so that its energies can be
-held against the JAX package's host energies too.
+held against the JAX package's host energies too.  Those masks and energies
+are the JAX package's record, tests/data/jax_port_refs.json
+(tools/jax_port_refs.py, the same cells and settings).
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from fftisdf_tpu.isdf import FFTISDF as JaxISDF
-from fftisdf_tpu.lattice import structure as jax_structure
-from fftisdf_tpu.lattice.cell import Cell as JaxCell, Shell as JaxShell
-from fftisdf_tpu.scf import KRHF as JaxKRHF, KUHF as JaxKUHF
 from fftisdf_tpu.scf import core as jax_core
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
@@ -27,28 +28,29 @@ from fftisdf_tpu_torch.scf.device import orth_and_penalty
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 
-def _pair(cell_j, cell, kpts, m0):
-    """(JAX package's df, port's df on the JAX mask), c0 40."""
-    df_j = JaxISDF(cell_j, kpts, c0=40.0, m0=m0, verbose=0).build()
-    df = FFTISDF(cell, kpts, c0=40.0, m0=m0, verbose=0,
-                 device="cpu").build(mask=np.asarray(df_j.mask))
-    return df_j, df
+REFS = json.loads((Path(__file__).resolve().parent / "data"
+                   / "jax_port_refs.json").read_text())
+
+
+def _port_df(cell, kpts, m0, ref):
+    """The port's df (c0 40) on the JAX package's recorded mask."""
+    return FFTISDF(cell, kpts, c0=40.0, m0=m0, verbose=0,
+                   device="cpu").build(mask=np.asarray(ref["mask"]))
 
 
 @pytest.fixture(scope="module")
 def diamond():
-    args = structure.bulk_diamond()
-    kw = dict(basis="gth-szv", pseudo="gth-pade", ke_cutoff=50.0)
-    cell_j = jax_structure.to_cell(*jax_structure.bulk_diamond(), **kw)
-    cell = structure.to_cell(*args, **kw)
+    """(JAX package's record, port's cell, kpts, port's df)."""
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
     kpts = cell.get_kpts([1, 1, 2])
-    return (cell_j, cell, kpts) + _pair(cell_j, cell, kpts, (9, 9, 9))
+    ref = REFS["scf_device_diamond"]
+    return ref, cell, kpts, _port_df(cell, kpts, (9, 9, 9), ref)
 
 
 def test_device_krhf_matches_host(diamond):
-    cell_j, cell, kpts, df_j, df = diamond
-    e_jax = JaxKRHF(cell_j, kpts, with_df=df_j, verbose=0,
-                    conv_tol=1e-10).kernel()
+    ref, cell, kpts, df = diamond
+    e_jax = ref["e_krhf"]
     e0 = KRHF(cell, kpts, df, verbose=0, conv_tol=1e-10,
               device="cpu").kernel()
     mf = DeviceKRHF(cell, kpts, df, verbose=0, conv_tol=1e-10, max_cycle=60,
@@ -62,10 +64,7 @@ def test_device_krhf_matches_host(diamond):
 
 
 def test_device_kuhf_smeared_matches_host(diamond):
-    cell_j, cell, kpts, df_j, df = diamond
-    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, verbose=0, conv_tol=1e-10,
-                   smearing=5e-3)
-    mf_j.kernel()
+    ref, cell, kpts, df = diamond
     mf0 = KUHF(cell, kpts, df, verbose=0, conv_tol=1e-10, smearing=5e-3,
                device="cpu")
     e0 = mf0.kernel()
@@ -75,8 +74,9 @@ def test_device_kuhf_smeared_matches_host(diamond):
     assert mf0.converged and mf1.converged
     np.testing.assert_allclose(e1, e0, atol=3e-8)
     np.testing.assert_allclose(mf1.e_free, mf0.e_free, atol=3e-8)
-    np.testing.assert_allclose(e1, mf_j.e_tot, atol=3e-8)
-    np.testing.assert_allclose(mf1.e_free, mf_j.e_free, atol=3e-8)
+    np.testing.assert_allclose(e1, ref["e_kuhf_smeared"], atol=3e-8)
+    np.testing.assert_allclose(mf1.e_free, ref["e_free_kuhf_smeared"],
+                               atol=3e-8)
     with pytest.raises(NotImplementedError):
         DeviceKUHF(cell, kpts, df, verbose=0, level_shift=0.1,
                    device="cpu").kernel()
@@ -85,34 +85,31 @@ def test_device_kuhf_smeared_matches_host(diamond):
                    device="cpu").kernel()
 
 
-def _near_dependent_cells():
+@pytest.fixture(scope="module")
+def near_dependent():
     """He2 with two nearly identical s shells per atom (near-singular
-    overlap), built by each package's Cell."""
-    def shells(shell_cls):
-        return [shell_cls(l=0, exps=np.array([0.8, 0.3]),
-                          coeffs=np.array([[0.4], [0.7]])),
-                shell_cls(l=0, exps=np.array([0.8, 0.3]),
-                          coeffs=np.array([[0.4 * (1 + 1e-7)], [0.7]]))]
+    overlap): (JAX package's record, port's cell, kpts, port's df)."""
+    shells = [Shell(l=0, exps=np.array([0.8, 0.3]),
+                    coeffs=np.array([[0.4], [0.7]])),
+              Shell(l=0, exps=np.array([0.8, 0.3]),
+                    coeffs=np.array([[0.4 * (1 + 1e-7)], [0.7]]))]
+    cell = Cell(a=np.diag([8.0, 8.0, 8.0]),
+                atom=[("He", np.full(3, 4.0)),
+                      ("He", np.array([4.0, 4.0, 6.5]))],
+                basis={"He": shells}, pseudo=None, mesh=np.array([16] * 3),
+                unit="bohr", precision=1e-12).build()
+    kpts = cell.get_kpts([1, 1, 2])
+    ref = REFS["scf_device_near_dependent_he2"]
+    return ref, cell, kpts, _port_df(cell, kpts, (9, 9, 9), ref)
 
-    kw = dict(a=np.diag([8.0, 8.0, 8.0]),
-              atom=[("He", np.full(3, 4.0)),
-                    ("He", np.array([4.0, 4.0, 6.5]))],
-              pseudo=None, mesh=np.array([16] * 3), unit="bohr",
-              precision=1e-12)
-    return (JaxCell(basis={"He": shells(JaxShell)}, **kw).build(),
-            Cell(basis={"He": shells(Shell)}, **kw).build())
 
-
-def test_device_dropped_overlap_directions():
+def test_device_dropped_overlap_directions(near_dependent):
     """Penalised (dropped) overlap directions sort to the top of each
     spectrum; the occupation mask keys on the eigenvalues, not on column
     position."""
-    cell_j, cell = _near_dependent_cells()
-    kpts = cell.get_kpts([1, 1, 2])
-    df_j, df = _pair(cell_j, cell, kpts, (9, 9, 9))
+    ref, cell, kpts, df = near_dependent
     cutoff = 1e-4
-    e_jax = JaxKRHF(cell_j, kpts, with_df=df_j, verbose=0, conv_tol=1e-10,
-                    ovlp_cutoff=cutoff).kernel()
+    e_jax = ref["e_krhf"]
     mf0 = KRHF(cell, kpts, df, verbose=0, conv_tol=1e-10,
                ovlp_cutoff=cutoff, device="cpu")
     _, pen = orth_and_penalty(mf0.s1e, cutoff)
@@ -132,7 +129,7 @@ def test_device_dropped_overlap_directions():
     np.testing.assert_allclose(e2, e0, atol=1e-6)
 
 
-def test_device_f32_dropped_overlap_directions():
+def test_device_f32_dropped_overlap_directions(near_dependent):
     """The float32 loop with dropped overlap directions: their diagonal
     entry is scaled to the Fock matrix's norm and the validity gate to its
     row-sum bound, so an eigensolver's backward error (eps ||A||) stays at
@@ -141,9 +138,7 @@ def test_device_f32_dropped_overlap_directions():
     (LAPACK on the CPU keeps the decoupled blocks apart whatever the
     entry; cuSOLVER does not, which tests/test_torch_gpu.py and the smoke
     script's float32 production run hold on the card.)"""
-    cell_j, cell = _near_dependent_cells()
-    kpts = cell.get_kpts([1, 1, 2])
-    _, df64 = _pair(cell_j, cell, kpts, (9, 9, 9))
+    _, cell, kpts, df64 = near_dependent
     df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
                  dtype=torch.float32, device="cpu").build(mask=df64.mask)
     kw = dict(verbose=0, conv_tol=1e-7, ovlp_cutoff=1e-4, max_cycle=60,
@@ -163,23 +158,18 @@ def test_device_f32_dropped_overlap_directions():
 def test_device_kuhf_bias_symmetry_breaking():
     """Stretched H2 with the on-site bias: the device loop reproduces the
     host loops' broken-symmetry solution."""
-    def h2(cell_cls, shell_cls):
-        return cell_cls(
-            a=np.diag([10.0, 10.0, 14.0]),
-            atom=[("H", (5.0, 5.0, 5.0)), ("H", (5.0, 5.0, 9.0))],
-            basis={"H": [shell_cls(l=0, exps=np.array([1.0, 0.35]),
+    cell = Cell(a=np.diag([10.0, 10.0, 14.0]),
+                atom=[("H", (5.0, 5.0, 5.0)), ("H", (5.0, 5.0, 9.0))],
+                basis={"H": [Shell(l=0, exps=np.array([1.0, 0.35]),
                                    coeffs=np.eye(2))]},
-            pseudo="gth-pade", mesh=np.array([24, 24, 32]), unit="bohr",
-            precision=1e-12).build()
-
-    cell_j, cell = h2(JaxCell, JaxShell), h2(Cell, Shell)
+                pseudo="gth-pade", mesh=np.array([24, 24, 32]), unit="bohr",
+                precision=1e-12).build()
     kpts = np.zeros((1, 3))
-    df_j = JaxISDF(cell_j, kpts, c0=40.0, m0=(9, 9, 11), verbose=0).build()
-    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 11), verbose=0,
-                 device="cpu").build(mask=np.asarray(df_j.mask))
+    ref = REFS["test_device_kuhf_bias_symmetry_breaking"]
+    df = _port_df(cell, kpts, (9, 9, 11), ref)
     kw = dict(verbose=0, conv_tol=1e-9, init_spin={0: +1.0, 1: -1.0},
               spin_bias=0.5, bias_cycles=4)
-    e_jax = JaxKUHF(cell_j, kpts, with_df=df_j, **kw).kernel()
+    e_jax = ref["e_tot"]
     mf0 = KUHF(cell, kpts, df, device="cpu", **kw)
     e0 = mf0.kernel()
     mf1 = DeviceKUHF(cell, kpts, df, max_cycle=60, device="cpu", **kw)
