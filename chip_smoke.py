@@ -83,25 +83,56 @@ Phases, in order; any failure raises and the script exits non-zero:
    (e) the anchor's ``get_jk(omega=w)`` for w > 0 and w < 0 against
    ``PWDF.get_jk(omega=w)`` (below 1e-2) and erf + erfc = bare on w_q
    (1e-10 relative); (f) He2 in a box, full rank, 0d and 2d truncation
-   against the exact oracle with the same kernel (1e-9).
+   against the exact oracle with the same kernel (1e-9);
+8. the rest of the ISDF layer, with K1's count reset right before: (a)
+   phase 6b's host KUHF checkpointed (``save``), reloaded (``load_chk``)
+   and restarted on phase 6b's build (held in host memory through phase
+   7): converged in at most 2 cycles to its energy (1e-8 Ha); ``mulliken``
+   on the result (populations sum to nelec to 1e-8, Ni moments +-1.9336 of
+   opposite sign, equal to ``atom_charges_and_moments``); the NiO cell
+   through ``format_poscar`` and ``parse_poscar``; (b) the compact cderi
+   serve on phase 4's slice state (signed factors, ``k2_chunk = nk // 8``):
+   vj against the ISDF serve to 1e-8, vk to 1e-8 on the time-reversal-
+   symmetric part of w_q that the serve uses (the raw difference printed),
+   vj/vk_maxerr against phase 5c's exact J/K, the seconds of the
+   factorisation, the cderi J/K and the ISDF get_jk; (c) ``get_bands`` on
+   phase 6a's converged KUHF: at 2 mesh points against the converged
+   Fock's eigenvalues (1e-3 Ha: the band serve re-fits each pair where the
+   SCF's serve fits the q sector, so they agree to the compression error),
+   along a 9-point L-Gamma-X path (the indirect gap, seconds a point), at 2
+   path points against the exact band path (1e-3 of the scale, the gate of
+   tests/test_isdf_bands.py), and the exact band path at a mesh point
+   against phase 5c's mesh serve (1e-10); (d) SCF-level truncation: H2 in
+   0d boxes of 9, 11 and 12.5 bohr (exact, ISDF on the JAX package's
+   points and on its own) and the H2 monolayer in 2d with exxdiv='ewald'
+   at lz 12 and 16, each within 1e-6 Ha of the JAX package's energy in
+   tests/data/jax_port_refs.json, the textbook -1.1167 Ha within 0.011,
+   the monolayer's vacuum independence within 2e-4; (e) the tools on the
+   card against the CPU: the full-rank Gamma-point fit on phase 2's
+   diamond (pairs to 1e-10), LS-THC on He2 on the uniform and Becke grids
+   (1e-7 / 5e-5), ``mo_eri`` against ``get_eri`` rotated to MOs and
+   ``whiten_basis`` per sector on a full-rank He2 build.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
-                                     # prints no result lines
+                                     # prints no result lines; 8 runs 4 and
+                                     # 6 first for their state
 """
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
 EXACT = REPO / "tests" / "data" / "nio_afm_kuhf_exact.json"
+REFS = REPO / "tests" / "data" / "jax_port_refs.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
 # the complex64 kernel's error against the complex128 gram: at most this
 # many times the plain complex64 version's, or K1_C64_FLOOR of the scale
@@ -732,6 +763,7 @@ def _device_loop_parts(torch, mf):
 
 def phase6_device_scf(torch, ctx):
     from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
 
     # (a) the slice: device loop against host loop on one build
     cell, kpts, df = _slice(ctx)
@@ -746,8 +778,10 @@ def phase6_device_scf(torch, ctx):
     log(f"[6] slice device-loop parts: {_device_loop_parts(torch, dev)}")
     if not (host.converged and dev.converged and de <= 3e-8):
         raise RuntimeError("DeviceKUHF and KUHF disagree on the slice")
-    del host, dev, df
-    ctx.pop("slice", None)
+    # phase 8 serves bands and the cderi arm from this state and density
+    ctx["slice_mf"] = host
+    _park(df)
+    del dev
     torch.cuda.empty_cache()
 
     # (b) the production configuration
@@ -762,6 +796,15 @@ def phase6_device_scf(torch, ctx):
     if not (host.converged and de <= 3e-8):
         raise RuntimeError("DeviceKUHF and KUHF disagree on the production "
                            "configuration")
+    # phase 8a restarts the host loop from its checkpoint on this build
+    chk = Path(ctx["tmp"]) / "production_kuhf.npz"
+    host.save(str(chk))
+    _, mom = atom_charges_and_moments(cell, host.dm, host.s1e)
+    ctx["production"] = dict(cell=cell, kpts=kpts, df=df, chk=chk,
+                             e_tot=host.e_tot, e_dev=mf.e_tot, moments=mom)
+    del host, mf
+    _park(df)
+    torch.cuda.empty_cache()
     return fig["launches"]
 
 
@@ -855,15 +898,12 @@ def _f32_slice(torch, ctx):
     import numpy as np
     from fftisdf_tpu_torch.isdf import FFTISDF
     from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
-    from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF, PWDF
+    from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
 
     f32 = torch.float32
     cell, kpts = _nio(100.0, [4, 4, 4])
     dm = _bench_density(cell, kpts)
-    if "slice_exact" not in ctx:
-        ctx["slice_exact"] = PWDF(cell, kpts).get_jk(dm)
-    vj_e, vk_e = ctx["slice_exact"]
-    ctx.pop("slice", None)
+    vj_e, vk_e = _slice_exact_jk(ctx, cell, kpts)
     torch.cuda.empty_cache()
     if "slice_f64_err" in ctx:
         log("[7a] float64 build (phase 5c): " + ", ".join(
@@ -1053,15 +1093,464 @@ def _trunc(torch):
                                "exact ones")
 
 
+# ------------------------------------------------------------------ phase 8
+def _park(df):
+    """Hold a built state in host memory while later phases need the card
+    (its get_ws cache is dropped; :func:`_unpark` brings it back)."""
+    df.x_k, df.wq, df._ws = df.x_k.cpu(), df.wq.cpu(), None
+
+
+def _unpark(df):
+    df.x_k, df.wq = df.x_k.to(df.device), df.wq.to(df.device)
+
+
+def _slice_exact_jk(ctx, cell, kpts):
+    """Phase 5c's exact J/K of the slice on the bench density, or computed
+    here when phase 5 did not run."""
+    from fftisdf_tpu_torch.scf import PWDF
+
+    if "slice_exact" not in ctx:
+        ctx["slice_exact"] = PWDF(cell, kpts).get_jk(
+            _bench_density(cell, kpts))
+    return ctx["slice_exact"]
+
+
+def phase8_rest(torch, ctx):
+    _restart_analysis(torch, ctx)
+    _cderi(torch, ctx)
+    _bands(torch, ctx)
+    _trunc_scf(torch)
+    _tools(torch)
+
+
+def _restart_analysis(torch, ctx):
+    """(a) phase 6b's checkpoint restarts the host KUHF on phase 6b's build;
+    Mulliken analysis of the result; format_poscar -> parse_poscar."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KUHF
+    from fftisdf_tpu_torch.scf.analysis import (ao_populations,
+                                                atom_charges_and_moments,
+                                                mulliken)
+
+    prod = ctx.pop("production")
+    cell, kpts, df = prod["cell"], prod["kpts"], prod["df"]
+    _unpark(df)
+    t0 = time.perf_counter()
+    mf = KUHF(cell, kpts, df, verbose=0, **dict(SCF_KW, max_cycle=2))
+    e = mf.kernel(dm0=mf.load_chk(prod["chk"]))
+    restart_s = time.perf_counter() - t0
+    de = abs(e - prod["e_tot"])
+    log(f"[8a] production restart from {Path(prod['chk']).name} "
+        f"({Path(prod['chk']).stat().st_size / 1e6:.1f} MB): KUHF e_tot "
+        f"{e:.10f} conv {mf.converged} in {mf.cycles} cycle(s), "
+        f"{restart_s:.2f}s with setup; |e_tot - phase 6b's host KUHF| "
+        f"{de:.2e} Ha, against its DeviceKUHF {abs(e - prod['e_dev']):.2e}")
+    if not (mf.converged and mf.cycles <= 2 and de <= 1e-8):
+        raise RuntimeError("the checkpoint restart missed phase 6b's energy")
+    pop = ao_populations(cell, mf.dm, mf.s1e)
+    charges, moments = mulliken(mf, log=False)
+    _, mom_ref = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+    dn = abs(pop.sum() - cell.nelectron)
+    dmom = float(np.abs(moments - mom_ref).max())
+    d6b = float(np.abs(moments - prod["moments"]).max())
+    log(f"[8a] mulliken: populations sum {pop.sum():.10f} (nelec "
+        f"{cell.nelectron}, |d| {dn:.2e}); charges " + " ".join(
+            f"{q:+.4f}" for q in charges) + "; moments " + " ".join(
+            f"{m:+.4f}" for m in moments) + f"; against "
+        f"atom_charges_and_moments {dmom:.2e}, against phase 6b {d6b:.2e}")
+    if not (dn <= 1e-8 and dmom <= 1e-12 and d6b <= 5e-4
+            and moments[0] * moments[1] < 0
+            and abs(abs(moments[0]) - 1.9336) <= 5e-4
+            and abs(abs(moments[1]) - 1.9336) <= 5e-4):
+        raise RuntimeError("the Mulliken analysis of the restart is off")
+    del mf
+    df.x_k = df.wq = None
+    torch.cuda.empty_cache()
+    lat, atoms = structure.nio_afm()
+    lat2, atoms2 = structure.parse_poscar(
+        structure.format_poscar(lat, atoms, comment="NiO AFM"))
+    cell2 = structure.to_cell(lat2, atoms2, basis="gth-dzvp-molopt-sr",
+                              pseudo="gth-pade", ke_cutoff=200.0,
+                              exp_to_discard=0.1)
+    dx = max(float(np.abs(cell2.a - cell.a).max()),
+             float(np.abs(cell2.atom_coords() - cell.atom_coords()).max()))
+    same = ([s for s, _ in cell2.atom] == [s for s, _ in cell.atom]
+            and np.array_equal(cell2.mesh, cell.mesh)
+            and cell2.nao_nr() == cell.nao_nr())
+    log(f"[8a] format_poscar -> parse_poscar: NiO cell max |d| {dx:.2e} "
+        f"bohr, symbols/mesh/nao equal {same}")
+    if not (same and dx <= 1e-8):
+        raise RuntimeError("format_poscar does not reproduce the NiO cell")
+
+
+def _cderi(torch, ctx):
+    """(b) the compact cderi serve on phase 4's slice state."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import cderi
+    from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+
+    cell, kpts, df = ctx["slice"]
+    _unpark(df)
+    vj_e, vk_e = _slice_exact_jk(ctx, cell, kpts)
+    dm = _bench_density(cell, kpts)
+    nk = len(kpts)
+
+    def timed(fn):
+        fn()                                   # warm-up: library handles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (vj_i, vk_i), jk_s = timed(lambda: df.get_jk(dm))
+    (cd, sign), cd_s = timed(lambda: cderi.wq_to_cd_signed(df.wq))
+    q_of = cderi.q_index_table(cell, kpts)
+    k2c = max(1, nk // 8)
+    while nk % k2c:
+        k2c -= 1
+    (vj_c, vk_c), cjk_s = timed(lambda: cderi.get_jk_cderi(
+        df.x_k, cd, q_of, dm, k2_chunk=k2c, sign=sign))
+    # the ISDF serve's exchange takes the real image-space metric, i.e. the
+    # time-reversal-symmetric part of w_q; the cderi arm factors w_q as it
+    # is.  Its exactness is held on the symmetric part, J on w_0 as it is
+    s = cell.get_scaled_kpts(kpts)
+    minus = [kpt_mod.member(-v, s, strict=False) for v in s]
+    w_trs = 0.5 * (df.wq + df.wq[minus].conj())
+    asym = float((df.wq - w_trs).abs().max() / df.wq.abs().max())
+    cd_t, sign_t = cderi.wq_to_cd_signed(w_trs)
+    del w_trs
+    _, vk_t = cderi.get_jk_cderi(df.x_k, cd_t, q_of, dm, k2_chunk=k2c,
+                                 sign=sign_t)
+    del cd_t, sign_t
+    d_serve = {"vj": float((vj_c - vj_i).abs().max()),
+               "vk": float((vk_c - vk_i).abs().max()),
+               "vk (symmetric w_q)": float((vk_t - vk_i).abs().max())}
+    errs = _maxerrs(vj_c, vk_c, vj_e, vk_e)
+    log(f"[8b] slice cderi: naux {cd.shape[1]}, k2_chunk {k2c}; signed "
+        f"factorisation {cd_s:.3f}s, cderi J/K {cjk_s:.3f}s, ISDF get_jk "
+        f"{jk_s:.4f}s (warm, each); w_q's time-reversal asymmetry {asym:.2e}"
+        " of max; against the ISDF serve: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in d_serve.items()) + " (gate 1e-8 on vj "
+        "and the symmetric vk); " + ", ".join(
+            f"{n}_maxerr {e:.3e} (scale {sc:.3f})"
+            for n, (e, sc) in errs.items()) + " against the exact J/K")
+    if not (d_serve["vj"] <= 1e-8 and d_serve["vk (symmetric w_q)"] <= 1e-8
+            and all(np.isfinite(e) and e < 1e-2 for e, _ in errs.values())):
+        raise RuntimeError("the cderi serve misses the ISDF serve or the "
+                           "exact J/K")
+    del cd, sign, vj_c, vk_c
+    torch.cuda.empty_cache()
+
+
+def _bands(torch, ctx):
+    """(c) band energies from phase 6a's converged KUHF on the slice: at
+    mesh points, along an L-Gamma-X path, and against the exact band
+    path."""
+    import numpy as np
+    from fftisdf_tpu_torch.basis.eval import make_evaluator
+    from fftisdf_tpu_torch.isdf.bands import _qlat_dmin2
+    from fftisdf_tpu_torch.pw import jk as pw_jk
+    from fftisdf_tpu_torch.scf import PWDF
+    from fftisdf_tpu_torch.scf.hf import _eigh_gen
+
+    cell, kpts, df = ctx["slice"]
+    mf = ctx.pop("slice_mf")
+    nk = len(kpts)
+    # mesh points: the band serve re-fits each (band, k2) pair, the SCF's
+    # serve fits the whole q sector, so they agree to the compression error
+    t0 = time.perf_counter()
+    es_m, _ = mf.get_bands(kpts[:2])
+    mesh_s = (time.perf_counter() - t0) / 2
+    fock = mf.get_fock(mf.dm)[0]
+    d_fock = d_mo = 0.0
+    for s in range(2):
+        for k in range(2):
+            e_ref, _ = _eigh_gen(fock[s, k], mf.s1e[k], cutoff=mf.ovlp_cutoff)
+            d_fock = max(d_fock, float(np.abs(es_m[s][k] - e_ref).max()))
+            d_mo = max(d_mo, float(np.abs(es_m[s][k]
+                                          - mf.mo_energy[s, k]).max()))
+    log(f"[8c] bands at 2 mesh points ({mesh_s:.2f}s a point): against the "
+        f"converged Fock's eigenvalues {d_fock:.2e} Ha, against mo_energy "
+        f"{d_mo:.2e} Ha (gate 1e-3: the per-pair re-fit's compression)")
+    if not d_fock <= 1e-3:
+        raise RuntimeError("mesh-point bands miss the converged Fock")
+
+    # an L-Gamma-X path (the rocksalt labels; conventional cubic a)
+    a = float(cell.a[0, 0])
+    kl, kx = np.full(3, np.pi / a), np.array([2.0 * np.pi / a, 0.0, 0.0])
+    path = np.array([kl * (1 - t) for t in np.linspace(0, 1, 5)]
+                    + [kx * t for t in np.linspace(0.25, 1, 4)])
+    t0 = time.perf_counter()
+    es_p, _ = mf.get_bands(path)
+    path_s = (time.perf_counter() - t0) / len(path)
+    na, nb = mf.nocc_ab
+    gaps = []
+    for s, n in enumerate((na, nb)):
+        homo = max(float(e[n - 1]) for e in es_p[s])
+        lumo = min(float(e[n]) for e in es_p[s])
+        gaps.append((homo, lumo))
+    homo = max(h for h, _ in gaps)
+    lumo = min(lo for _, lo in gaps)
+    finite = all(np.isfinite(e).all() and (np.diff(e) >= -1e-12).all()
+                 for es in es_p for e in es)
+    log(f"[8c] L-Gamma-X path, {len(path)} points ({path_s:.2f}s a point, "
+        f"{nk} sector metrics each): HOMO {homo:.6f} LUMO {lumo:.6f} Ha, "
+        f"indirect gap {(lumo - homo) * 27.211386:.4f} eV; finite and "
+        f"sorted {finite}")
+    if not (finite and lumo > homo):
+        raise RuntimeError("the band path is malformed")
+
+    # two path points against the exact band path, on the SCF's density
+    kb = path[[1, 6]]
+    vj_i, vk_i = df.get_jk(mf.dm, kpts_band=kb)
+    coords = cell.gen_uniform_grids()
+    pw = PWDF(cell, kpts)
+    aob = make_evaluator(cell, kpts=kb)(coords)
+    thr = _qlat_dmin2(cell, df.kmesh)
+    t0 = time.perf_counter()
+    vj_x = torch.stack([pw_jk.get_j_kpts(cell, d, pw.ao, ao_band=aob)
+                        for d in mf.dm])
+    vk_x = torch.stack([pw_jk.get_k_kpts(cell, d, pw.ao, kpts, coords=coords,
+                                         ao_band=aob, kpts_band=kb,
+                                         g0_argmin_thresh=thr)
+                        for d in mf.dm])
+    torch.cuda.synchronize()
+    exact_s = (time.perf_counter() - t0) / len(kb)
+    tol = 1e-3 * max(1.0, float(vk_x.abs().max()))
+    errs = _maxerrs(vj_i, vk_i, vj_x, vk_x)
+    log(f"[8c] 2 path points, ISDF band J/K against the exact band path "
+        f"({exact_s:.2f}s a point): " + ", ".join(
+            f"{n} {e:.3e} (scale {sc:.3f})" for n, (e, sc) in errs.items())
+        + f", gate {tol:.1e}")
+    if not all(e <= tol for e, _ in errs.values()):
+        raise RuntimeError("the ISDF band J/K miss the exact band path")
+    # the exact band path at a mesh point is the mesh serve (phase 5c)
+    vj_e, vk_e = _slice_exact_jk(ctx, cell, kpts)
+    dm = _bench_density(cell, kpts)
+    ao1 = pw.ao[1:2]
+    vj_b = pw_jk.get_j_kpts(cell, dm, pw.ao, ao_band=ao1)
+    vk_b = pw_jk.get_k_kpts(cell, dm, pw.ao, kpts, coords=coords,
+                            ao_band=ao1, kpts_band=kpts[1:2],
+                            g0_argmin_thresh=thr)
+    rel = max(float((a[0] - b[1]).abs().max() / b[1].abs().max())
+              for a, b in ((vj_b, vj_e), (vk_b, vk_e)))
+    log(f"[8c] exact band path at mesh point 1 against the mesh serve: "
+        f"{rel:.2e} relative (gate 1e-10)")
+    if not rel <= 1e-10:
+        raise RuntimeError("the exact band path misses the mesh serve")
+    del pw, aob, ao1, mf
+    df.x_k = df.wq = None
+    ctx.pop("slice")
+    torch.cuda.empty_cache()
+
+
+def _h2_box(L, ke=80.0, R=1.4):
+    """H2/STO-3G centred in an L-bohr cube (examples/molecule_in_a_box.py)."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice.cell import Cell
+
+    return Cell(a=np.eye(3) * L, atom=[("H", (L / 2, L / 2, L / 2 - R / 2)),
+                                       ("H", (L / 2, L / 2, L / 2 + R / 2))],
+                basis="sto-3g", pseudo=None, ke_cutoff=ke, unit="bohr",
+                precision=1e-12).build()
+
+
+def _h2_slab(lz, L=8.0, ke=60.0, R=1.4):
+    """The H2 monolayer of tests/test_trunc_scf.py."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice.cell import Cell
+
+    return Cell(a=np.diag([L, L, lz]),
+                atom=[("H", (L / 2 - R / 2, L / 2, lz / 2)),
+                      ("H", (L / 2 + R / 2, L / 2, lz / 2))],
+                basis="sto-3g", pseudo=None, ke_cutoff=ke, unit="bohr",
+                precision=1e-12).build()
+
+
+def _trunc_scf(torch):
+    """(d) SCF-level truncation against the JAX package's energies."""
+    import warnings
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRHF
+
+    refs = json.loads(REFS.read_text())
+    box = refs["trunc_h2_box"]
+    ok = True
+    for L in (9.0, 11.0, 12.5):
+        ref = box[str(L)]
+        cell = _h2_box(L)
+        kpts = cell.get_kpts([1, 1, 1])
+        t0 = time.perf_counter()
+        mf = KRHF(cell, kpts, trunc="0d", verbose=0)
+        e_x = mf.kernel()
+        ok &= mf.converged
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            e_i = {}
+            for label, mask in (("JAX points", ref["mask"]), ("own", None)):
+                df = FFTISDF(cell, kpts, c0=25.0, m0=(15, 15, 15),
+                             verbose=0, trunc="0d").build(mask=mask)
+                mf_i = KRHF(cell, kpts, df, verbose=0)
+                e_i[label] = mf_i.kernel()
+                ok &= mf_i.converged and mf_i.trunc == df.trunc
+        d = (abs(e_x - ref["e_exact"]), abs(e_i["JAX points"] - ref["e_isdf"]),
+             abs(e_i["own"] - e_x))
+        log(f"[8d] H2 box L {L:g} (mesh {[int(m) for m in cell.mesh]}, "
+            f"{time.perf_counter() - t0:.2f}s): exact {e_x:.10f} (JAX |d| "
+            f"{d[0]:.2e}), ISDF on the JAX points {e_i['JAX points']:.10f} "
+            f"(JAX |d| {d[1]:.2e}), own selection {e_i['own']:.10f} (|d| "
+            f"exact {d[2]:.2e}); textbook -1.1167: {e_x + 1.1167:+.2e}")
+        ok &= max(d[:2]) <= 1e-6 and d[2] <= 1e-6
+        ok &= abs(e_x + 1.1167) < 0.011
+    slab = refs["trunc_h2_slab"]
+    es = {}
+    for lz in (12.0, 16.0):
+        cell = _h2_slab(lz)
+        mf = KRHF(cell, cell.get_kpts([1, 1, 1]), trunc="2d", exxdiv="ewald",
+                  verbose=0)
+        es[lz] = mf.kernel()
+        ok &= mf.converged and abs(es[lz] - slab[str(lz)]) <= 1e-6
+        log(f"[8d] H2 monolayer lz {lz:g} trunc {mf.trunc} exxdiv ewald: "
+            f"{es[lz]:.10f} (JAX |d| {abs(es[lz] - slab[str(lz)]):.2e})")
+    dv = abs(es[12.0] - es[16.0])
+    log(f"[8d] monolayer vacuum independence {dv:.2e} (gate 2e-4); "
+        f"textbook -1.1167: {es[12.0] + 1.1167:+.2e}")
+    ok &= dv < 2e-4 and abs(es[12.0] + 1.1167) < 0.011
+    if not ok:
+        raise RuntimeError("SCF-level truncation misses the JAX package")
+
+
+def _tools(torch):
+    """(e) the Gamma-point fit, LS-THC, mo_eri and whiten_basis on the card
+    against the CPU run of the port."""
+    import numpy as np
+    from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
+    from fftisdf_tpu_torch.isdf import FFTISDF, ao2mo, gamma
+    from fftisdf_tpu_torch.isdf.kpoint import _stripe_quartic
+    from fftisdf_tpu_torch.isdf.thc import LSTHC
+    from fftisdf_tpu_torch.lattice import becke
+    from fftisdf_tpu_torch.lattice.cell import Cell
+    from fftisdf_tpu_torch.linalg.solvers import whiten_basis
+
+    # the Gamma-point / global fit on phase 2's diamond, at full rank
+    cell, kpts = _diamond()
+    coords = cell.gen_uniform_grids()
+    rho, rank = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        ao = eval_ao_kpts(cell, coords, kpts, device=dev)
+        xi, mask, rank[dev] = gamma.fit_gamma(ao, nip=256)
+        rho[dev] = torch.stack([gamma.reconstruct_pair(xi, mask, ao[a],
+                                                       ao[b]).cpu()
+                                for a in range(2) for b in range(2)])
+        exact = torch.stack([(ao[a].conj()[:, :, None]
+                              * ao[b][:, None, :]).cpu()
+                             for a in range(2) for b in range(2)])
+        err = float((rho[dev] - exact).abs().max())
+        log(f"[8e] diamond fit_gamma on {dev}: rank {rank[dev]} (< 256, full)"
+            f", pair reconstruction {err:.2e} ({time.perf_counter() - t0:.2f}"
+            "s)")
+        if not (rank[dev] < 256 and err < 1e-10):
+            raise RuntimeError("the Gamma-point fit is not exact at full "
+                               "rank")
+    d = float((rho["cuda"] - rho["cpu"]).abs().max())
+    log(f"[8e] fit_gamma card vs CPU: ranks {rank['cuda']}/{rank['cpu']}, "
+        f"reconstructions {d:.2e}")
+    if not (rank["cuda"] == rank["cpu"] and d < 2e-10):
+        raise RuntimeError("fit_gamma differs between card and CPU")
+
+    # LS-THC on He2 (tests/test_thc_ao2mo.py), uniform and Becke grids
+    def he2(a=(5.0, 5.0, 7.0), mesh=(9, 9, 11)):
+        return Cell(a=np.diag(a), atom=[("He", (a[0] / 2, a[1] / 2, 2.0)),
+                                        ("He", (a[0] / 2, a[1] / 2, 4.5))],
+                    basis="sto-3g", pseudo=None, mesh=np.array(mesh),
+                    unit="bohr", precision=1e-12).build()
+
+    for mode, gate in (("uniform", 1e-7), ("becke", 5e-5)):
+        cell = he2(**(dict(a=(7.0, 7.0, 8.0), mesh=(11, 11, 13))
+                      if mode == "becke" else {}))
+        kpts = cell.get_kpts([1, 1, 2])
+        grids = (becke.AtomCenteredGrids(cell, level=0).build()
+                 if mode == "becke" else None)
+        rep = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            thc = LSTHC(cell, kpts, verbose=0, grids=grids,
+                        device=dev).build()
+            rep[dev] = np.array([r[2] for r in thc.error_report()])
+            log(f"[8e] LS-THC {mode} on {dev}: nip {len(thc.mask)}, max "
+                f"cderi error {rep[dev].max():.2e} (gate {gate:.0e}), "
+                f"{time.perf_counter() - t0:.2f}s")
+        if not (rep["cuda"].max() < gate and rep["cpu"].max() < gate):
+            raise RuntimeError(f"LS-THC ({mode}) misses its gate")
+
+    # mo_eri and whiten_basis on the full-rank He2 build
+    cell = he2()
+    kpts = cell.get_kpts([1, 1, 2])
+    rng = np.random.default_rng(0)
+    nao = cell.nao_nr()
+    cs = [rng.standard_normal((nao, 2)) + 1j * rng.standard_normal((nao, 2))
+          for _ in range(4)]
+    kidx = (0, 1, 1, 0)
+    out, mask = {}, None
+    for dev in ("cuda", "cpu"):
+        df = FFTISDF(cell, kpts, c0=50.0, m0=tuple(cell.mesh), verbose=0,
+                     select_tol=1e-20, rcond=1e-13, device=dev).build(
+                         mask=mask)
+        mask = df.mask
+        eri_mo = ao2mo.mo_eri(df, cs, kidx).cpu().numpy()
+        eri_ao = df.get_eri(kidx).cpu().numpy()
+        ref = np.einsum("mnkl,mi,nj,kx,ly->ijxy", eri_ao, cs[0].conj(),
+                        cs[1], cs[2].conj(), cs[3])
+        d_rot = float(np.abs(eri_mo - ref).max())
+        phase = torch.as_tensor(df.phase, dtype=df.x_k.dtype,
+                                device=df.device)
+        x4 = _stripe_quartic(df.x_k, phase)
+        _, scale = whiten_basis(df.x_k, x4)
+        w, v = torch.linalg.eigh(x4)
+        a_rot = v.mH @ x4 @ v
+        off = float((a_rot - torch.diag_embed(torch.diagonal(
+            a_rot, dim1=-2, dim2=-1))).abs().max() / a_rot.abs().max())
+        sc = scale.cpu().numpy()
+        out[dev] = (eri_mo, np.where(sc > 0, 1.0 / np.where(sc > 0, sc, 1.0),
+                                     0.0))
+        log(f"[8e] He2 full rank on {dev}: nip {df.nip}; mo_eri against "
+            f"get_eri rotated to MOs {d_rot:.2e}; whiten_basis: {df.nkpt} "
+            f"sectors, kept {int((scale > 0).sum())} directions, "
+            f"off-diagonal {off:.2e} of the rotated metric")
+        if not (d_rot < 1e-10 and off < 1e-12):
+            raise RuntimeError("mo_eri or whiten_basis is off")
+    d_eri = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    # the kept eigenvalues 1/scale, to eigh roundoff of the largest
+    w_c, w_g = out["cpu"][1], out["cuda"][1]
+    same_kept = np.array_equal(w_c > 0, w_g > 0)
+    d_w = float(np.abs(w_g - w_c).max() / np.abs(w_c).max())
+    log(f"[8e] card vs CPU: mo_eri {d_eri:.2e}, whiten_basis kept "
+        f"eigenvalues {d_w:.2e} of the largest, kept directions equal "
+        f"{same_kept}")
+    if not (d_eri < 1e-10 and same_kept and d_w < 1e-12):
+        raise RuntimeError("mo_eri or whiten_basis differs between card "
+                           "and CPU")
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
     only = None
     if len(sys.argv) > 1:
         only = {int(p) for p in sys.argv[1].split(",")}
+        if 8 in only:                   # phase 8 serves phases 4/6's state
+            only |= {4, 6}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
-    ctx = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _run(torch, run, only, t_all, {"tmp": tmp})
+
+
+def _run(torch, run, only, t_all, ctx):
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
 
     def timed(p, fn, *args):
         if not run(p):
@@ -1079,6 +1568,11 @@ def main():
     timed(5, phase5_exact, ctx)
     prod_launches = timed(6, phase6_device_scf, ctx) or 0
     f32_launches = timed(7, phase7_every_way, ctx) or 0
+    pair_gram_sq.launches = 0
+    timed(8, phase8_rest, ctx)
+    rest_launches = pair_gram_sq.launches
+    if run(8) and rest_launches < 1:
+        raise RuntimeError("phase 8's builds did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -1089,7 +1583,7 @@ def main():
     kernels = {"kernels": [
         {"name": "pair_gram_sq", **common, "dtype": "complex128",
          "launches": launches, "production_launches": prod_launches,
-         **k1["complex128"]},
+         "phase8_launches": rest_launches, **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},
     ]}

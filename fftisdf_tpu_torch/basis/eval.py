@@ -27,6 +27,9 @@ import torch
 from fftisdf_tpu_torch import native
 from fftisdf_tpu_torch.basis.gto import (normalized_coeffs,
                                          real_solid_harmonics, shell_rcut)
+
+# the constant S_00 of real_solid_harmonics
+_S00 = float(real_solid_harmonics(np.ones(()), None, None, 0, np)[0])
 from fftisdf_tpu_torch.utils.device import real_complex, resolve_device
 
 # per-block budget of the chi / distance temporaries
@@ -117,24 +120,34 @@ def _group_by_center(cell, table):
             for key in order]
 
 
-def _group_chi(coords, group_specs, centers):
+def _group_chi(coords, group_specs, group_exps, centers):
     """chi values of all shells of a center group: (ng, nT, nfunc) real.
 
-    ``group_specs`` holds (l, rpow, nfunc, exps, coeffs) with the arrays as
-    tensors on the coordinates' device."""
-    d = coords[:, None, :] - centers[None, :, :]          # (g, T, 3)
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    r2 = dx * dx + dy * dy + dz * dz                      # (g, T)
-    feats = []
-    for l, rpow, nfunc, exps, coeffs in group_specs:
-        rad = torch.exp(-r2[..., None] * exps) @ coeffs   # (g, T, nctr)
+    ``group_exps`` holds the group's distinct exponent sets and
+    ``group_specs`` (l, rpow, nfunc, exps index, coeffs), the arrays as
+    tensors on the coordinates' device: the shells of one basis set share
+    their exponents, so each set's Gaussians are evaluated once."""
+    dx, dy, dz = (coords[:, None, i] - centers[None, :, i]
+                  for i in range(3))                      # (g, T) each
+    r2 = dx * dx + dy * dy + dz * dz
+    gauss = [torch.mul(r2[..., None], -exps).exp_() for exps in group_exps]
+    nfunc_all = sum(spec[2] for spec in group_specs)
+    out = torch.empty(r2.shape + (nfunc_all,), dtype=r2.dtype,
+                      device=r2.device)
+    f0 = 0
+    for l, rpow, nfunc, iexp, coeffs in group_specs:
+        rad = gauss[iexp] @ coeffs                        # (g, T, nctr)
         for _ in range(rpow):
             rad = rad * r2[..., None]
-        ang = torch.stack(real_solid_harmonics(dx, dy, dz, l, torch),
-                          dim=-1)                         # (g, T, 2l+1)
-        chi = rad[..., None, :] * ang[..., :, None]       # (g,T,2l+1,nctr)
-        feats.append(chi.reshape(r2.shape + (nfunc,)))
-    return torch.cat(feats, dim=-1)
+        chi = out[..., f0:f0 + nfunc].view(r2.shape + (2 * l + 1, -1))
+        if l == 0:                      # S_00 is a constant
+            torch.mul(rad, _S00, out=chi[..., 0, :])
+        else:
+            for m, ang in enumerate(real_solid_harmonics(dx, dy, dz, l,
+                                                         torch)):
+                torch.mul(rad, ang[..., None], out=chi[..., m, :])
+        f0 += nfunc
+    return out
 
 
 class Evaluator:
@@ -160,15 +173,21 @@ class Evaluator:
         self.groups = []
         self.max_chi_row = 1
         for g in groups:
-            specs = [(s.l, s.rpow, s.nfunc, t(s.exps), t(s.coeffs))
-                     for s in g.specs]
+            exps, specs = [], []
+            for s in g.specs:
+                iexp = next((i for i, e in enumerate(exps)
+                             if np.array_equal(e, s.exps)), len(exps))
+                if iexp == len(exps):
+                    exps.append(s.exps)
+                specs.append((s.l, s.rpow, s.nfunc, iexp, t(s.coeffs)))
+            exps = [t(e) for e in exps]
             centers = t(g.center[None, :] + g.images)
             if self.gamma:
                 ph = None
             else:
                 ang = np.asarray(g.images) @ np.asarray(kpts).T   # (T, nk)
                 ph = (t(np.cos(ang)), t(np.sin(ang)))
-            self.groups.append((specs, centers, ph))
+            self.groups.append((specs, exps, centers, ph))
             nprim = max(len(s.exps) for s in g.specs)
             self.max_chi_row = max(
                 self.max_chi_row, len(g.images) * (g.nfunc + nprim + 8))
@@ -184,8 +203,8 @@ class Evaluator:
         tvec = torch.floor(coords @ self.ainv) @ self.a
         coords0 = coords - tvec
         blocks = []
-        for specs, centers, ph in self.groups:
-            chi = _group_chi(coords0, specs, centers)     # (g, T, f)
+        for specs, exps, centers, ph in self.groups:
+            chi = _group_chi(coords0, specs, exps, centers)   # (g, T, f)
             if self.gamma:
                 blocks.append(chi.sum(dim=1))
                 continue
@@ -237,4 +256,11 @@ def eval_ao_kpts(cell, coords, kpts, precision=None, dtype=None, *,
                  device="cuda"):
     """One-shot evaluation: (nk, ng, nao) complex Bloch AOs."""
     return make_evaluator(cell, kpts=kpts, precision=precision, dtype=dtype,
+                          device=device)(coords)
+
+
+def eval_ao_gamma(cell, coords, precision=None, dtype=None, *,
+                  device="cuda"):
+    """Gamma-point (real) AO values: (ng, nao)."""
+    return make_evaluator(cell, kpts=None, precision=precision, dtype=dtype,
                           device=device)(coords)

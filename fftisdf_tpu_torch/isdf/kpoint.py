@@ -19,14 +19,17 @@ Coulomb metrics, which determine J and K.
   Coulomb kernel (bare, range-separated or truncated) and the gram
   ``h h^H``.  Non-canonical sectors are conjugate mirrors.
 - Serve: J/K with ``exxdiv=None`` or ``'ewald'`` (the Madelung probe-charge
-  correction), with ``omega`` from a screened metric over the same
-  interpolation basis, and ERIs of momentum-conserving k quadruples.
+  correction, of the truncated kernel when there is one), with ``omega``
+  from a screened metric over the same interpolation basis, at band
+  k-points (``kpts_band``: per-pair re-fits, ``isdf.bands``), and ERIs of
+  momentum-conserving k quadruples.
 
 Everything runs in the build ``dtype``: float64 (the default on every
 device) or float32 (the JAX package's accelerator default).
 
-Not ported (``NotImplementedError``): band k-points (``kpts_band``), and
-``exxdiv`` with a truncated or screened kernel.
+``NotImplementedError``, as in the JAX package: ``exxdiv`` with ``omega``,
+``omega`` with ``kpts_band``, and ``exxdiv`` with ``kpts_band`` (the SCF
+layer applies that correction itself, at mesh points).
 """
 from __future__ import annotations
 
@@ -805,24 +808,34 @@ class FFTISDF:
         for ``dm_kpts`` (nk, nao, nao) or (nset, nk, nao, nao); ``None``
         for a skipped part.  ``exxdiv='ewald'`` adds the Madelung
         probe-charge term to vk; ``omega`` serves from the screened metric
-        of :meth:`get_wq_omega`."""
-        if kpts_band is not None:
-            raise NotImplementedError("band k-points (kpts_band)")
+        of :meth:`get_wq_omega`; ``kpts_band`` (nb, 3) serves J/K at those
+        k-points from the product state (:func:`isdf.bands.get_jk_bands`),
+        (nb, nao, nao) per set."""
         if omega is not None and float(omega) != 0.0:
             if exxdiv is not None:
                 raise NotImplementedError(
                     "exxdiv with omega: the probe-charge Madelung constant "
                     "of a screened kernel differs from the bare one")
+            if kpts_band is not None:
+                raise NotImplementedError("omega with kpts_band")
             return self._get_jk_metric(
                 dm_kpts, self.get_wq_omega(omega),
                 self.get_ws_omega(omega) if with_k else None,
                 with_j=with_j, with_k=with_k)[:2]
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
-        if exxdiv == "ewald" and self.trunc is not None:
-            raise NotImplementedError(
-                "exxdiv with a truncated kernel: its probe-charge constant "
-                "(madelung_trunc) belongs to SCF-level truncation")
+        if kpts_band is not None:
+            if exxdiv is not None:
+                raise NotImplementedError(
+                    "exxdiv with kpts_band: the Madelung correction needs "
+                    "the density at the band point (mesh points only); the "
+                    "SCF layer applies it (scf.hf)")
+            from fftisdf_tpu_torch.isdf.bands import get_jk_bands
+
+            if self.x_k is None:
+                raise RuntimeError("call build() first")
+            return get_jk_bands(self, dm_kpts, kpts_band, with_j=with_j,
+                                with_k=with_k)
         vj, vk, dm = self._get_jk_metric(
             dm_kpts, self.wq, self.get_ws() if with_k else None,
             with_j=with_j, with_k=with_k)
@@ -852,11 +865,17 @@ class FFTISDF:
         return vj, vk, dm
 
     def madelung(self):
-        """Probe-charge Madelung constant of the BvK supercell (cached)."""
+        """Probe-charge Madelung constant of the BvK supercell (cached);
+        with a truncated kernel the Riemann-sum-vs-integral defect of that
+        kernel (``scf.integrals.madelung_trunc``, exactly 0 for 0d)."""
         if self._madelung is None:
-            from fftisdf_tpu_torch.scf.integrals import madelung
+            from fftisdf_tpu_torch.scf.integrals import (madelung,
+                                                         madelung_trunc)
 
-            self._madelung = madelung(self.cell, self.kmesh)
+            self._madelung = (
+                madelung_trunc(self.cell, self.kmesh, self.trunc)
+                if self.trunc is not None
+                else madelung(self.cell, self.kmesh))
         return self._madelung
 
     def get_ovlp(self):

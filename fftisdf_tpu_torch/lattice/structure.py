@@ -55,6 +55,26 @@ def read_poscar(path: str):
         return parse_poscar(fh.read())
 
 
+def format_poscar(lattice, atoms, comment="fftisdf_tpu") -> str:
+    """Inverse of parse_poscar (Cartesian coordinates, Angstrom)."""
+    syms = []
+    for s, _ in atoms:
+        if s not in syms:
+            syms.append(s)
+    counts = [sum(1 for s, _ in atoms if s == sym) for sym in syms]
+    out = [comment, "1.0"]
+    for row in np.asarray(lattice):
+        out.append("  %.10f %.10f %.10f" % tuple(row))
+    out.append(" ".join(syms))
+    out.append(" ".join(str(c) for c in counts))
+    out.append("Cartesian")
+    for sym in syms:
+        for s, xyz in atoms:
+            if s == sym:
+                out.append("  %.10f %.10f %.10f" % tuple(xyz))
+    return "\n".join(out) + "\n"
+
+
 # ------------------------------------------------------------ constructors
 
 def bulk_diamond(symbol="C", a=3.567):

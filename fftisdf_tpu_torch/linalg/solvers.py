@@ -282,3 +282,21 @@ def solve_fitting(a, b, method="ridge", rcond=1e-10, rank=None,
         a, method=method, rcond=rcond, rank=rank,
         precondition=precondition, refine=refine)
     return apply_inv(b), rank_out
+
+
+def whiten_basis(x_k, x4_k, rcond=1e-10):
+    """Rotate the interpolation vectors into the eigenbasis of each
+    sector's normal matrix (the reference's SVD-whitening variant,
+    ``fftdf-with-k-svd-backup.py:84-105``), so that the fitting solve of
+    sector q becomes the diagonal scaling ``z_q = scale[q][:, None] *
+    y_rot_q^T`` of the linearly rotated RHS ``y_rot_q = y_q v_q``.
+
+    x_k (nk, nip, nao), x4_k (nk, nip, nip).  Returns (x_rot (nk, nip,
+    nao), scale (nk, nip)): 1/w on the eigenvalues above ``rcond`` times
+    the sector's largest, 0 elsewhere."""
+    w, v = torch.linalg.eigh(x4_k)                   # batched over sectors
+    keep = w > rcond * w.max(dim=-1, keepdim=True).values
+    winv = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)),
+                       torch.zeros_like(w))
+    x_rot = v.conj().transpose(-1, -2) @ x_k          # kJm = sum_I v*_IJ x_Im
+    return x_rot, winv

@@ -1,7 +1,10 @@
-"""Mulliken populations of a converged k-point SCF state (host numpy).
+"""Population analysis of converged k-point SCF states (host numpy).
 
-Counterpart of the Mulliken part of ``fftisdf_tpu/scf/analysis.py``: the
-local spin moments are the observable of the NiO AFM slice.
+Counterpart of ``fftisdf_tpu/scf/analysis.py``: Mulliken populations
+(Re diag(D S)), k-averaged and resolved per atom, the local spin moments
+and charge transfer of the NiO AFM slice.  The Loewdin scheme needs the
+S^1/2 of ``scf/hubbard.py``, which the port does not have yet; asking for
+it raises.
 """
 from __future__ import annotations
 
@@ -10,24 +13,64 @@ import numpy as np
 from fftisdf_tpu_torch.basis import data as basis_data
 
 
-def atom_charges_and_moments(cell, dm, s1e):
-    """Per-atom (charges, spin moments) from Re diag(D S), k-averaged.
-
-    ``dm`` is (nk, nao, nao) restricted or (2, nk, nao, nao); charge =
-    Z_eff - n_atom, moment = n_alpha - n_beta (zero for restricted)."""
-    dm = np.asarray(dm)
-    s1e = np.asarray(s1e)
-    dms = dm if dm.ndim == 4 else dm[None]
-    pop = np.einsum("skmn,knm->sm", dms, s1e).real / s1e.shape[0]
-    charges, moments = [], []
+def _atom_offsets(cell):
+    """[(symbol, offset, nfunc), ...] in the package AO layout."""
+    out = []
     off = 0
     for sym, _ in cell.atom:
         nfa = sum(sh.nfunc for sh in cell._basis[sym])
-        n_s = pop[:, off:off + nfa].sum(axis=1)
+        out.append((sym, off, nfa))
         off += nfa
+    return out
+
+
+def ao_populations(cell, dm, s1e, scheme="mulliken"):
+    """Per-AO populations (nspin, nao), k-averaged.
+
+    ``dm`` is (nk, nao, nao) restricted (one channel holding the total
+    population) or (2, nk, nao, nao).  ``scheme``: 'mulliken'
+    (Re diag(D S)); 'loewdin' is not ported (it needs scf.hubbard's
+    S^1/2)."""
+    dm = np.asarray(dm)
+    s1e = np.asarray(s1e)
+    dms = dm if dm.ndim == 4 else dm[None]
+    if scheme == "mulliken":
+        return np.einsum("skmn,knm->sm", dms, s1e).real / s1e.shape[0]
+    if scheme == "loewdin":
+        raise NotImplementedError(
+            "Loewdin populations need scf.hubbard.shalf_kpts, which the "
+            "port does not have yet")
+    raise ValueError(f"unknown population scheme {scheme!r}")
+
+
+def atom_charges_and_moments(cell, dm, s1e, scheme="mulliken"):
+    """Per-atom (charges, spin moments) from a converged density.
+
+    charge = Z_eff - n_atom (Z_eff from the pseudopotential when present),
+    moment = n_alpha - n_beta (zero for restricted input); two (natm,)
+    arrays aligned with ``cell.atom``."""
+    pop = ao_populations(cell, dm, s1e, scheme=scheme)
+    spin_resolved = pop.shape[0] == 2
+    charges, moments = [], []
+    for sym, off, nfa in _atom_offsets(cell):
+        n_s = pop[:, off:off + nfa].sum(axis=1)
         ps = cell._pseudo.get(sym)
         z = (float(ps.zion) if ps is not None else float(
             basis_data.ATOMIC_NUMBER[basis_data.element_symbol(sym)]))
         charges.append(z - n_s.sum())
-        moments.append(n_s[0] - n_s[1] if dm.ndim == 4 else 0.0)
+        moments.append(n_s[0] - n_s[1] if spin_resolved else 0.0)
     return np.asarray(charges), np.asarray(moments)
+
+
+def mulliken(mf, scheme="mulliken", log=True):
+    """Population analysis of a converged SCF driver: (charges (natm,),
+    moments (natm,)), printed per atom when ``log``."""
+    if getattr(mf, "dm", None) is None:
+        raise ValueError("run mf.kernel() first")
+    charges, moments = atom_charges_and_moments(mf.cell, mf.dm, mf.s1e,
+                                                scheme=scheme)
+    if log:
+        print(f"{scheme} analysis:")
+        for (sym, _), q, m in zip(mf.cell.atom, charges, moments):
+            print(f"  {sym:4s} charge {q:+.4f}  moment {m:+.4f}")
+    return charges, moments

@@ -12,10 +12,13 @@ in complex128 (``scf.device`` keeps it on the card).  ``exxdiv`` is None
 integrals and of a default :class:`PWDF`; the overlap cutoff of the
 canonical orthogonalisation follows it (1e-10 / 2e-6).
 
-Not ported: band structures, checkpoints, and SCF-level Coulomb truncation
-(``trunc`` on the SCF classes: the truncated local pseudopotential, Ewald
-sum and Madelung constant); :class:`PWDF` itself serves truncated and
-range-separated J/K.
+``trunc`` (or a truncated ``with_df``, whose truncation is adopted and
+must agree) truncates J/K, the electron-ion and the ion-ion interaction
+alike: an isolated molecule (0d) or slab (2d) in a periodic box.  Band
+energies at any k-points come from the converged density
+(:meth:`KRHF.get_bands`: served from the ISDF product state, or by the
+exact plane-wave band path), and a driver checkpoints to one ``.npz``
+(:meth:`KRHF.save`, :meth:`KRHF.load_chk`) in the JAX package's format.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
 from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
                                             real_complex, resolve_device,
                                             to_numpy)
+from fftisdf_tpu_torch.utils import serialization
 from fftisdf_tpu_torch.utils.logging import Logger
 
 
@@ -62,10 +66,9 @@ class PWDF:
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
         omega = float(omega or 0.0)
-        if exxdiv is not None and (omega != 0.0 or self.trunc is not None):
-            # a range-separated kernel has no q+G = 0 divergence to
-            # correct; a truncated one needs its own probe-charge constant
-            raise NotImplementedError("exxdiv with omega or trunc")
+        if exxdiv is not None and omega != 0.0:
+            # a range-separated kernel has no q+G = 0 divergence to correct
+            raise NotImplementedError("exxdiv with omega")
         dm = as_tensor(dm, self.device, self.ao.dtype)
         if dm.ndim == 4:                                  # spin/set axis
             out = [self.get_jk(d, with_j, with_k, exxdiv, omega=omega)
@@ -80,7 +83,12 @@ class PWDF:
         if exxdiv == "ewald" and with_k:
             if self._madelung is None:
                 kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
-                self._madelung = integrals.madelung(self.cell, kmesh)
+                # a truncated kernel drops nothing at q+G = 0: its constant
+                # is the kernel's Riemann-sum-vs-integral defect (0 for 0d)
+                self._madelung = (
+                    integrals.madelung_trunc(self.cell, kmesh, self.trunc)
+                    if self.trunc is not None
+                    else integrals.madelung(self.cell, kmesh))
                 self._s1e = integrals.get_ovlp(self.cell, self.ao)
             vk = add_ewald_exx(vk, self._s1e, dm, self._madelung)
         return vj, vk
@@ -137,11 +145,12 @@ def _build_dm(mo_coeff, mo_occ):
     return np.einsum("kmi,ki,kni->kmn", mo_coeff, mo_occ, mo_coeff.conj())
 
 
-def _setup_one_electron(cell, kpts, device, log, dtype=None):
+def _setup_one_electron(cell, kpts, device, log, dtype=None, trunc=None):
     """(s1e, h1e) on the host in complex128, from AO tensors built on
     ``device`` in ``dtype``, in k-chunks sized from its free memory: the
     full-grid AO tensor of one k plus the kinetic FFT planes and the
-    projector values cost about ngrid (3 nao + nproj) complex numbers."""
+    projector values cost about ngrid (3 nao + nproj) complex numbers.
+    ``trunc``: the truncated local pseudopotential."""
     rdt, cdt = real_complex(dtype)
     coords = cell.gen_uniform_grids()
     ng = coords.shape[0]
@@ -151,7 +160,8 @@ def _setup_one_electron(cell, kpts, device, log, dtype=None):
     per_k = ng * (3 * nao + nproj) * cdt.itemsize
     kchunk = int(max(1, min(nk, 0.5 * free_memory_bytes(device) // per_k)))
     coords_t = torch.as_tensor(coords, dtype=rdt, device=device)
-    vgrid = integrals.vloc_on_grid(cell, dtype=rdt, device=device)
+    vgrid = integrals.vloc_on_grid(cell, trunc=trunc, dtype=rdt,
+                                   device=device)
     s_parts, h_parts = [], []
     for k0 in range(0, nk, kchunk):
         kp = kpts[k0:k0 + kchunk]
@@ -176,7 +186,10 @@ class KRHF:
     (float64 when None); ``ovlp_cutoff`` None is 1e-10 for float64
     integrals and 2e-6 for float32 ones, whose quadrature noise in
     near-null overlap directions would otherwise be amplified; ``exxdiv``
-    None or ``'ewald'`` is passed to the provider."""
+    None or ``'ewald'`` is passed to the provider.  ``trunc`` ('0d' | '2d'
+    | (kind, rc)) truncates J/K, the local pseudopotential and the ion-ion
+    energy; it is adopted from ``with_df`` when that carries one, and must
+    agree with it otherwise."""
 
     def __init__(self, cell, kpts, with_df=None, max_cycle=50, conv_tol=1e-8,
                  diis_space=8, adiis_switch=1e-2, exxdiv=None,
@@ -185,10 +198,18 @@ class KRHF:
                  dtype=None, verbose=3, *, device="cuda"):
         if exxdiv not in (None, "ewald"):
             raise NotImplementedError(f"exxdiv={exxdiv!r} not supported")
-        if trunc is not None or getattr(with_df, "trunc", None) is not None:
-            raise NotImplementedError(
-                "SCF-level Coulomb truncation: the truncated local "
-                "pseudopotential, Ewald sum and Madelung constant")
+        # the metric the provider serves must match hcore and e_nuc
+        if isinstance(trunc, str):
+            trunc = trunc_for_cell(cell, trunc)
+        df_trunc = getattr(with_df, "trunc", None)
+        if trunc is None:
+            trunc = df_trunc
+        elif df_trunc is not None and (
+                df_trunc[0] != trunc[0]
+                or abs(df_trunc[1] - trunc[1]) > 1e-10):
+            raise ValueError(f"with_df truncation {df_trunc} != SCF "
+                             f"truncation {trunc}")
+        self.trunc = trunc
         self.device = resolve_device(device)
         self.dtype = real_complex(dtype)[0]
         if ovlp_cutoff is None:
@@ -217,11 +238,41 @@ class KRHF:
         self.cycles = 0
         self.cycle_seconds = []
         self.s1e, self.h1e = _setup_one_electron(
-            cell, self.kpts, self.device, self._log, dtype=self.dtype)
-        self.e_nuc = integrals.ewald(cell)
+            cell, self.kpts, self.device, self._log, dtype=self.dtype,
+            trunc=trunc)
+        self.e_nuc = (integrals.energy_nuc_trunc(cell, trunc)
+                      if trunc is not None else integrals.ewald(cell))
         if self.with_df is None:
             self.with_df = PWDF(cell, self.kpts, dtype=self.dtype,
-                                device=self.device)
+                                trunc=trunc, device=self.device)
+        self._ao = None
+
+    def _get_ao(self):
+        """Full-grid AO tensor (nk, ngrid, nao) on ``device``, built at the
+        first call (the exact band path needs it; the ISDF path never
+        does): a :class:`PWDF` provider's own tensor when it has the
+        driver's precision."""
+        if self._ao is None:
+            ao = getattr(self.with_df, "ao", None)
+            if (isinstance(self.with_df, PWDF)
+                    and ao.dtype == real_complex(self.dtype)[1]):
+                self._ao = ao
+            else:
+                self._ao = make_evaluator(
+                    self.cell, kpts=self.kpts, dtype=self.dtype,
+                    device=self.device)(self.cell.gen_uniform_grids())
+        return self._ao
+
+    def save(self, path):
+        """Checkpoint the SCF state (density, orbitals, energies) to one
+        ``.npz`` (``utils.serialization.save_scf``)."""
+        return serialization.save_scf(path, self)
+
+    def load_chk(self, path):
+        """The density of a checkpoint, its geometry checked against this
+        driver's: ``mf.kernel(dm0=mf.load_chk(path))``."""
+        return serialization.load_scf(path, cell=self.cell,
+                                      kpts=self.kpts)["dm"]
 
     @property
     def nocc(self):
@@ -315,6 +366,83 @@ class KRHF:
         self.mo_occ = np.asarray(occs)
         self.dm = dm
         return self.e_tot
+
+    # --------------------------------------------------------------
+    def _band_ingredients(self, kpts_band, dm):
+        """(s1e_b, h1e_b, vj_b, vk_b) at band k-points from the mesh
+        density, on the host in complex128.
+
+        An ISDF provider serves band J/K from its product state
+        (``isdf.bands``); otherwise the exact plane-wave band path runs
+        (one Poisson solve for the k-independent Hartree potential, the
+        (band, mesh) pair sweep for exchange, dropping exactly the
+        argmin-|q+G|^2 sample strictly inside the minimum q-lattice plane
+        spacing).  With ``exxdiv='ewald'`` the probe-charge term needs the
+        density at the band point, so it exists at mesh points only:
+        off-mesh points raise ``ValueError``."""
+        from fftisdf_tpu_torch.isdf.bands import _qlat_dmin2
+
+        cell = self.cell
+        kpts_band = np.asarray(kpts_band, dtype=np.float64).reshape(-1, 3)
+        coords = cell.gen_uniform_grids()
+        aob = make_evaluator(cell, kpts=kpts_band, dtype=self.dtype,
+                             device=self.device)(coords)
+        s1e_b = integrals.get_ovlp(cell, aob)
+        h1e_b = integrals.get_hcore(cell, aob, kpts_band, coords,
+                                    trunc=self.trunc)
+        kmesh = kpt_mod.kpts_to_kmesh(cell, self.kpts)
+        if getattr(self.with_df, "wq", None) is not None:
+            vj_b, vk_b = self.with_df.get_jk(dm, kpts_band=kpts_band)
+        else:
+            ao = self._get_ao()
+            dmt = as_tensor(dm, ao.device, ao.dtype)
+            dms = dmt if dmt.ndim == 4 else dmt[None]
+            vj_b = torch.stack([pw_jk.get_j_kpts(cell, d, ao, ao_band=aob,
+                                                 trunc=self.trunc)
+                                for d in dms])
+            vk_b = torch.stack([
+                pw_jk.get_k_kpts(cell, d, ao, self.kpts, coords=coords,
+                                 ao_band=aob, kpts_band=kpts_band,
+                                 g0_argmin_thresh=_qlat_dmin2(cell, kmesh),
+                                 trunc=self.trunc) for d in dms])
+            if dmt.ndim == 3:
+                vj_b, vk_b = vj_b[0], vk_b[0]
+        if self.exxdiv == "ewald":
+            scaled = cell.get_scaled_kpts(kpts_band)
+            smesh = cell.get_scaled_kpts(self.kpts)
+            idx = [kpt_mod.member(sb, smesh, strict=False) for sb in scaled]
+            if any(i < 0 for i in idx):
+                raise ValueError(
+                    "exxdiv='ewald' band energies are defined only at the "
+                    "SCF mesh k-points; run get_bands with exxdiv=None "
+                    "(set self.exxdiv = None after the SCF) for off-mesh "
+                    "paths")
+            mad = (integrals.madelung_trunc(cell, kmesh, self.trunc)
+                   if self.trunc is not None
+                   else integrals.madelung(cell, kmesh))
+            dmb = as_tensor(np.asarray(dm)[..., idx, :, :], vk_b.device,
+                            vk_b.dtype)
+            vk_b = add_ewald_exx(vk_b, s1e_b.to(vk_b.device, vk_b.dtype),
+                                 dmb, mad)
+        host = lambda t: to_numpy(t).astype(np.complex128, copy=False)
+        return host(s1e_b), host(h1e_b), host(vj_b), host(vk_b)
+
+    def get_bands(self, kpts_band, dm=None):
+        """Band energies and orbitals at arbitrary k-points from the
+        converged density: F(kb) = hcore(kb) + J(kb) - K(kb)/2, one
+        generalised eigensolve per point.  Returns (mo_energy list,
+        mo_coeff list)."""
+        dm = self.dm if dm is None else np.asarray(dm)
+        if dm is None:
+            raise ValueError("run kernel() first or pass dm")
+        s1e_b, h1e_b, vj_b, vk_b = self._band_ingredients(kpts_band, dm)
+        fock = h1e_b + vj_b - 0.5 * vk_b
+        es, cs = [], []
+        for kb in range(fock.shape[0]):
+            e, c = _eigh_gen(fock[kb], s1e_b[kb], cutoff=self.ovlp_cutoff)
+            es.append(e)
+            cs.append(c)
+        return es, cs
 
 
 class KUHF(KRHF):
@@ -484,3 +612,25 @@ class KUHF(KRHF):
         self.mo_occ = np.asarray(occs)
         self.dm = dm
         return self.e_tot
+
+    def get_bands(self, kpts_band, dm=None):
+        """Per-spin band energies and orbitals at arbitrary k-points:
+        F_s(kb) = hcore(kb) + J_tot(kb) - K_s(kb).  Returns (mo_energy
+        [2][nb] lists, mo_coeff [2][nb] lists)."""
+        dm = self.dm if dm is None else np.asarray(dm)
+        if dm is None:
+            raise ValueError("run kernel() first or pass dm")
+        s1e_b, h1e_b, vj_b, vk_b = self._band_ingredients(kpts_band, dm)
+        vj_tot = vj_b[0] + vj_b[1]
+        es, cs = [], []
+        for s in range(2):
+            fock = h1e_b + vj_tot - vk_b[s]
+            es_s, cs_s = [], []
+            for kb in range(fock.shape[0]):
+                e, c = _eigh_gen(fock[kb], s1e_b[kb],
+                                 cutoff=self.ovlp_cutoff)
+                es_s.append(e)
+                cs_s.append(c)
+            es.append(es_s)
+            cs.append(cs_s)
+        return es, cs

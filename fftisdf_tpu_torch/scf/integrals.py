@@ -14,10 +14,16 @@ Counterpart of the main-path part of ``fftisdf_tpu/scf/integrals.py``:
 - Madelung    the probe-charge constant of the exchange's q+G = 0 term
 - S_k        streamed over grid blocks (:func:`get_ovlp_kpts`)
 
+SCF-level Coulomb truncation (``trunc``, the ``linalg.coulomb``
+convention): the truncated local pseudopotential (:func:`vloc_on_grid`),
+the ion-ion energy through the truncated kernel
+(:func:`energy_nuc_trunc`: a direct sum for 0d, Ewald plus the exact
+difference-kernel sum for 2d) and the probe-charge constant of the
+truncated kernel (:func:`madelung_trunc`).  The Ewald-type sums run on the
+host in numpy, as in the JAX package.
+
 AO tensors are (nk, ngrid, nao) complex128 or complex64 on any device;
-results stay on that device, in that precision.  The truncated local
-pseudopotential, Ewald sum and Madelung constant (SCF-level truncation) are
-not ported.
+results stay on that device, in that precision.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from fftisdf_tpu_torch import native
 from fftisdf_tpu_torch.basis import data as basis_data
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.lattice.cell import Shell
+from fftisdf_tpu_torch.linalg.coulomb import coulG_np
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
 from fftisdf_tpu_torch.utils.device import (free_memory_bytes, real_complex,
                                             resolve_device)
@@ -90,32 +97,54 @@ def gth_vloc_G0(pseudo):
             * (c[0] + 3.0 * c[1] + 15.0 * c[2] + 105.0 * c[3]))
 
 
-def vloc_on_grid(cell, dtype=None, *, device="cuda"):
+def vloc_on_grid(cell, trunc=None, dtype=None, *, device="cuda"):
     """Total local pseudopotential on the FFT grid: real (ngrid,) of
-    ``dtype``.  The form factors are summed on the host in float64."""
+    ``dtype``.  The form factors are summed on the host in float64.
+
+    ``trunc``: the Coulomb tail of the electron-ion interaction goes
+    through the truncated kernel v_trunc.  For a point nucleus v(G) =
+    -Z v_trunc(G); a GTH local part is a Gaussian charge (width rloc)
+    times 1/r plus short-range Gaussians, so its truncated form is the
+    non-Coulomb rest plus -Z e^{-G^2 rloc^2/2} v_trunc(G).  The finite
+    v_trunc(q+G=0) is kept: with a consistent finite kernel the G = 0
+    pieces of E_H, E_ne and E_ii cancel by neutrality."""
     mesh = tuple(int(m) for m in cell.mesh)
     gv = cell.get_Gv()
     G2 = np.einsum("gi,gi->g", gv, gv)
     ng = G2.shape[0]
     f = np.zeros(ng, dtype=np.complex128)
     g0 = G2 <= 1e-12
+    vtr = coulG_np(gv, trunc) if trunc is not None else None
     for sym, xyz in cell.atom:
         ps = cell._pseudo.get(sym)
         if ps is None:
             # all-electron point charge: v(G) = -4 pi Z / G^2, G=0 zeroed
             z = basis_data.ATOMIC_NUMBER[basis_data.element_symbol(sym)]
-            vG = np.where(g0, 0.0, -4.0 * np.pi * z / np.where(g0, 1.0, G2))
+            if trunc is not None:
+                vG = -z * vtr
+            else:
+                vG = np.where(g0, 0.0,
+                              -4.0 * np.pi * z / np.where(g0, 1.0, G2))
         else:
             vG = gth_vloc_G(ps, G2)
             vG[g0] = gth_vloc_G0(ps)
+            if trunc is not None:
+                # gth_vloc_G0 is the finite limit of vG + 4 pi Z/G^2
+                # e^{-G^2 rloc^2/2}: adding the bare tail back and taking
+                # Z damp v_trunc off is exact
+                damp = np.exp(-0.5 * G2 * ps.rloc ** 2)
+                vG = vG + np.where(
+                    g0, 0.0,
+                    4.0 * np.pi * ps.zion * damp / np.where(g0, 1.0, G2))
+                vG = vG - ps.zion * damp * vtr
         f += vG * np.exp(-1j * gv @ np.asarray(xyz))
     f_t = torch.as_tensor(f, dtype=real_complex(dtype)[1], device=device)
     return ifft3(f_t, mesh).real * (ng / cell.vol)
 
 
-def get_vloc(cell, ao_kpts, vgrid=None):
+def get_vloc(cell, ao_kpts, vgrid=None, trunc=None):
     if vgrid is None:
-        vgrid = vloc_on_grid(cell, dtype=ao_kpts.dtype,
+        vgrid = vloc_on_grid(cell, trunc=trunc, dtype=ao_kpts.dtype,
                              device=ao_kpts.device)
     w = cell.vol / ao_kpts.shape[1]
     return w * (ao_kpts.mH @ (vgrid[None, :, None] * ao_kpts))
@@ -176,10 +205,145 @@ def get_vnl(cell, ao_kpts, kpts):
     return b.mH @ h @ b
 
 
-def get_hcore(cell, ao_kpts, kpts, coords=None):
+def get_hcore(cell, ao_kpts, kpts, coords=None, trunc=None):
     t = get_kinetic(cell, ao_kpts, kpts, coords)
-    v = get_vloc(cell, ao_kpts)
+    v = get_vloc(cell, ao_kpts, trunc=trunc)
     return t + v + get_vnl(cell, ao_kpts, kpts)
+
+
+def energy_nuc_trunc(cell, trunc):
+    """Ion-ion energy under the truncated Coulomb interaction: point
+    charges through v_trunc, the counterpart of the finite-kernel E_H and
+    the truncated vloc (together their G = 0 pieces cancel by neutrality,
+    and the total converges to the isolated system's energy exponentially
+    in the vacuum).
+
+    0d: v_trunc has the finite range rc, so the direct lattice sum is
+    absolutely convergent.  2d: :func:`_ewald_trunc_2d`."""
+    kind, rc = trunc
+    rc = float(rc)
+    charges = np.asarray(cell.atom_charges(), dtype=float)
+    coords = np.asarray(cell.atom_coords(), dtype=float)
+    a = np.asarray(cell.a, dtype=float)
+    if kind == "2d":
+        return _ewald_trunc_2d(coords, charges, a, rc)
+    if kind != "0d":
+        raise ValueError(f"unknown truncation {kind!r} (use '0d' or '2d')")
+    vol = abs(np.linalg.det(a))
+    heights = np.array([
+        vol / np.linalg.norm(np.cross(a[(i + 1) % 3], a[(i + 2) % 3]))
+        for i in range(3)])
+    d0 = coords[:, None, :] - coords[None, :, :]
+    reach = rc + np.linalg.norm(d0, axis=-1).max()
+    nmax = np.ceil(reach / heights).astype(int)
+    rng = [np.arange(-n, n + 1) for n in nmax]
+    ts = (np.stack(np.meshgrid(*rng, indexing="ij"), -1)
+          .reshape(-1, 3).astype(float) @ a)
+    e = 0.0
+    zz = charges[:, None] * charges[None, :]
+    for t in ts:
+        r = np.linalg.norm(d0 + t[None, None, :], axis=-1)
+        inside = (r < rc) & (r > 1e-12)
+        e += 0.5 * np.sum(zz[inside] / r[inside])
+    return float(e)
+
+
+def _ewald_trunc_2d(coords, charges, a, rc):
+    """Ion-ion energy through the 2D-truncated (Ismail-Beigi slab) kernel:
+    the standard 3D Ewald energy plus the exact lattice sum of the
+    difference kernel
+
+        d(G) = v2d(G) - v_bare0(G) = -4 pi (-1)^n e^{-Gp rc} / G^2
+        (G != 0; Gz = 2 pi n / Lz lies on the mesh since rc = Lz/2),
+        d(0) = v2d(0) = -2 pi rc^2,
+
+    E_ii = E_Ewald + (1/2) sum_ij Z_i Z_j phi_d(r_ij) / V, i = j included
+    (phi_d is finite at r = 0; :func:`_phi_diff_2d`).  An erfc split of
+    the whole truncated kernel would not do: v2d's 1/Gp line singularity
+    makes its real-space correction decay only algebraically in-plane, so
+    it is not eta-independent for net-charged subsystems.
+
+    Requires the conventional slab: a3 along z, a1 and a2 in-plane,
+    rc = Lz/2 (what ``trunc_for_cell`` produces)."""
+    lz = float(a[2, 2])
+    if abs(a[0, 2]) + abs(a[1, 2]) >= 1e-9 * max(1.0, lz):
+        raise ValueError("2D truncation requires in-plane a1, a2")
+    if abs(a[2, 0]) + abs(a[2, 1]) >= 1e-9 * max(1.0, lz):
+        raise ValueError("2D truncation requires a3 along cartesian z")
+    if abs(rc - lz / 2) >= 1e-9 * lz:
+        raise ValueError("2D truncation requires rc = Lz/2")
+    vol = float(abs(np.linalg.det(a)))
+    e_bare = _ewald_points(coords, charges, a)
+    d = coords[:, None, :] - coords[None, :, :]
+    phi = _phi_diff_2d(d, a, rc)
+    e_diff = 0.5 * float(np.einsum("i,j,ij->", charges, charges, phi)) / vol
+    return e_bare + e_diff
+
+
+def _phi_diff_2d(d, a, rc):
+    """Lattice-periodic potential of the 2D difference kernel,
+    phi_d(r) = sum_G d(G) e^{i G r} (without the 1/V factor), at the
+    displacements ``d`` (..., 3), through the closed-form alternating Gz
+    column sums.  phi_d(0) is finite, which also makes it the probe-charge
+    exchange correction of the truncated kernel (:func:`madelung_trunc`)."""
+    lz = float(a[2, 2])
+    # phi_d is Lz-periodic in z: wrap dz to [-Lz/2, Lz/2]
+    dz = d[..., 2] - lz * np.round(d[..., 2] / lz)
+    beta = 2.0 * np.pi / lz
+    x = beta * dz                                   # in [-pi, pi]
+    # Gp = 0 column: d(0) plus the alternating 1/n^2 series
+    # sum_{n>=1} (-1)^n cos(n x)/n^2 = x^2/4 - pi^2/12  (|x| <= pi)
+    phi = (-2.0 * np.pi * rc * rc
+           - (8.0 * np.pi / beta ** 2) * (x * x / 4.0 - np.pi ** 2 / 12.0))
+    # Gp != 0 columns: sum_n (-1)^n e^{i n x}/(n^2 + ap^2) =
+    # (pi/ap) cosh(ap |x|)/sinh(ap pi)  (|x| <= pi), overflow-safe
+    b2d = 2.0 * np.pi * np.linalg.inv(a[:2, :2]).T   # in-plane reciprocal
+    bh = 2.0 * np.pi / np.linalg.norm(a[:2, :2], axis=1)
+    nmax = np.ceil((40.0 / rc) / bh).astype(int) + 1  # e^{-Gp rc} cutoff
+    rng = [np.arange(-n, n + 1) for n in nmax]
+    ints = np.stack(np.meshgrid(*rng, indexing="ij"), -1).reshape(-1, 2)
+    ints = ints[np.any(ints != 0, axis=1)]
+    gp = ints.astype(float) @ b2d                    # (ng2, 2)
+    gpn = np.linalg.norm(gp, axis=1)
+    keep = gpn * rc < 40.0
+    gp, gpn = gp[keep], gpn[keep]
+    ap = gpn / beta
+    ax = np.abs(x)[..., None]
+    # cosh(ap|x|)/sinh(ap pi) = (e^{-ap(pi-|x|)} + e^{-ap(pi+|x|)})
+    #                            / (1 - e^{-2 pi ap})
+    col = ((np.exp(-ap * (np.pi - ax)) + np.exp(-ap * (np.pi + ax)))
+           / (1.0 - np.exp(-2.0 * np.pi * ap)))
+    col = col * (np.pi / ap) / beta ** 2
+    cosg = np.cos(d[..., :2] @ gp.T)
+    phi = phi - 4.0 * np.pi * np.sum(
+        np.exp(-gpn * rc) * cosg * col, axis=-1)
+    return phi
+
+
+def madelung_trunc(cell, kmesh, trunc) -> float:
+    """Probe-charge (``exxdiv='ewald'``) exchange correction of a
+    truncated kernel: xi = Int d^3G/(2 pi)^3 v(G) - (1/V_BvK) sum_G v(G)
+    over the Born-von-Karman reciprocal lattice, every sample kept.  With
+    v = v_bare0 + d, the bare part gives :func:`madelung` and
+    Int d^3G d(G) = 0 (the real-space difference kernel vanishes at
+    r = 0), so
+
+        0d:  xi = 0 (the compactly supported kernel has no leading
+             finite-size exchange error),
+        2d:  xi = madelung(cell, kmesh) - phi_d(0) / V_BvK (requires
+             kmesh[2] == 1)."""
+    kind, rc = trunc
+    if kind == "0d":
+        return 0.0
+    if kind != "2d":
+        raise ValueError(f"unknown truncation {kind!r} (use '0d' or '2d')")
+    kmesh = np.asarray(kmesh)
+    if int(kmesh[2]) != 1:
+        raise ValueError("2D slabs must not sample k along z")
+    a_sc = kmesh.astype(float)[:, None] * np.asarray(cell.a, dtype=float)
+    vol = float(abs(np.linalg.det(a_sc)))
+    phi0 = float(_phi_diff_2d(np.zeros((1, 1, 3)), a_sc, float(rc))[0, 0])
+    return madelung(cell, kmesh) - phi0 / vol
 
 
 # ---------------------------------------------------------------------- Ewald

@@ -7,7 +7,8 @@ the float32 build against the JAX package's float32 build given its mask;
 selection in float64 inside a float32 build, ``select_keep``,
 ``auto_selection_mesh`` and the densify loop of ``m0='auto'`` against the
 JAX package's; the round trip of a float32 state in both directions; and
-KUHF / DeviceKUHF in float32 against the JAX package's float32 KUHF.
+KUHF / DeviceKUHF in float32 against the JAX package's float32 KUHF
+(recorded in tests/data/jax_port_refs.json).
 JAX runs on the CPU (its float32 selection takes its numpy route there,
 its float64 one the einsum gram).
 """
@@ -24,7 +25,6 @@ from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.isdf import kpoint as jax_kp
 from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
-from fftisdf_tpu.scf import KUHF as JaxKUHF
 from fftisdf_tpu.utils.device import to_device
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.isdf import FFTISDF, kpoint as t_kp
@@ -37,6 +37,8 @@ from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 F32 = torch.float32
+REFS = json.loads((Path(__file__).parent / "data"
+                   / "jax_port_refs.json").read_text())
 
 
 @pytest.fixture(scope="module")
@@ -246,9 +248,7 @@ def test_m0_auto_densifies_like_jax(monkeypatch):
     kpts = cell.get_kpts([1, 1, 2])
     # the JAX package's build of this configuration, recorded by
     # tools/jax_port_refs.py
-    ref = json.loads((Path(__file__).resolve().parent / "data"
-                      / "jax_port_refs.json").read_text())[
-        "test_m0_auto_densifies_like_jax"]
+    ref = REFS["test_m0_auto_densifies_like_jax"]
     kw = dict(c0=10.0, m0="auto", m0_pool=1.0, m0_floor=(2, 2, 2), verbose=0)
     ctx = _quiet()
     df = FFTISDF(cell, kpts, device="cpu", **kw).build()
@@ -333,26 +333,25 @@ def test_kuhf_f32_matches_jax(diamond):
     2e-6, a float32 build on the JAX package's points) against the JAX
     package's float32 KUHF: 2e-5 Ha (the float32 serve's noise on a -11 Ha
     energy; the final energy is recomputed in float64 from float32 J/K),
-    and the two port loops to the same bound."""
-    cell_j, cell, kpts, _ = diamond
+    and the two port loops to the same bound.  The JAX package's float32
+    build (its mask) and KUHF are read from tests/data/jax_port_refs.json
+    (``tools/jax_port_refs.py``)."""
+    _, cell, kpts, _ = diamond
+    ref = REFS["test_kuhf_f32_matches_jax"]
     ctx = _quiet()
-    df_j = JaxISDF(cell_j, kpts, c0=20.0, m0=(9, 9, 9), verbose=0,
-                   dtype=jnp.float32).build()
     df = FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0, dtype=F32,
-                 device="cpu").build(mask=np.asarray(df_j.mask))
+                 device="cpu").build(mask=np.asarray(ref["mask"]))
     ctx.__exit__(None, None, None)
     kw = dict(verbose=0, conv_tol=1e-7, smearing=5e-3, max_cycle=60)
-    mf_j = JaxKUHF(cell_j, kpts, with_df=df_j, dtype=jnp.float32, **kw)
-    mf_j.kernel()
     mf = KUHF(cell, kpts, df, dtype=F32, device="cpu", **kw)
-    assert mf.ovlp_cutoff == mf_j.ovlp_cutoff == 2e-6
+    assert mf.ovlp_cutoff == ref["ovlp_cutoff"] == 2e-6
     assert mf.s1e.dtype == np.complex128
     e_h = mf.kernel()
     mfd = DeviceKUHF(cell, kpts, df, dtype=F32, device="cpu", **kw)
     e_d = mfd.kernel()
-    assert mf.converged and mfd.converged and mf_j.converged
-    assert abs(e_h - mf_j.e_tot) < 2e-5
-    assert abs(e_d - mf_j.e_tot) < 2e-5
+    assert mf.converged and mfd.converged and ref["converged"]
+    assert abs(e_h - ref["e_tot"]) < 2e-5
+    assert abs(e_d - ref["e_tot"]) < 2e-5
     assert abs(e_d - e_h) < 2e-5
     # a float64 loop over the float32 provider serves through a cast
     e_m = DeviceKUHF(cell, kpts, df, device="cpu", **kw).kernel()

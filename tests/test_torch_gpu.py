@@ -18,7 +18,9 @@ is larger.
 The exact plane-wave J/K and the device-resident SCF loop on the card are
 held against the same calls on the CPU.  The float32 regime on the card:
 the build-dtype selection route launches K1 in complex64, the float64
-route does not, and both serve the CPU's J/K to float32 accuracy.
+route does not, and both serve the CPU's J/K to float32 accuracy.  The
+ISDF band pair loop, the compact cderi serve and a 0d-truncated SCF on the
+card are held against the CPU.
 """
 import numpy as np
 import pytest
@@ -263,3 +265,97 @@ def test_device_f32_loop_with_dropped_directions_on_cuda(cuda):
     assert (orth_and_penalty(mf32.s1e, 1e-4)[1] > 0).any()
     assert mf64.converged and mf32.converged
     assert abs(e32 - e64) < 1e-4
+
+
+def _he2_bands(cell_cls, shell_cls):
+    """The He2 cell of tests/test_isdf_bands.py."""
+    return cell_cls(a=np.diag([5.0, 5.0, 7.0]),
+                    atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
+                    basis={"He": [shell_cls(l=0, exps=np.array([1.0, 0.35]),
+                                            coeffs=np.eye(2))]},
+                    pseudo=None, mesh=np.array([12, 12, 16]), unit="bohr",
+                    precision=1e-12).build()
+
+
+@pytest.mark.gpu
+def test_band_pair_loop_on_cuda_matches_cpu(cuda):
+    """The ISDF band serve (the (band, k2) pair loop) on the card equals
+    the CPU's on the same interpolation points, to 1e-10 of the scale, off
+    the mesh and at a mesh point, with a set axis."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+
+    cell = _he2_bands(Cell, Shell)
+    kpts = cell.get_kpts([1, 1, 2])
+    b = cell.reciprocal_vectors()
+    kband = np.array([0.17 * b[2], 0.33 * b[0] + 0.41 * b[2], kpts[1]])
+    rng = np.random.default_rng(2)
+    nao = cell.nao_nr()
+    dm = rng.standard_normal((2, 2, nao, nao)) * 0.1 + np.eye(nao)
+    dm = (dm + dm.transpose(0, 1, 3, 2)).astype(complex)
+    out, mask = {}, None
+    for dev in ("cpu", cuda):
+        df = FFTISDF(cell, kpts, c0=10.0, m0=(7, 7, 11), verbose=0,
+                     device=dev).build(mask=mask)
+        mask = df.mask
+        out[str(dev)] = [t.cpu().numpy()
+                         for t in df.get_jk(dm, kpts_band=kband)]
+    for g, c in zip(out[str(cuda)], out["cpu"]):
+        assert g.shape == (2, 3, nao, nao)
+        assert np.abs(g - c).max() <= 1e-10 * np.abs(c).max()
+
+
+@pytest.mark.gpu
+def test_get_jk_cderi_on_cuda_matches_cpu(cuda):
+    """The compact cderi serve (signed factors, k2 blocks) on the card
+    equals the CPU's to 1e-10 of the scale, and the ISDF serve to 1e-7 of
+    it (the signed factors serve the hermitised metric; on this diamond
+    the difference is 1.5e-8 of the scale on the CPU)."""
+    from fftisdf_tpu_torch.isdf import FFTISDF, cderi
+
+    cell, kpts = _diamond()
+    nao = cell.nao_nr()
+    dm = np.stack([np.eye(nao, dtype=complex)] * 2)
+    out, mask = {}, None
+    for dev in ("cpu", cuda):
+        df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
+                     device=dev).build(mask=mask)
+        mask = df.mask
+        cd, sign = cderi.wq_to_cd_signed(df.wq)
+        q_of = cderi.q_index_table(cell, kpts)
+        vj, vk = cderi.get_jk_cderi(df.x_k, cd, q_of, dm, k2_chunk=1,
+                                    sign=sign)
+        vj0, vk0 = df.get_jk(dm)
+        for a, b in ((vj, vj0), (vk, vk0)):
+            assert float((a - b).abs().max()) < 1e-7 * float(b.abs().max())
+        out[str(dev)] = (vj.cpu().numpy(), vk.cpu().numpy())
+    for g, c in zip(out[str(cuda)], out["cpu"]):
+        assert np.abs(g - c).max() <= 1e-10 * np.abs(c).max()
+
+
+@pytest.mark.gpu
+def test_trunc_scf_on_cuda_matches_cpu(cuda):
+    """SCF-level 0d truncation: H2/STO-3G in a 9-bohr box, KRHF on a
+    truncated ISDF build, on the card and on the CPU on the same points, to
+    1e-8 Ha."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice.cell import Cell
+    from fftisdf_tpu_torch.scf import KRHF
+
+    L, R = 9.0, 1.4
+    cell = Cell(a=np.eye(3) * L,
+                atom=[("H", (L / 2, L / 2, L / 2 - R / 2)),
+                      ("H", (L / 2, L / 2, L / 2 + R / 2))],
+                basis="sto-3g", pseudo=None, ke_cutoff=60.0, unit="bohr",
+                precision=1e-12).build()
+    kpts = cell.get_kpts([1, 1, 1])
+    e, mask = {}, None
+    for dev in ("cpu", cuda):
+        df = FFTISDF(cell, kpts, c0=25.0, m0=(11, 11, 11), verbose=0,
+                     trunc="0d", device=dev).build(mask=mask)
+        mask = df.mask
+        mf = KRHF(cell, kpts, df, verbose=0, conv_tol=1e-10, device=dev)
+        assert mf.trunc == df.trunc
+        e[str(dev)] = mf.kernel()
+        assert mf.converged
+    assert abs(e[str(cuda)] - e["cpu"]) <= 1e-8

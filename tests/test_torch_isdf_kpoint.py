@@ -281,22 +281,29 @@ def test_chunked_build_matches_single_chunk(he2):
 
 
 def test_unported_options_raise(he2, he2_compressed):
-    """What stays refused: band k-points, and exxdiv with a screened or a
-    truncated kernel.  m0='auto' and the eigh-family solvers are accepted;
-    an unknown solver is a ValueError."""
+    """What stays refused is what the JAX package refuses: exxdiv with a
+    screened kernel, omega with band k-points, and exxdiv with band
+    k-points (the SCF layer applies that correction at mesh points).  Band
+    k-points and exxdiv with a truncated kernel are served; m0='auto' and
+    the eigh-family solvers are accepted; an unknown solver is a
+    ValueError."""
     _, cell, kpts = he2
     df = he2_compressed[1]
     dm = trs_dm(cell, kpts, 2)[0]
     with pytest.raises(NotImplementedError):
-        df.get_jk(dm, kpts_band=kpts[:1])
-    with pytest.raises(NotImplementedError):
         df.get_jk(dm, omega=0.5, exxdiv="ewald")
     with pytest.raises(NotImplementedError):
         df.get_jk(dm, omega=0.5, kpts_band=kpts[:1])
+    with pytest.raises(NotImplementedError):
+        df.get_jk(dm, exxdiv="ewald", kpts_band=kpts[:1])
+    vj_b, vk_b = df.get_jk(dm, kpts_band=kpts[:1])
+    assert vj_b.shape == vk_b.shape == (1, 2, 2)
     df_t = FFTISDF(cell, kpts, m0=(9, 9, 13), trunc="0d", device="cpu")
     df_t.x_k, df_t.wq = df.x_k, df.wq
-    with pytest.raises(NotImplementedError):
-        df_t.get_jk(dm, exxdiv="ewald")
+    _, vk0 = df_t.get_jk(dm)
+    _, vk1 = df_t.get_jk(dm, exxdiv="ewald")
+    assert df_t.madelung() == 0.0
+    assert float((vk1 - vk0).abs().max()) == 0.0
     assert FFTISDF(cell, kpts, m0="auto", device="cpu").m0 == (15, 15, 15)
     assert FFTISDF(cell, kpts, solver="lstsq", device="cpu").solver == "lstsq"
     with pytest.raises(ValueError):

@@ -258,21 +258,23 @@ def test_compressed_trunc_2d_matches_jax(he2_box):
 
 
 def test_trunc_guards(he2_box, box_0d):
-    """exxdiv with a truncated kernel and ``trunc`` on the SCF classes stay
-    refused (SCF-level truncation), omega with truncation too."""
+    """omega with truncation stays refused, as in the JAX package.  exxdiv
+    with a truncated kernel adds the kernel's own probe-charge constant (0
+    in 0d) on both providers, and the SCF classes adopt the provider's
+    truncation and refuse a different one."""
     _, cell = he2_box
     kpts, df = box_0d
     dm = np.eye(2)[None].astype(complex)
     with pytest.raises(NotImplementedError):
-        df.get_jk(dm, exxdiv="ewald")
-    with pytest.raises(NotImplementedError):
         df.get_jk(dm, omega=0.3)
-    with pytest.raises(NotImplementedError):
-        PWDF(cell, kpts, trunc="0d", device="cpu").get_jk(dm, exxdiv="ewald")
-    with pytest.raises(NotImplementedError):
-        KRHF(cell, kpts, df, verbose=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        KRHF(cell, kpts, trunc="0d", verbose=0, device="cpu")
+    assert _maxerr(df.get_jk(dm, exxdiv="ewald")[1], df.get_jk(dm)[1]) == 0
+    pw = PWDF(cell, kpts, trunc="0d", device="cpu")
+    assert _maxerr(pw.get_jk(dm, exxdiv="ewald")[1], pw.get_jk(dm)[1]) == 0
+    assert KRHF(cell, kpts, df, verbose=0, device="cpu").trunc == df.trunc
+    with pytest.raises(ValueError):
+        KRHF(cell, kpts, df, trunc=("0d", 1.0), verbose=0, device="cpu")
+    with pytest.raises(ValueError):
+        KRHF(cell, kpts, df, trunc="2d", verbose=0, device="cpu")
 
 
 def test_trunc_serialization_roundtrip(tmp_path, he2_box, box_0d):
@@ -304,5 +306,6 @@ def test_trunc_serialization_roundtrip(tmp_path, he2_box, box_0d):
     vj_j, vk_j = df_j.get_jk(dm)
     vj4, vk4 = df4.get_jk(dm)
     assert _rel(vj4, vj_j) < 1e-12 and _rel(vk4, vk_j) < 1e-12
-    with pytest.raises(NotImplementedError):
-        df4.get_jk(dm, exxdiv="ewald")
+    # the reloaded spec drives the probe-charge constant of the kernel
+    _, vk_je = df_j.get_jk(dm, exxdiv="ewald")
+    assert _rel(df4.get_jk(dm, exxdiv="ewald")[1], vk_je) < 1e-12

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Record the JAX package's outputs that the port's slowest tests compare with.
 
-    JAX_PLATFORMS=cpu python tools/jax_port_refs.py   # rewrites the file
+    JAX_PLATFORMS=cpu python tools/jax_port_refs.py           # every record
+    JAX_PLATFORMS=cpu python tools/jax_port_refs.py bands     # one section
 
 Writes ``tests/data/jax_port_refs.json``: energies, interpolation-point
 masks and meshes of the JAX package (``fftisdf_tpu``) on the CPU in float64,
@@ -75,14 +76,13 @@ def _he2_asymmetric():
                 unit="bohr", precision=1e-12).build()
 
 
-def main():
-    _jax()
+def _scf(refs):
+    """The SCF runs of test_torch_isdf_kpoint.py, test_torch_pw.py,
+    test_torch_scf_device.py and test_torch_f32_regime.py."""
     from fftisdf_tpu.isdf import FFTISDF
     from fftisdf_tpu.scf import KRHF, KUHF
 
-    refs = {"source": "JAX package (fftisdf_tpu) on the CPU in float64, "
-                      "written by tools/jax_port_refs.py"}
-    mask = lambda df: [int(i) for i in np.asarray(df.mask)]
+    mask = _mask
 
     cell, kpts = _diamond()
     df = FFTISDF(cell, kpts, c0=10.0, m0=(15, 15, 15), verbose=0).build()
@@ -143,9 +143,191 @@ def main():
                   "m0_floor 2^3",
         "m0": [int(m) for m in df.m0], "nip": int(df.nip)}
 
+
+
+SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
+            "trunc": lambda r: _trunc(r), "bands": lambda r: _bands(r),
+            "lsthc": lambda r: _lsthc(r)}
+
+
+def main():
+    """Every section, or those named on the command line (the others keep
+    their recorded values)."""
+    _jax()
+    names = sys.argv[1:] or list(SECTIONS)
+    refs = {"source": "JAX package (fftisdf_tpu) on the CPU in float64, "
+                      "written by tools/jax_port_refs.py"}
+    if sys.argv[1:] and OUT.exists():
+        refs = json.loads(OUT.read_text())
+    for name in names:
+        SECTIONS[name](refs)
     OUT.write_text("{\n" + ",\n".join(f" {json.dumps(k)}: {json.dumps(v)}"
                                       for k, v in refs.items()) + "\n}\n")
     print(f"wrote {OUT}")
+
+
+def _mask(df):
+    return [int(i) for i in np.asarray(df.mask)]
+
+
+def _f32_kuhf(refs):
+    """tests/test_torch_f32_regime.py::test_kuhf_f32_matches_jax."""
+    import jax.numpy as jnp
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.scf import KUHF
+
+    cell, kpts = _diamond()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        df = FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0,
+                     dtype=jnp.float32).build()
+    mf = KUHF(cell, kpts, with_df=df, dtype=jnp.float32, verbose=0,
+              conv_tol=1e-7, smearing=5e-3, max_cycle=60)
+    mf.kernel()
+    refs["test_kuhf_f32_matches_jax"] = {
+        "config": "diamond gth-szv ke 50 1x1x2, float32 build c0 20 m0 9^3;"
+                  " float32 KUHF smearing 5e-3 conv_tol 1e-7 max_cycle 60",
+        "mask": _mask(df), "e_tot": float(mf.e_tot),
+        "converged": bool(mf.converged),
+        "ovlp_cutoff": float(mf.ovlp_cutoff)}
+
+
+def h2_box(cell_cls, L, ke=80.0, R=1.4):
+    """H2/STO-3G at R = 1.4 bohr centred in an L-bohr cube
+    (examples/molecule_in_a_box.py)."""
+    return cell_cls(a=np.eye(3) * L,
+                    atom=[("H", (L / 2, L / 2, L / 2 - R / 2)),
+                          ("H", (L / 2, L / 2, L / 2 + R / 2))],
+                    basis="sto-3g", pseudo=None, ke_cutoff=ke, unit="bohr",
+                    precision=1e-12).build()
+
+
+def h2_slab(cell_cls, lz, L=8.0, ke=60.0, R=1.4):
+    """The H2 monolayer of tests/test_trunc_scf.py (in-plane L, vacuum
+    lz)."""
+    return cell_cls(a=np.diag([L, L, lz]),
+                    atom=[("H", (L / 2 - R / 2, L / 2, lz / 2)),
+                          ("H", (L / 2 + R / 2, L / 2, lz / 2))],
+                    basis="sto-3g", pseudo=None, ke_cutoff=ke, unit="bohr",
+                    precision=1e-12).build()
+
+
+def _trunc(refs):
+    """SCF-level truncation: H2 in a box (0d; the defaults of
+    examples/molecule_in_a_box.py, exact and ISDF) and the H2 monolayer
+    (2d with exxdiv='ewald'; tests/test_trunc_scf.py)."""
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice.cell import Cell
+    from fftisdf_tpu.scf import KRHF
+
+    box = {}
+    for L in (9.0, 11.0, 12.5):
+        cell = h2_box(Cell, L)
+        kpts = cell.get_kpts([1, 1, 1])
+        e_ex = KRHF(cell, kpts, trunc="0d", verbose=0).kernel()
+        df = FFTISDF(cell, kpts, c0=25.0, m0=(15, 15, 15), verbose=0,
+                     trunc="0d").build()
+        e_is = KRHF(cell, kpts, with_df=df, verbose=0).kernel()
+        box[str(L)] = {"e_exact": float(e_ex), "e_isdf": float(e_is),
+                       "mask": _mask(df)}
+    refs["trunc_h2_box"] = {
+        "config": "H2 STO-3G R 1.4 in an L cube, ke 80, gamma, KRHF "
+                  "trunc 0d: exact plane-wave, and ISDF c0 25 m0 15^3",
+        **box}
+    slab = {}
+    for lz in (12.0, 16.0):
+        cell = h2_slab(Cell, lz)
+        kpts = cell.get_kpts([1, 1, 1])
+        slab[str(lz)] = float(KRHF(cell, kpts, trunc="2d", exxdiv="ewald",
+                                   verbose=0).kernel())
+    slab["bare_16.0"] = float(KRHF(cell, kpts, verbose=0).kernel())
+    refs["trunc_h2_slab"] = {
+        "config": "H2 STO-3G monolayer, in-plane L 8, vacuum lz, ke 60, "
+                  "gamma, exact KRHF trunc 2d exxdiv ewald (bare_16.0: "
+                  "untruncated at lz 16)", **slab}
+
+
+def he2_bands_cell(cell_cls, shell_cls):
+    """He2 with an uncontracted 2-exponent s basis
+    (tests/test_isdf_bands.py)."""
+    Shell = shell_cls
+    return cell_cls(a=np.diag([5.0, 5.0, 7.0]),
+                    atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
+                    basis={"He": [Shell(l=0, exps=np.array([1.0, 0.35]),
+                                        coeffs=np.eye(2))]},
+                    pseudo=None, mesh=np.array([12, 12, 16]), unit="bohr",
+                    precision=1e-12).build()
+
+
+def band_kpts(cell, kpts):
+    b = cell.reciprocal_vectors()
+    return np.array([0.17 * b[2], 0.33 * b[0] + 0.41 * b[2], kpts[1]])
+
+
+def _bands(refs):
+    """Band energies from converged densities: exact KRHF and ISDF KUHF
+    on the He2 cell of tests/test_isdf_bands.py."""
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice.cell import Cell, Shell
+    from fftisdf_tpu.scf import KRHF, KUHF
+
+    cell = he2_bands_cell(Cell, Shell)
+    kpts = cell.get_kpts([1, 1, 2])
+    kb = band_kpts(cell, kpts)
+    mf = KRHF(cell, kpts, verbose=0, conv_tol=1e-12)
+    mf.kernel()
+    es, _ = mf.get_bands(kb)
+    df = FFTISDF(cell, kpts, c0=10.0, m0=(7, 7, 11), verbose=0).build()
+    mfu = KUHF(cell, kpts, with_df=df, verbose=0, conv_tol=1e-12)
+    mfu.kernel()
+    esu, _ = mfu.get_bands(kb)
+    df_full = FFTISDF(cell, kpts, c0=60.0, m0=tuple(cell.mesh), verbose=0,
+                      select_tol=1e-20, rcond=1e-12).build()
+    refs["bands_he2"] = {
+        "config": "He2 2s basis 1x1x2 mesh 12x12x16; band points 0.17 b3, "
+                  "0.33 b1 + 0.41 b3, kpts[1]; exact KRHF conv_tol 1e-12; "
+                  "ISDF c0 10 m0 7x7x11 KUHF conv_tol 1e-12; mask_full: "
+                  "c0 60 m0 = mesh select_tol 1e-20 rcond 1e-12",
+        "mask_full": _mask(df_full),
+        "e_krhf": float(mf.e_tot), "bands_krhf": np.asarray(es).tolist(),
+        "mask": _mask(df), "e_kuhf": float(mfu.e_tot),
+        "bands_kuhf": np.asarray(esu).tolist()}
+
+
+def lsthc_he2_cell(cell_cls, a=(5.0, 5.0, 7.0), mesh=(9, 9, 11)):
+    """He2 STO-3G (tests/test_thc_ao2mo.py; a larger box for the Becke
+    grids, whose partition cost grows with the lattice images)."""
+    return cell_cls(a=np.diag(a),
+                    atom=[("He", (a[0] / 2, a[1] / 2, 2.0)),
+                          ("He", (a[0] / 2, a[1] / 2, 4.5))],
+                    basis="sto-3g", pseudo=None, mesh=np.array(mesh),
+                    unit="bohr", precision=1e-12).build()
+
+
+BECKE_BOX = dict(a=(9.0, 9.0, 10.0), mesh=(11, 11, 13))
+
+
+def _lsthc(refs):
+    """LS-THC error reports: uniform grid (all pairs, and the reference's
+    k1 = 0 row) and Becke grids (level 0)."""
+    from fftisdf_tpu.isdf.thc import LSTHC
+    from fftisdf_tpu.lattice.becke import AtomCenteredGrids
+    from fftisdf_tpu.lattice.cell import Cell
+
+    cell = lsthc_he2_cell(Cell)
+    kpts = cell.get_kpts([1, 1, 2])
+    out = {"config": "He2 STO-3G 1x1x2: uniform 5x5x7 box, mesh 9x9x11; "
+                     "becke: 9x9x10 box, mesh 11x11x13, level 0; rows "
+                     "(k1, k2, max err, frobenius err)"}
+    for name, kw in (("uniform", {}), ("row_only", {"row_only": True})):
+        out[name] = [list(map(float, r)) for r in
+                     LSTHC(cell, kpts, verbose=0).build(**kw).error_report()]
+    cell = lsthc_he2_cell(Cell, **BECKE_BOX)
+    kpts = cell.get_kpts([1, 1, 2])
+    grids = AtomCenteredGrids(cell, level=0).build()
+    out["becke"] = [list(map(float, r)) for r in LSTHC(
+        cell, kpts, verbose=0, grids=grids).build().error_report()]
+    refs["lsthc_he2"] = out
 
 
 if __name__ == "__main__":
