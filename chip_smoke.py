@@ -111,14 +111,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    card against the CPU: the full-rank Gamma-point fit on phase 2's
    diamond (pairs to 1e-10), LS-THC on He2 on the uniform and Becke grids
    (1e-7 / 5e-5), ``mo_eri`` against ``get_eri`` rotated to MOs and
-   ``whiten_basis`` per sector on a full-rank He2 build.
+   ``whiten_basis`` per sector on a full-rank He2 build;
+9. Kohn-Sham DFT (``scf.ks``, ``scf.xc``, ``scf.hubbard``, ``scf.dos``)
+   through the default-device entry points: (a) diamond 1x1x2 on the JAX
+   package's points (c0 40, m0 9^3), KRKS-LDA/PBE/B3LYP/SCAN/HSE06 and
+   KUKS-LDA+U each built and solved on the card and on the CPU (e_tot to
+   1e-9 Ha, Vxc of one density to 1e-10 relative, the JAX package's
+   energies of tests/data/jax_port_refs.json to 1e-8), SCAN bands at the
+   mesh points on the card (5e-5 Ha), and a central difference of
+   exc_and_vxc on the card for PBE and SCAN (1e-7 / 1e-6); (b) KUKS-PBE
+   and KUKS-PBE+U (U_eff 6.2 eV on the Ni d shells) on the anchor, on the
+   JAX package's points, within 1e-6 Ha of the JAX package's energies in
+   tests/data/nio_afm_kuks_anchor.json, Ni moments beside its; (c) on phase
+   4's slice build, DeviceKUKS against the host KUKS (3e-8 Ha) for PBE+U,
+   PBE0 and HSE06 (one erfc-screened metric pass), SCAN and PBE on the
+   host, each converged (max_cycle 150), s/cycle of both loops and the xc
+   pass's ms and peak; at 2 mesh points the band path's Vxc (PBE+U, SCAN,
+   PBE) and V_U (PBE+U) against the SCF's matrices there (1e-10
+   relative), and KUKS-PBE bands against the converged Fock's eigenvalues
+   (1e-3 Ha, the band serve's re-fit of J);
+   KUKS-PBE on a float32 build within 2e-2 Ha/atom of float64; (d) on
+   phase 6b's production build (whose selection launched K1),
+   DeviceKUKS-PBE+U converged to an AFM state (Ni moments of opposite
+   sign) and equal to the host KUKS-PBE+U (3e-8 Ha): cycles, s/cycle, time
+   to the converged energy, peak memory, the xc pass's ms and bytes, the
+   cycle's parts timed alone at its shapes (eigensolve, ADIIS, CDIIS,
+   bisection, the J serve, +U on the card and the host loop's +U), the
+   Mulliken and Loewdin moments and the Loewdin-projected DOS (the
+   states below the Fermi level, by atom and spin).
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
-                                     # prints no result lines; 8 runs 4 and
-                                     # 6 first for their state
+                                     # prints no result lines; 8 and 9 run
+                                     # 4 and 6 first for their state
 """
 import json
 import os
@@ -133,6 +160,7 @@ REPO = Path(__file__).resolve().parent
 ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
 EXACT = REPO / "tests" / "data" / "nio_afm_kuhf_exact.json"
 REFS = REPO / "tests" / "data" / "jax_port_refs.json"
+KS_ANCHOR = REPO / "tests" / "data" / "nio_afm_kuks_anchor.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
 # the complex64 kernel's error against the complex128 gram: at most this
 # many times the plain complex64 version's, or K1_C64_FLOOR of the scale
@@ -151,6 +179,7 @@ PEAK_FLOPS = {"fp64_tc": 67e12, "tf32_tc": 495e12, "fp32": 67e12}
 ROUTE = {"complex128": ("fp64_tc", 1), "complex64": ("tf32_tc", 3)}
 PEAK_BYTES = 3.35e12
 AFM = {0: +1.0, 1: -1.0}
+NIO_U = 6.2 / 27.211386           # U_eff 6.2 eV on the Ni d shells, in Ha
 SLICE_NIP = 1040
 SLICE_E_TOT = -360.3364120006     # the slice's converged energy on the H100
 PROD_NIP = 2480                   # c0 40 x nao 62
@@ -163,6 +192,9 @@ SCF_KW = dict(conv_tol=1e-8, max_cycle=80, init_spin=AFM, smearing=5e-3)
 # float32 J/K carry ~1e-6 Ha of noise into the energy, so a float32 SCF is
 # converged to 1e-6 (the setting of examples/nio_afm_kuhf.py)
 SCF_KW_F32 = dict(SCF_KW, conv_tol=1e-6)
+# headroom for the hybrids and SCAN, which took 55-75 cycles on the
+# anchor-sized cell
+KS_KW = dict(SCF_KW, max_cycle=150)
 
 
 def log(*args):
@@ -715,12 +747,12 @@ def _scf_line(tag, mf, seconds):
             f"s/cycle past the first, first {seconds[0]:.3f}s)")
 
 
-def _device_loop_parts(torch, mf):
-    """Wall milliseconds per call, the device synchronised before and
-    after 5 calls, of the device loop's parts at the shapes of ``mf``'s
-    run, on seeded random inputs: the batched eigensolve, the ADIIS
-    descent, the CDIIS solve and one spin's chemical-potential
-    bisection."""
+def _device_loop_parts(torch, mf, extra=None):
+    """{part: wall milliseconds per call}, the device synchronised before
+    and after 5 calls that follow one warm call, of the device loop's parts
+    at the shapes of ``mf``'s run, on seeded random inputs: the batched
+    eigensolve, the ADIIS descent, the CDIIS solve and one spin's
+    chemical-potential bisection; then the callables of ``extra``."""
     from fftisdf_tpu_torch.scf import core
 
     dev = mf.with_df.device
@@ -748,8 +780,9 @@ def _device_loop_parts(torch, mf):
                                                      live),
         "mu bisection (90 steps, one spin)": lambda: core.smeared_occ(
             e, ok, float(nk * nao // 2), 5e-3, "fermi"),
+        **(extra or {}),
     }
-    out = []
+    out = {}
     for name, fn in parts.items():
         fn()
         torch.cuda.synchronize()
@@ -757,8 +790,12 @@ def _device_loop_parts(torch, mf):
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-        out.append(f"{name} {(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
-    return "; ".join(out)
+        out[name] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
+
+
+def _parts_line(ms):
+    return "; ".join(f"{name} {t:.2f} ms" for name, t in ms.items())
 
 
 def phase6_device_scf(torch, ctx):
@@ -775,7 +812,8 @@ def phase6_device_scf(torch, ctx):
     log("[6] slice " + _scf_line("host KUHF", host, host.cycle_seconds))
     log("[6] slice " + _scf_line("DeviceKUHF", dev, dev.cycle_times)
         + f"; |dE| {de:.2e} Ha")
-    log(f"[6] slice device-loop parts: {_device_loop_parts(torch, dev)}")
+    log("[6] slice device-loop parts: "
+        + _parts_line(_device_loop_parts(torch, dev)))
     if not (host.converged and dev.converged and de <= 3e-8):
         raise RuntimeError("DeviceKUHF and KUHF disagree on the slice")
     # phase 8 serves bands and the cderi arm from this state and density
@@ -787,7 +825,8 @@ def phase6_device_scf(torch, ctx):
     # (b) the production configuration
     cell, kpts, df, mf, fig = _production_run(torch, "[6]")
     ctx["production_f64"] = fig
-    log(f"[6] production device-loop parts: {_device_loop_parts(torch, mf)}")
+    log("[6] production device-loop parts: "
+        + _parts_line(_device_loop_parts(torch, mf)))
     host = KUHF(cell, kpts, df, verbose=0, **SCF_KW)
     host.kernel()
     de = abs(mf.e_tot - host.e_tot)
@@ -1133,7 +1172,7 @@ def _restart_analysis(torch, ctx):
                                                 atom_charges_and_moments,
                                                 mulliken)
 
-    prod = ctx.pop("production")
+    prod = ctx["production"]
     cell, kpts, df = prod["cell"], prod["kpts"], prod["df"]
     _unpark(df)
     t0 = time.perf_counter()
@@ -1165,7 +1204,7 @@ def _restart_analysis(torch, ctx):
             and abs(abs(moments[1]) - 1.9336) <= 5e-4):
         raise RuntimeError("the Mulliken analysis of the restart is off")
     del mf
-    df.x_k = df.wq = None
+    _park(df)                    # phase 9d serves KS from this build
     torch.cuda.empty_cache()
     lat, atoms = structure.nio_afm()
     lat2, atoms2 = structure.parse_poscar(
@@ -1341,8 +1380,7 @@ def _bands(torch, ctx):
     if not rel <= 1e-10:
         raise RuntimeError("the exact band path misses the mesh serve")
     del pw, aob, ao1, mf
-    df.x_k = df.wq = None
-    ctx.pop("slice")
+    _park(df)                    # phase 9c serves KS from this build
     torch.cuda.empty_cache()
 
 
@@ -1535,13 +1573,398 @@ def _tools(torch):
                            "and CPU")
 
 
+# ------------------------------------------------------------------ phase 9
+def phase9_ks(torch, ctx):
+    _ks_diamond(torch)
+    _ks_anchor(torch)
+    _ks_slice(torch, ctx)
+    _ks_production(torch, ctx)
+
+
+def _toy_rho(cell, seed):
+    """Smooth, strictly positive seeded spin densities on the cell's mesh
+    (tests/test_ks.py's ``_toy_rho``) and a kinetic-energy density above
+    the uniform gas's."""
+    import numpy as np
+
+    fmesh = tuple(int(m) for m in cell.mesh)
+    ng = int(np.prod(fmesh))
+    coef = np.random.default_rng(seed).standard_normal((2, 4, 4, 4)) * 0.05
+    field = np.zeros((2,) + fmesh)
+    for s in range(2):
+        f = np.zeros(fmesh, dtype=complex)
+        f[:4, :4, :4] = coef[s] * ng
+        field[s] = np.real(np.fft.ifftn(f))
+    rho = (0.3 + field - field.min()).reshape(2, ng)
+    tau = 0.39 * (3.0 * np.pi ** 2) ** (2.0 / 3.0) * (2.0 * rho) ** (5.0 / 3.0)
+    return rho, tau / 2.0 + 0.05
+
+
+def _xc_fd(torch, cell):
+    """exc_and_vxc on the card in float64: sum(vxc drho) w against the
+    central difference of Exc along a seeded drho (and dtau for SCAN)."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import xc
+
+    fmesh = tuple(int(m) for m in cell.mesh)
+    w = float(cell.vol) / int(np.prod(fmesh))
+    dev = torch.device("cuda")
+    gv = torch.as_tensor(cell.get_Gv(fmesh), device=dev)
+    rho, tau = (torch.as_tensor(a, device=dev) for a in _toy_rho(cell, 4))
+    g = torch.Generator(device=dev).manual_seed(8)
+    d_r, d_t = (1e-4 * torch.randn(rho.shape, generator=g, device=dev,
+                                   dtype=rho.dtype) for _ in range(2))
+    out = {}
+    for name, gate in (("pbe", 1e-7), ("scan", 1e-6)):
+        spec = xc.parse_xc(name)
+        if spec.is_mgga:
+            f = lambda r, t: xc.exc_and_vxc_mgga(r, t, gv, spec, fmesh, w)
+            _, v, vt = f(rho, tau)
+            an = float((v * d_r).sum() + (vt * d_t).sum()) * w
+            fd = (float(f(rho + d_r, tau + d_t)[0])
+                  - float(f(rho - d_r, tau - d_t)[0])) / 2.0
+        else:
+            f = lambda r: xc.exc_and_vxc(r, gv, spec, fmesh, w)
+            v = f(rho)[1]
+            an = float((v * d_r).sum()) * w
+            fd = (float(f(rho + d_r)[0]) - float(f(rho - d_r)[0])) / 2.0
+        out[name] = (abs(fd - an) / abs(fd), gate)
+    return out
+
+
+def _ks_diamond(torch):
+    """(a) diamond: each functional built and solved on the card and on
+    the CPU; the finite-difference check of exc_and_vxc on the card."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRKS, KUKS
+
+    cell, kpts = _diamond()
+    refs = json.loads(REFS.read_text())["ks_diamond"]
+    runs = (("krks_lda", KRKS, "lda", None), ("krks_pbe", KRKS, "pbe", None),
+            ("krks_b3lyp", KRKS, "b3lyp", None),
+            ("krks_scan", KRKS, "scan", None),
+            ("krks_hse06", KRKS, "hse06", None),
+            ("kuks_lda_u", KUKS, "lda", {0: (1, 0.2), 1: (1, 0.2)}))
+    mfs = {}
+    for dev in ("cuda", "cpu"):
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                     device=dev).build(mask=np.asarray(refs["mask"]))
+        for key, cls, xc, hub in runs:
+            mf = cls(cell, kpts, df, xc=xc, hubbard=hub, device=dev,
+                     verbose=0, conv_tol=1e-10, max_cycle=80)
+            mf.kernel()
+            mfs[dev, key] = mf
+    ok = True
+    for key, cls, _, _ in runs:
+        g, c = mfs["cuda", key], mfs["cpu", key]
+        nspin = 2 if cls is KUKS else 1
+        dm = c.dm if nspin == 2 else c.dm[None]
+        v_g = g._xc_eval(g._dm_device(dm), nspin)[1]
+        v_c = c._xc_eval(c._dm_device(dm), nspin)[1]
+        rel = float(np.abs(v_g - v_c).max() / np.abs(v_c).max())
+        de = abs(g.e_tot - c.e_tot)
+        dj = abs(g.e_tot - refs[key]["e_tot"])
+        log(f"[9a] diamond {key}: e_tot cuda {g.e_tot:.12f} cpu "
+            f"{c.e_tot:.12f} |dE| {de:.2e} (gate 1e-9), cycles "
+            f"{g.cycles}/{c.cycles}; Vxc on the CPU's density {rel:.2e} "
+            f"relative (gate 1e-10); JAX package's energy {dj:.2e} off")
+        ok &= (g.converged and c.converged and de <= 1e-9 and rel <= 1e-10
+               and dj <= 1e-8)
+    mf = mfs["cuda", "krks_scan"]
+    es, _ = mf.get_bands(kpts)
+    nocc = cell.nelectron // 2
+    d_b = float(np.abs(np.asarray(es)[:, :nocc + 1]
+                       - mf.mo_energy[:, :nocc + 1]).max())
+    log(f"[9a] diamond SCAN bands at the mesh points on the card against "
+        f"the SCF's eigenvalues {d_b:.2e} Ha (gate 5e-5; the build is full "
+        "rank)")
+    fd = _xc_fd(torch, cell)
+    log("[9a] exc_and_vxc on the card, central difference against "
+        "sum(vxc drho) w: " + ", ".join(f"{n} {e:.2e} (gate {gt:.0e})"
+                                        for n, (e, gt) in fd.items()))
+    if not (ok and d_b <= 5e-5 and all(e <= gt for e, gt in fd.values())):
+        raise RuntimeError("KS on the card misses the CPU, the JAX package "
+                           "or its own derivative")
+    del mfs, mf, df
+    torch.cuda.empty_cache()
+
+
+def _nio_hubbard(u):
+    """DFT+U on the Ni d shells (atoms 0 and 1), examples/nio_afm_kuhf.py's
+    ``--hubbard-u``."""
+    return {0: (2, u), 1: (2, u)}
+
+
+def _ks_anchor(torch):
+    """(b) KUKS-PBE and KUKS-PBE+U on the NiO anchor (the JAX package's
+    points) against the JAX package's energies."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KUKS
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+
+    rec = json.loads(KS_ANCHOR.read_text())
+    cfg = rec["config"]
+    cell, kpts = _nio(cfg["ke_cutoff"], cfg["kmesh"])
+    df = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]),
+                 verbose=0).build(mask=np.asarray(rec["mask"]))
+    ok = True
+    for key, hub in (("pbe", None),
+                     ("pbe_u", _nio_hubbard(cfg["hubbard_u_ha"]))):
+        t0 = time.perf_counter()
+        mf = KUKS(cell, kpts, df, xc="pbe", hubbard=hub, verbose=0,
+                  conv_tol=cfg["conv_tol"], max_cycle=cfg["max_cycle"],
+                  init_spin=AFM, smearing=cfg["smearing"])
+        e = mf.kernel()
+        secs = time.perf_counter() - t0
+        _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+        ref = rec[key]
+        de = abs(e - ref["e_tot"])
+        log(f"[9b] anchor KUKS-{key.upper().replace('_U', '+U')}: e_tot "
+            f"{e:.10f} conv {mf.converged} cycles {mf.cycles} ({secs:.1f}s)"
+            f"; JAX {ref['e_tot']:.10f} ({ref['cycles']} cycles): |dE| "
+            f"{de:.2e} Ha (gate 1e-6); Ni moments {mom[0]:+.4f} "
+            f"{mom[1]:+.4f}, JAX {ref['moments'][0]:+.4f} "
+            f"{ref['moments'][1]:+.4f}")
+        ok &= mf.converged and de <= 1e-6
+    if not ok:
+        raise RuntimeError("KUKS misses the JAX anchor")
+    del df, mf
+    torch.cuda.empty_cache()
+
+
+def _xc_pass_figures(torch, mf, dm):
+    """(milliseconds, extra peak bytes, AO tensor bytes) of one xc pass of
+    ``mf``'s functional on the spin density ``dm``, warm."""
+    from fftisdf_tpu_torch.scf import xc
+
+    ao = mf._get_ao()
+    args = (ao, mf._dm_device(dm), mf._gv, mf._spec, mf._fmesh,
+            mf._xc_weight, len(mf.kpts), 2)
+    kw = dict(coords=mf._coords, kpts=mf._kpts_arr)
+    xc.xc_pass(*args, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xc.xc_pass(*args, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, torch.cuda.max_memory_allocated() - base, \
+        ao.numel() * ao.element_size()
+
+
+def _band_potentials(mf, nb):
+    """(Vxc, V_U or None): max|band path - SCF| / max|SCF| of a KUKS's
+    band-path xc and +U matrices at its first ``nb`` mesh points, where
+    both are the SCF's own matrices to rounding (the band eigenvalues also
+    carry the J re-fit's compression)."""
+    import numpy as np
+
+    kb = mf.kpts[:nb]
+    s1e_b, _, _, _, aob = mf._band_ingredients(kb, mf.dm, with_k=False,
+                                               return_ao=True)
+    dm_dev = mf._dm_device(mf.dm)
+    v_b = mf._band_vxc(dm_dev, aob, 2, kpts_band=kb)
+    v_k = mf._xc_eval(dm_dev, 2)[1][:, :nb]
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    rel_u = None
+    if mf._hub_sites is not None:
+        rel_u = rel(mf._hubbard_vu_bands(mf.dm, s1e_b),
+                    mf._hubbard_eu_vu(mf.dm)[1][:, :nb])
+    return rel(v_b, v_k), rel_u
+
+
+def _ks_slice(torch, ctx):
+    """(c) the slice: DeviceKUKS against the host KUKS on phase 4's build,
+    SCAN on the host, bands, float32."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KUKS, DeviceKUKS
+    from fftisdf_tpu_torch.scf.hf import _eigh_gen
+
+    cell, kpts, df = _slice(ctx)
+    if df.x_k.device.type != "cuda":
+        _unpark(df)
+    t0 = time.perf_counter()
+    df.get_ws_omega(-0.11)
+    torch.cuda.synchronize()
+    log(f"[9c] slice erfc-screened metric (omega -0.11, one metric pass "
+        f"and its image-space form) {time.perf_counter() - t0:.3f}s")
+    ok = True
+    runs = (("PBE+U", "pbe", _nio_hubbard(NIO_U), True),
+            ("PBE0", "pbe0", None, True), ("HSE06", "hse06", None, True),
+            ("SCAN", "scan", None, False), ("PBE", "pbe", None, False))
+    for label, xc_name, hub, device in runs:
+        host = KUKS(cell, kpts, df, xc=xc_name, hubbard=hub, verbose=0,
+                    **KS_KW)
+        host.kernel()
+        ms, peak, nbytes = _xc_pass_figures(torch, host, host.dm)
+        line = (f"[9c] slice {label}: " + _scf_line("host KUKS", host,
+                                                    host.cycle_seconds)
+                + f"; xc pass {ms:.1f} ms, +{peak / 1e9:.2f} GB peak over "
+                f"the {nbytes / 1e9:.2f} GB AO tensor")
+        ok &= host.converged
+        if label in ("PBE+U", "SCAN", "PBE"):
+            r_v, r_u = _band_potentials(host, 2)
+            line += (f"; at 2 mesh points band-path Vxc {r_v:.2e}"
+                     + ("" if r_u is None else f", V_U {r_u:.2e}")
+                     + " relative to the SCF's (gate 1e-10)")
+            ok &= r_v <= 1e-10 and (r_u is None or r_u <= 1e-10)
+        if device:
+            dev = DeviceKUKS(cell, kpts, df, xc=xc_name, hubbard=hub,
+                             verbose=0, **KS_KW)
+            dev.kernel()
+            de = abs(dev.e_tot - host.e_tot)
+            line += ("; " + _scf_line("DeviceKUKS", dev, dev.cycle_times)
+                     + f"; |dE| {de:.2e} Ha (gate 3e-8)")
+            ok &= dev.converged and de <= 3e-8
+            del dev
+        log(line)
+        if label != "PBE":
+            del host
+        torch.cuda.empty_cache()
+    # bands at two mesh points; the band serve re-fits J pair by pair where
+    # the SCF's serve fits the q sector, so they agree to the compression
+    t0 = time.perf_counter()
+    es, _ = host.get_bands(kpts[:2])
+    band_s = (time.perf_counter() - t0) / 2
+    fock = host.get_fock(host.dm)[0]
+    na = host.nocc_ab[0]
+    d_mo = d_fock = 0.0
+    for s in range(2):
+        for k in range(2):
+            e_ref, _ = _eigh_gen(fock[s, k], host.s1e[k],
+                                 cutoff=host.ovlp_cutoff)
+            d_fock = max(d_fock, float(np.abs(es[s][k][:na + 1]
+                                              - e_ref[:na + 1]).max()))
+            d_mo = max(d_mo, float(np.abs(es[s][k][:na + 1]
+                                          - host.mo_energy[s, k][:na + 1])
+                                   .max()))
+    log(f"[9c] slice KUKS-PBE bands at 2 mesh points ({band_s:.2f}s a "
+        f"point): against the SCF eigenvalues {d_mo:.2e} Ha, against the "
+        f"converged Fock's {d_fock:.2e} Ha (gate 1e-3: the band serve's "
+        "per-pair re-fit of J against the SCF's compressed J; its Vxc is "
+        "held to 1e-10 above)")
+    ok &= d_fock <= 1e-3
+    e64 = host.e_tot
+    del host
+    df.x_k = df.wq = None
+    ctx.pop("slice")
+    torch.cuda.empty_cache()
+    # float32: its own build, KUKS-PBE against the float64 energy
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), dtype=torch.float32,
+                 verbose=0).build()
+    mf = KUKS(cell, kpts, df, xc="pbe", dtype=torch.float32, verbose=0,
+              **dict(SCF_KW_F32, max_cycle=150))
+    mf.kernel()
+    de = abs(mf.e_tot - e64) / cell.natm
+    log(f"[9c] slice float32 " + _scf_line("KUKS-PBE", mf, mf.cycle_seconds)
+        + f"; |e_tot - float64 KUKS-PBE| {de:.3e} Ha/atom (gate 2e-2)")
+    ok &= mf.converged and de <= 2e-2
+    del df, mf
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError("KS on the slice: a loop did not converge or the "
+                           "device and host loops disagree")
+
+
+def _ks_cycle_parts(torch, mf):
+    """The KS cycle's own parts, beyond the loop's, as callables on
+    ``mf``'s converged density: the J serve, the +U energy and potential
+    on the card (the device loop's) and in numpy (the host loop's)."""
+    from fftisdf_tpu_torch.isdf import jk as jk_mod
+    from fftisdf_tpu_torch.scf import hubbard as hub_mod
+
+    df = mf.with_df
+    dm = mf._dm_device(mf.dm)
+    dm_s = dm.to(df.x_k.dtype)
+    shalf = torch.as_tensor(mf._shalf, device=dm.device, dtype=dm.dtype)
+    return {
+        "J serve": lambda: jk_mod.get_j_kpts(df.x_k, df.wq[0], dm_s),
+        "+U on the card": lambda: hub_mod.eu_and_vu_traced(
+            dm, shalf, mf._hub_sites),
+        "+U, host loop (numpy)": lambda: mf._hubbard_eu_vu(mf.dm),
+    }
+
+
+def _ks_production(torch, ctx):
+    """(d) DeviceKUKS-PBE+U at production on phase 6b's build."""
+    from fftisdf_tpu_torch.scf import KUKS, DeviceKUKS, dos
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+
+    prod = ctx.pop("production")
+    cell, kpts, df = prod["cell"], prod["kpts"], prod["df"]
+    if df.x_k.device.type != "cuda":
+        _unpark(df)
+    hub = _nio_hubbard(NIO_U)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf = DeviceKUKS(cell, kpts, df, xc="pbe", hubbard=hub, verbose=3,
+                    **KS_KW)
+    setup_s = time.perf_counter() - t0
+    mf.kernel()
+    to_energy = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms, xc_peak, nbytes = _xc_pass_figures(torch, mf, mf.dm)
+    parts = _device_loop_parts(torch, mf,
+                               extra=_ks_cycle_parts(torch, mf))
+    _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+    _, mom_l = atom_charges_and_moments(cell, mf.dm, mf.s1e,
+                                        scheme="loewdin")
+    per = mf.cycle_times[1:] or mf.cycle_times
+    log(f"[9d] production " + _scf_line("DeviceKUKS-PBE+U", mf,
+                                        mf.cycle_times)
+        + f"; setup {setup_s:.2f}s (the one-electron integrals and the AO "
+        f"tensor kept from them); time to the converged energy "
+        f"{to_energy:.2f}s; peak "
+        f"memory {peak / 1e9:.2f} GB; Ni moments Mulliken {mom[0]:+.4f} "
+        f"{mom[1]:+.4f}, Loewdin {mom_l[0]:+.4f} {mom_l[1]:+.4f}")
+    log(f"[9d] production xc pass (PBE, 2 spins) {ms:.1f} ms, "
+        f"+{xc_peak / 1e9:.2f} GB peak; AO tensor {nbytes / 1e9:.2f} GB, "
+        "read at least twice: "
+        f"{2 * nbytes / (ms * 1e-3) / 1e12:.2f} TB/s for those reads; "
+        f"{sum(per) / len(per):.4f} s/cycle")
+    log(f"[9d] production KS cycle parts, each timed alone at the run's "
+        f"shapes: xc pass {ms:.2f} ms; " + _parts_line(parts)
+        + f"; a device cycle past the first {sum(per) / len(per) * 1e3:.1f}"
+        " ms")
+    ef = dos.fermi_level(mf)
+    energies, pdos = dos.projected_dos(mf, sigma=5e-3, npts=800)
+    below = dos.integrated_dos(energies, pdos, ef)        # (2, natm)
+    log(f"[9d] projected DOS (Loewdin, sigma 5e-3, 800 points): Fermi level "
+        f"{ef:.6f} Ha; states below it by atom, up | down: " + "; ".join(
+            f"{sym} {below[0, i]:.3f} | {below[1, i]:.3f}"
+            for i, (sym, _) in enumerate(cell.atom)))
+    e_dev, cycles = mf.e_tot, mf.cycles
+    conv = mf.converged
+    del mf
+    torch.cuda.empty_cache()
+    host = KUKS(cell, kpts, df, xc="pbe", hubbard=hub, verbose=0, **KS_KW)
+    host.kernel()
+    de = abs(host.e_tot - e_dev)
+    log("[9d] production " + _scf_line("host KUKS-PBE+U", host,
+                                       host.cycle_seconds)
+        + f"; |dE| against DeviceKUKS {de:.2e} Ha (gate 3e-8)")
+    ctx["ks_production"] = dict(e_tot=e_dev, cycles=cycles, moments=mom)
+    if not (conv and host.converged and mom[0] * mom[1] < 0
+            and de <= 3e-8):
+        raise RuntimeError("the production DeviceKUKS-PBE+U did not converge "
+                           "to an AFM state equal to the host loop's")
+    del host
+    df.x_k = df.wq = None
+    torch.cuda.empty_cache()
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
     only = None
     if len(sys.argv) > 1:
         only = {int(p) for p in sys.argv[1].split(",")}
-        if 8 in only:                   # phase 8 serves phases 4/6's state
+        if only & {8, 9}:               # phases 8, 9 serve phases 4/6's state
             only |= {4, 6}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
@@ -1573,6 +1996,9 @@ def _run(torch, run, only, t_all, ctx):
     rest_launches = pair_gram_sq.launches
     if run(8) and rest_launches < 1:
         raise RuntimeError("phase 8's builds did not launch K1")
+    timed(9, phase9_ks, ctx)
+    if run(9) and prod_launches < 1:
+        raise RuntimeError("the build that served phase 9d did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -1583,7 +2009,8 @@ def _run(torch, run, only, t_all, ctx):
     kernels = {"kernels": [
         {"name": "pair_gram_sq", **common, "dtype": "complex128",
          "launches": launches, "production_launches": prod_launches,
-         "phase8_launches": rest_launches, **k1["complex128"]},
+         "phase8_launches": rest_launches, "ks_launches": prod_launches,
+         **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},
     ]}

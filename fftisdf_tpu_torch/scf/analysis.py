@@ -1,10 +1,9 @@
 """Population analysis of converged k-point SCF states (host numpy).
 
-Counterpart of ``fftisdf_tpu/scf/analysis.py``: Mulliken populations
-(Re diag(D S)), k-averaged and resolved per atom, the local spin moments
-and charge transfer of the NiO AFM slice.  The Loewdin scheme needs the
-S^1/2 of ``scf/hubbard.py``, which the port does not have yet; asking for
-it raises.
+Counterpart of ``fftisdf_tpu/scf/analysis.py``: Mulliken (Re diag(D S))
+and Loewdin (diag(S^1/2 D S^1/2)) populations, k-averaged and resolved
+per atom, the local spin moments and charge transfer of the NiO AFM
+slice.
 """
 from __future__ import annotations
 
@@ -29,17 +28,20 @@ def ao_populations(cell, dm, s1e, scheme="mulliken"):
 
     ``dm`` is (nk, nao, nao) restricted (one channel holding the total
     population) or (2, nk, nao, nao).  ``scheme``: 'mulliken'
-    (Re diag(D S)); 'loewdin' is not ported (it needs scf.hubbard's
-    S^1/2)."""
+    (Re diag(D S)) or 'loewdin' (diag(S^1/2 D S^1/2), stable under basis
+    rotations: the projector frame of the DFT+U occupations,
+    ``scf.hubbard``)."""
     dm = np.asarray(dm)
     s1e = np.asarray(s1e)
     dms = dm if dm.ndim == 4 else dm[None]
+    nk = s1e.shape[0]
     if scheme == "mulliken":
-        return np.einsum("skmn,knm->sm", dms, s1e).real / s1e.shape[0]
+        return np.einsum("skmn,knm->sm", dms, s1e).real / nk
     if scheme == "loewdin":
-        raise NotImplementedError(
-            "Loewdin populations need scf.hubbard.shalf_kpts, which the "
-            "port does not have yet")
+        from fftisdf_tpu_torch.scf.hubbard import shalf_kpts
+
+        sh = shalf_kpts(s1e)
+        return np.einsum("kpm,skmn,knp->sp", sh, dms, sh).real / nk
     raise ValueError(f"unknown population scheme {scheme!r}")
 
 

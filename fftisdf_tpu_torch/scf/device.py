@@ -13,7 +13,9 @@ once a cycle to check its result.
 
 Scope: KUHF/KRHF with fixed or smeared occupations, the AFM on-site bias
 and linear density damping (``damp``); ``level_shift`` stays with the
-host loop, and ``exxdiv`` is refused (the loop serves exxdiv=None).
+host loop, and ``exxdiv`` is refused (the loop serves exxdiv=None).  The
+Fock build of a cycle is a hook that ``scf.ks`` overrides for
+DeviceKUKS/DeviceKRKS.
 The loop runs in the SCF object's ``dtype`` (float64 unless float32 is
 asked for); J/K are served in the provider's own precision and cast.  A
 float32 loop's energy reduction is float32-granular (~6e-5 Ha at
@@ -109,7 +111,41 @@ class DeviceKUHF(KUHF):
     """KUHF with the device-resident iteration (one fetch per cycle) on
     the device of its FFTISDF J/K provider.  Same arguments and results
     as :class:`~fftisdf_tpu_torch.scf.hf.KUHF`; ``cycle_times`` holds the
-    wall seconds of each cycle."""
+    wall seconds of each cycle.
+
+    The Fock build and energy of a cycle are three hooks, which the KS
+    drivers (``scf.ks``) override: :meth:`_veff_args` (the extra device
+    tensors the build reads), :meth:`_needs_exx` (whether it builds exact
+    exchange, and so reads the image-space metric) and
+    :meth:`_trace_veff`."""
+
+    def _veff_args(self):
+        """Extra device tensors :meth:`_trace_veff` reads, made once."""
+        return ()
+
+    def _needs_exx(self):
+        """Whether :meth:`_trace_veff` builds exact exchange.  Only then is
+        the image-space metric ``ws`` fetched (or built)."""
+        return True
+
+    def _trace_veff(self, dm, x_k, w0, ws, h1e):
+        """(fock (2, nk, nao, nao), e_elec) of the UHF functional on the
+        device.  J and K are served in the provider's precision from w0 =
+        wq[0] and the image-space metric ``ws`` (the full wq is never
+        read), then cast to the loop's."""
+        nk = h1e.shape[0]
+        cdt = h1e.dtype
+        dm_s = dm.to(x_k.dtype)       # the provider's precision
+        vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
+        vk = jk_mod.get_k_kpts_img(x_k, ws, dm_s, self._kmesh,
+                                   phase_cs=self._phase_cs).to(cdt)
+        vj_tot = vj[0] + vj[1]
+        fock = torch.stack([h1e + vj_tot - vk[0], h1e + vj_tot - vk[1]])
+        dm_t = dm.transpose(-1, -2)
+        e_elec = ((dm_t * h1e).sum().real / nk
+                  + (dm_t * vj_tot).sum().real / (2 * nk)
+                  - (dm_t * vk).sum().real / (2 * nk))
+        return fock, e_elec
 
     def kernel(self, dm0=None):
         log = self._log
@@ -134,11 +170,14 @@ class DeviceKUHF(KUHF):
         xo_h = xo.mH
         dropped = torch.as_tensor(pen_np > 0, device=dev)
         bias = cplx(self._bias_matrices())
-        kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
-        # the serve reads w0 = wq[0] (a view) and the image-space metric;
-        # the full wq is never copied
-        x_k, w0, ws = df.x_k, df.wq[0], df.get_ws()
-        phase_cs = jk_mod._phase_cs(kmesh, ws.dtype, dev)
+        self._kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
+        # the serve reads w0 = wq[0] (a view) and, for exact exchange only,
+        # the image-space metric; the full wq is never copied
+        x_k, w0 = df.x_k, df.wq[0]
+        ws = df.get_ws() if self._needs_exx() else None
+        self._phase_cs = jk_mod._phase_cs(
+            self._kmesh, real_complex(w0.dtype)[0], dev)
+        veff_extra = self._veff_args()
 
         m = self.diis_space
         L = 2 * nk * nao * nao
@@ -155,16 +194,9 @@ class DeviceKUHF(KUHF):
         has_bias = bool(self.init_spin)
 
         def step(dm, it):
-            dm_s = dm.to(x_k.dtype)       # the provider's precision
-            vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
-            vk = jk_mod.get_k_kpts_img(x_k, ws, dm_s, kmesh,
-                                       phase_cs=phase_cs).to(cdt)
-            vj_tot = vj[0] + vj[1]
-            fock = torch.stack([h1e + vj_tot - vk[0], h1e + vj_tot - vk[1]])
-            dm_t = dm.transpose(-1, -2)
-            e_tot = ((dm_t * h1e).sum().real / nk
-                     + (dm_t * vj_tot).sum().real / (2 * nk)
-                     - (dm_t * vk).sum().real / (2 * nk) + e_nuc)
+            fock, e_elec = self._trace_veff(dm, x_k, w0, ws, h1e,
+                                            *veff_extra)
+            e_tot = e_elec + e_nuc
             err = fock @ dm @ s1e - s1e @ dm @ fock
             allow_adiis = (not has_bias) or it >= bias_cycles
             fock_x, n_new = _diis_update(

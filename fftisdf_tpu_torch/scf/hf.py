@@ -145,18 +145,23 @@ def _build_dm(mo_coeff, mo_occ):
     return np.einsum("kmi,ki,kni->kmn", mo_coeff, mo_occ, mo_coeff.conj())
 
 
-def _setup_one_electron(cell, kpts, device, log, dtype=None, trunc=None):
-    """(s1e, h1e) on the host in complex128, from AO tensors built on
-    ``device`` in ``dtype``, in k-chunks sized from its free memory: the
-    full-grid AO tensor of one k plus the kinetic FFT planes and the
-    projector values cost about ngrid (3 nao + nproj) complex numbers.
-    ``trunc``: the truncated local pseudopotential."""
+def _setup_one_electron(cell, kpts, device, log, dtype=None, trunc=None,
+                        keep_ao=False):
+    """(s1e, h1e, ao) with s1e/h1e on the host in complex128, from AO
+    tensors built on ``device`` in ``dtype``, in k-chunks sized from its
+    free memory: the full-grid AO tensor of one k plus the kinetic FFT
+    planes and the projector values cost about ngrid (3 nao + nproj)
+    complex numbers.  ``trunc``: the truncated local pseudopotential.
+    ``keep_ao``: the chunks are also gathered into the full-grid AO tensor
+    (nk, ngrid, nao) on ``device``, returned as ``ao`` (None otherwise)."""
     rdt, cdt = real_complex(dtype)
     coords = cell.gen_uniform_grids()
     ng = coords.shape[0]
     nao = cell.nao_nr()
     nproj = len(integrals._projector_shells(cell)[1])
     nk = len(kpts)
+    ao_all = (torch.empty((nk, ng, nao), dtype=cdt, device=device)
+              if keep_ao else None)
     per_k = ng * (3 * nao + nproj) * cdt.itemsize
     kchunk = int(max(1, min(nk, 0.5 * free_memory_bytes(device) // per_k)))
     coords_t = torch.as_tensor(coords, dtype=rdt, device=device)
@@ -167,6 +172,8 @@ def _setup_one_electron(cell, kpts, device, log, dtype=None, trunc=None):
         kp = kpts[k0:k0 + kchunk]
         ao = make_evaluator(cell, kpts=kp, dtype=rdt,
                             device=device)(coords_t)
+        if keep_ao:
+            ao_all[k0:k0 + len(kp)] = ao
         s_parts.append(to_numpy(integrals.get_ovlp(cell, ao)))
         h = (integrals.get_kinetic(cell, ao, kp, coords)
              + integrals.get_vloc(cell, ao, vgrid)
@@ -175,7 +182,7 @@ def _setup_one_electron(cell, kpts, device, log, dtype=None, trunc=None):
         del ao, h
     log.debug("setup: %d k-chunk(s) of %d", -(-nk // kchunk), kchunk)
     return (np.concatenate(s_parts).astype(np.complex128),
-            np.concatenate(h_parts).astype(np.complex128))
+            np.concatenate(h_parts).astype(np.complex128), ao_all)
 
 
 class KRHF:
@@ -237,21 +244,29 @@ class KRHF:
         self.converged = False
         self.cycles = 0
         self.cycle_seconds = []
-        self.s1e, self.h1e = _setup_one_electron(
+        # a driver that reads the AO tensor every cycle (scf.ks) keeps the
+        # setup's; the exact oracle's own is reused instead (_get_ao)
+        keep = (self._keeps_ao() and with_df is not None
+                and not isinstance(with_df, PWDF))
+        self.s1e, self.h1e, self._ao = _setup_one_electron(
             cell, self.kpts, self.device, self._log, dtype=self.dtype,
-            trunc=trunc)
+            trunc=trunc, keep_ao=keep)
         self.e_nuc = (integrals.energy_nuc_trunc(cell, trunc)
                       if trunc is not None else integrals.ewald(cell))
         if self.with_df is None:
             self.with_df = PWDF(cell, self.kpts, dtype=self.dtype,
                                 trunc=trunc, device=self.device)
-        self._ao = None
+
+    def _keeps_ao(self):
+        """Whether the driver keeps the full-grid AO tensor of its setup:
+        only drivers that read it every cycle do."""
+        return False
 
     def _get_ao(self):
-        """Full-grid AO tensor (nk, ngrid, nao) on ``device``, built at the
-        first call (the exact band path needs it; the ISDF path never
-        does): a :class:`PWDF` provider's own tensor when it has the
-        driver's precision."""
+        """Full-grid AO tensor (nk, ngrid, nao) on ``device``: the setup's
+        when the driver kept it, else built at the first call (the exact
+        band path needs it; the ISDF HF path never does), a :class:`PWDF`
+        provider's own tensor when it has the driver's precision."""
         if self._ao is None:
             ao = getattr(self.with_df, "ao", None)
             if (isinstance(self.with_df, PWDF)
@@ -368,8 +383,9 @@ class KRHF:
         return self.e_tot
 
     # --------------------------------------------------------------
-    def _band_ingredients(self, kpts_band, dm):
-        """(s1e_b, h1e_b, vj_b, vk_b) at band k-points from the mesh
+    def _band_ingredients(self, kpts_band, dm, with_k=True,
+                          return_ao=False):
+        """(s1e_b, h1e_b, vj_b, vk_b[, ao_b]) at band k-points from the mesh
         density, on the host in complex128.
 
         An ISDF provider serves band J/K from its product state
@@ -379,7 +395,10 @@ class KRHF:
         argmin-|q+G|^2 sample strictly inside the minimum q-lattice plane
         spacing).  With ``exxdiv='ewald'`` the probe-charge term needs the
         density at the band point, so it exists at mesh points only:
-        off-mesh points raise ``ValueError``."""
+        off-mesh points raise ``ValueError``.  ``with_k=False`` (pure KS
+        functionals, ``scf.ks``) skips exchange and returns ``vk_b = 0.0``;
+        ``return_ao`` also returns the band-point AO tensor (nb, ngrid,
+        nao) on the device, for the KS drivers' xc matrix elements."""
         from fftisdf_tpu_torch.isdf.bands import _qlat_dmin2
 
         cell = self.cell
@@ -392,7 +411,8 @@ class KRHF:
                                     trunc=self.trunc)
         kmesh = kpt_mod.kpts_to_kmesh(cell, self.kpts)
         if getattr(self.with_df, "wq", None) is not None:
-            vj_b, vk_b = self.with_df.get_jk(dm, kpts_band=kpts_band)
+            vj_b, vk_b = self.with_df.get_jk(dm, kpts_band=kpts_band,
+                                             with_k=with_k)
         else:
             ao = self._get_ao()
             dmt = as_tensor(dm, ao.device, ao.dtype)
@@ -404,10 +424,12 @@ class KRHF:
                 pw_jk.get_k_kpts(cell, d, ao, self.kpts, coords=coords,
                                  ao_band=aob, kpts_band=kpts_band,
                                  g0_argmin_thresh=_qlat_dmin2(cell, kmesh),
-                                 trunc=self.trunc) for d in dms])
+                                 trunc=self.trunc)
+                for d in dms]) if with_k else None
             if dmt.ndim == 3:
-                vj_b, vk_b = vj_b[0], vk_b[0]
-        if self.exxdiv == "ewald":
+                vj_b = vj_b[0]
+                vk_b = None if vk_b is None else vk_b[0]
+        if self.exxdiv == "ewald" and with_k:
             scaled = cell.get_scaled_kpts(kpts_band)
             smesh = cell.get_scaled_kpts(self.kpts)
             idx = [kpt_mod.member(sb, smesh, strict=False) for sb in scaled]
@@ -425,7 +447,9 @@ class KRHF:
             vk_b = add_ewald_exx(vk_b, s1e_b.to(vk_b.device, vk_b.dtype),
                                  dmb, mad)
         host = lambda t: to_numpy(t).astype(np.complex128, copy=False)
-        return host(s1e_b), host(h1e_b), host(vj_b), host(vk_b)
+        out = (host(s1e_b), host(h1e_b), host(vj_b),
+               host(vk_b) if vk_b is not None else 0.0)
+        return out + (aob,) if return_ao else out
 
     def get_bands(self, kpts_band, dm=None):
         """Band energies and orbitals at arbitrary k-points from the
@@ -436,7 +460,11 @@ class KRHF:
         if dm is None:
             raise ValueError("run kernel() first or pass dm")
         s1e_b, h1e_b, vj_b, vk_b = self._band_ingredients(kpts_band, dm)
-        fock = h1e_b + vj_b - 0.5 * vk_b
+        return self._eigh_bands(h1e_b + vj_b - 0.5 * vk_b, s1e_b)
+
+    def _eigh_bands(self, fock, s1e_b):
+        """(mo_energy list, mo_coeff list): one generalised eigensolve of
+        ``fock`` (nb, nao, nao) per band point."""
         es, cs = [], []
         for kb in range(fock.shape[0]):
             e, c = _eigh_gen(fock[kb], s1e_b[kb], cutoff=self.ovlp_cutoff)
@@ -624,13 +652,7 @@ class KUHF(KRHF):
         vj_tot = vj_b[0] + vj_b[1]
         es, cs = [], []
         for s in range(2):
-            fock = h1e_b + vj_tot - vk_b[s]
-            es_s, cs_s = [], []
-            for kb in range(fock.shape[0]):
-                e, c = _eigh_gen(fock[kb], s1e_b[kb],
-                                 cutoff=self.ovlp_cutoff)
-                es_s.append(e)
-                cs_s.append(c)
+            es_s, cs_s = self._eigh_bands(h1e_b + vj_tot - vk_b[s], s1e_b)
             es.append(es_s)
             cs.append(cs_s)
         return es, cs

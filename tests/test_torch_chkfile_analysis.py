@@ -128,9 +128,9 @@ def test_unrestricted_checkpoint_and_moments(he2_rhf, tmp_path):
 
 
 def test_populations_match_jax(he2_rhf, capsys):
-    """Mulliken populations equal the JAX package's and sum to the
-    electron count, the charges to zero; equivalent atoms carry equal
-    charge; mulliken() prints per atom; Loewdin is not ported."""
+    """Mulliken and Loewdin populations equal the JAX package's and sum to
+    the electron count, the charges to zero; equivalent atoms carry equal
+    charge; mulliken() prints per atom."""
     mf = he2_rhf
     pop = analysis.ao_populations(mf.cell, mf.dm, mf.s1e)
     np.testing.assert_allclose(
@@ -144,8 +144,14 @@ def test_populations_match_jax(he2_rhf, capsys):
     np.testing.assert_allclose(moments, 0.0, atol=1e-12)
     cj, _ = jax_analysis.mulliken(mf, log=False)
     np.testing.assert_allclose(charges, cj, atol=1e-13)
-    with pytest.raises(NotImplementedError):
-        analysis.ao_populations(mf.cell, mf.dm, mf.s1e, scheme="loewdin")
+    pop_l = analysis.ao_populations(mf.cell, mf.dm, mf.s1e,
+                                    scheme="loewdin")
+    np.testing.assert_allclose(
+        pop_l, jax_analysis.ao_populations(mf.cell, mf.dm, mf.s1e,
+                                           scheme="loewdin"), atol=1e-13)
+    np.testing.assert_allclose(pop_l.sum(), mf.cell.nelectron, atol=1e-8)
+    charges_l, _ = analysis.mulliken(mf, scheme="loewdin", log=False)
+    np.testing.assert_allclose(charges_l.sum(), 0.0, atol=1e-8)
     with pytest.raises(ValueError):
         analysis.ao_populations(mf.cell, mf.dm, mf.s1e, scheme="bader")
 

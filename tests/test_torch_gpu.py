@@ -20,7 +20,8 @@ held against the same calls on the CPU.  The float32 regime on the card:
 the build-dtype selection route launches K1 in complex64, the float64
 route does not, and both serve the CPU's J/K to float32 accuracy.  The
 ISDF band pair loop, the compact cderi serve and a 0d-truncated SCF on the
-card are held against the CPU.
+card are held against the CPU, and so are the xc functionals and the
+device-resident KS loop (PBE+U, SCAN, PBE0).
 """
 import numpy as np
 import pytest
@@ -359,3 +360,60 @@ def test_trunc_scf_on_cuda_matches_cpu(cuda):
         e[str(dev)] = mf.kernel()
         assert mf.converged
     assert abs(e[str(cuda)] - e["cpu"]) <= 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lda", "pbe", "b3lyp", "hse06", "scan"])
+def test_xc_on_cuda_matches_cpu(cuda, name):
+    """exc_and_vxc (v_tau too for SCAN) of a seeded positive density on
+    diamond's mesh, on the card against the CPU: exc to 1e-12 relative,
+    the potentials to 1e-10 of their scale."""
+    from fftisdf_tpu_torch.scf import xc
+
+    cell, _ = _diamond()
+    fmesh = tuple(int(m) for m in cell.mesh)
+    ng = int(np.prod(fmesh))
+    rng = np.random.default_rng(3)
+    rho = 0.2 + 0.1 * rng.random((2, ng))
+    tau = 0.5 + rng.random((2, ng))
+    spec = xc.parse_xc(name)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        gv, w = t(cell.get_Gv(fmesh)), float(cell.vol) / ng
+        if spec.is_mgga:
+            res = xc.exc_and_vxc_mgga(t(rho), t(tau), gv, spec, fmesh, w)
+        else:
+            res = xc.exc_and_vxc(t(rho), gv, spec, fmesh, w)
+        out[str(dev)] = [r.cpu().numpy() for r in res]
+    g, c = out[str(cuda)], out["cpu"]
+    assert abs(g[0] - c[0]) <= 1e-12 * abs(c[0])
+    for a, b in zip(g[1:], c[1:]):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xc_name, hub", [
+    ("pbe", {0: (1, 0.2), 1: (1, 0.2)}), ("scan", None), ("pbe0", None)])
+def test_device_kuks_on_cuda_matches_cpu(cuda, xc_name, hub):
+    """DeviceKUKS (PBE+U, SCAN, PBE0) on the card lands on the CPU's
+    energy and on the card's host loop, to 3e-8 Ha, on the same points."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KUKS, DeviceKUKS
+
+    cell, kpts = _diamond()
+    kw = dict(verbose=0, conv_tol=1e-10, max_cycle=80, xc=xc_name,
+              hubbard=hub)
+    e, mask = {}, None
+    for dev in ("cpu", cuda):
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                     device=dev).build(mask=mask)
+        mask = df.mask
+        mf = DeviceKUKS(cell, kpts, df, device=dev, **kw)
+        e[str(dev)] = mf.kernel()
+        assert mf.converged
+    host = KUKS(cell, kpts, df, device=cuda, **kw)
+    e_host = host.kernel()
+    assert host.converged
+    assert abs(e[str(cuda)] - e["cpu"]) <= 3e-8
+    assert abs(e[str(cuda)] - e_host) <= 3e-8

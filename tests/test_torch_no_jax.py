@@ -3,9 +3,9 @@ the JAX package can be imported (the GPU machine has no JAX, and the port
 keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
-module of the port imports, and one tiny build and ``get_jk`` run on a
-small He2 cell on the CPU; none of the refused modules may reach
-``sys.modules``."""
+module of the port imports (the KS modules among them), and one tiny
+build, ``get_jk`` and xc evaluation run on a small He2 cell on the CPU;
+none of the refused modules may reach ``sys.modules``."""
 import os
 import subprocess
 import sys
@@ -37,7 +37,8 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("isdf.bands", "isdf.cderi", "isdf.gamma", "isdf.ao2mo",
-                 "isdf.thc", "lattice.becke"):
+                 "isdf.thc", "lattice.becke", "scf.xc", "scf.ks",
+                 "scf.hubbard", "scf.dos"):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np
@@ -53,6 +54,16 @@ SCRIPT = textwrap.dedent("""
                  device="cpu").build()
     vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
     assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
+
+    import torch
+    from fftisdf_tpu_torch.scf import KRKS, KUKS, DeviceKRKS, DeviceKUKS
+    from fftisdf_tpu_torch.scf import xc
+
+    fmesh = tuple(int(m) for m in cell.mesh)
+    gv = torch.as_tensor(cell.get_Gv(fmesh))
+    rho = torch.full((2, int(np.prod(fmesh))), 0.1, dtype=torch.float64)
+    exc, v = xc.exc_and_vxc(rho, gv, xc.parse_xc("pbe"), fmesh, 0.01)
+    assert bool(torch.isfinite(v).all()) and float(exc) < 0.0
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     assert "fftisdf_tpu_torch.native" in sys.modules

@@ -147,7 +147,7 @@ def _scf(refs):
 
 SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
             "trunc": lambda r: _trunc(r), "bands": lambda r: _bands(r),
-            "lsthc": lambda r: _lsthc(r)}
+            "lsthc": lambda r: _lsthc(r), "ks": lambda r: _ks(r)}
 
 
 def main():
@@ -328,6 +328,71 @@ def _lsthc(refs):
     out["becke"] = [list(map(float, r)) for r in LSTHC(
         cell, kpts, verbose=0, grids=grids).build().error_report()]
     refs["lsthc_he2"] = out
+
+
+KS_RUNS = (("krks_lda", "KRKS", "lda", None),
+           ("krks_pbe", "KRKS", "pbe", None),
+           ("krks_b3lyp", "KRKS", "b3lyp", None),
+           ("krks_scan", "KRKS", "scan", None),
+           ("krks_hse06", "KRKS", "hse06", None),
+           ("kuks_lda_u", "KUKS", "lda", {0: (1, 0.2), 1: (1, 0.2)}))
+NIO_U_EV = 6.2                 # U_eff on the Ni d shells (examples/nio_afm_kuhf.py)
+HARTREE_EV = 27.211386
+KS_ANCHOR = REPO / "tests" / "data" / "nio_afm_kuks_anchor.json"
+
+
+def _ks(refs):
+    """Kohn-Sham SCF energies: diamond 1x1x2 on an ISDF build (c0 40,
+    m0 9^3) for each functional of tests/test_torch_ks.py, and the NiO
+    anchor (examples/nio_afm_kuhf.py --xc pbe [--hubbard-u 6.2] on the
+    KUHF anchor's interpolation points), which goes to its own file."""
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice import structure
+    from fftisdf_tpu.scf import KRKS, KUKS
+    from fftisdf_tpu.scf.analysis import atom_charges_and_moments
+
+    drivers = {"KRKS": KRKS, "KUKS": KUKS}
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0).build()
+    out = {"config": "diamond gth-szv ke 50 1x1x2, c0 40, m0 9^3; "
+                     "conv_tol 1e-10, max_cycle 80; kuks_lda_u: hubbard "
+                     "{0: (1, 0.2), 1: (1, 0.2)}",
+           "mask": _mask(df)}
+    for key, drv, xc, hub in KS_RUNS:
+        mf = drivers[drv](cell, kpts, with_df=df, xc=xc, hubbard=hub,
+                          verbose=0, conv_tol=1e-10, max_cycle=80)
+        out[key] = {"e_tot": float(mf.kernel()),
+                    "converged": bool(mf.converged), "cycles": mf.cycles}
+    refs["ks_diamond"] = out
+
+    anchor = json.loads((REPO / "tests" / "data"
+                         / "nio_afm_kuhf_anchor.json").read_text())
+    cfg = anchor["config"]
+    cell = structure.to_cell(*structure.nio_afm(), basis=cfg["basis"],
+                             pseudo=cfg["pseudo"], ke_cutoff=cfg["ke_cutoff"],
+                             exp_to_discard=cfg["exp_to_discard"])
+    kpts = cell.get_kpts(cfg["kmesh"])
+    df = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]),
+                 verbose=0).build()
+    assert _mask(df) == anchor["mask"], "the anchor's selection moved"
+    u = NIO_U_EV / HARTREE_EV
+    rec = {"source": "JAX package (fftisdf_tpu) on the CPU in float64, "
+                     "written by tools/jax_port_refs.py ks: KUKS of "
+                     "examples/nio_afm_kuhf.py --xc pbe [--hubbard-u 6.2] "
+                     "on the KUHF anchor's interpolation points",
+           "config": dict(cfg, xc="pbe", hubbard_u_ev=NIO_U_EV,
+                          hubbard_u_ha=u, hubbard_l=2, hubbard_atoms=[0, 1]),
+           "mask": anchor["mask"]}
+    for key, hub in (("pbe", None), ("pbe_u", {0: (2, u), 1: (2, u)})):
+        mf = KUKS(cell, kpts, with_df=df, xc="pbe", hubbard=hub, verbose=0,
+                  conv_tol=cfg["conv_tol"], max_cycle=cfg["max_cycle"],
+                  init_spin=AFM, smearing=cfg["smearing"])
+        e = mf.kernel()
+        _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+        rec[key] = {"e_tot": float(e), "converged": bool(mf.converged),
+                    "cycles": mf.cycles,
+                    "moments": [float(m) for m in mom]}
+    KS_ANCHOR.write_text(json.dumps(rec, indent=1) + "\n")
 
 
 if __name__ == "__main__":
