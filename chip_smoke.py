@@ -138,14 +138,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    cycle's parts timed alone at its shapes (eigensolve, ADIIS, CDIIS,
    bisection, the J serve, +U on the card and the host loop's +U), the
    Mulliken and Loewdin moments and the Loewdin-projected DOS (the
-   states below the Fermi level, by atom and spin).
+   states below the Fermi level, by atom and spin);
+10. the many-body layer (``scf.mp2``, ``rpa``, ``gw``, ``tddft``,
+   ``bse``) through the default-device entry points, with K1's count
+   reset right before and >= 1 after: (a) on the H2 chain of
+   tests/test_mp2.py (gamma and 1x1x2) and diamond gth-szv ke 50 1x1x2,
+   on the JAX package's points and orbitals, kmp2, kump2, drpa, Sigma^c
+   and G0W0, CIS/TDA-PBE/B3LYP/HSE06, UTDA, Casida and BSE on the card
+   and on the CPU (1e-10 relative; QP energies 1e-6 Ha, their Newton
+   solve's stopping scale) and against tests/data/jax_port_refs.json
+   (1e-8); the JAX tests' identities on the card (kump2 of a closed shell
+   = kmp2, orbital phases move nothing, closed-shell UTDA = singlet +
+   triplet, BSE with the bare W = CIS, KRKS(xc='hf') TDA = CIS, Sigma
+   against the ov-space and pole oracles, the PBE kernel's HVP against a
+   central difference); examples/exciton_dispersion.py at its defaults
+   (diamond gth-szv ke 50 2x2x2 c0 40, every q, --eels); (b) on phase
+   6a's KUHF on the slice (re-converged without smearing if its
+   occupations are not integral to 1e-6), kump2 over the 262,144
+   k-triples and UTDA-CIS (4 roots, Davidson, the matvec's ms); (c)
+   diamond gth-dzvp ke 200 4x4x4, c0 40, m0 15^3 (nip 1040): KRHF and
+   KRKS-PBE, kmp2 = kump2 (1e-10), drpa (nw 24), G0W0 of HOMO-1..LUMO+1
+   (nw 40, npade 18; the QP gap above PBE's), TDA-PBE singlet and triplet
+   at q 0 and 1 (4 roots, Davidson converged), oscillator strengths, BSE
+   on the G0W0 energies (4 roots), each with its seconds and peak memory;
+   (d) NiO production on the 2x2x2 sub-mesh (nip 2480): DeviceKUHF and
+   DeviceKUKS-PBE+U (Ni moments of opposite sign; re-converged without
+   smearing where the occupations are fractional), kump2 and UTDA (CIS,
+   the PBE kernel) on each.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
-                                     # prints no result lines; 8 and 9 run
-                                     # 4 and 6 first for their state
+                                     # prints no result lines; 8, 9 and 10
+                                     # run 4 and 6 first for their state
 """
 import json
 import os
@@ -183,6 +209,7 @@ NIO_U = 6.2 / 27.211386           # U_eff 6.2 eV on the Ni d shells, in Ha
 SLICE_NIP = 1040
 SLICE_E_TOT = -360.3364120006     # the slice's converged energy on the H100
 PROD_NIP = 2480                   # c0 40 x nao 62
+DIAMOND_NIP = 1040                # diamond gth-dzvp: c0 40 x nao 26
 PROD_E_TOT = -365.3099342755      # production, float64, on the H100
 # |e_tot(float32) - e_tot(float64)| per atom that the float32 regime must
 # hold (Ha), set from the first runs on an H100: 6.6e-3 and 7.1e-3 on the
@@ -1295,7 +1322,7 @@ def _bands(torch, ctx):
     from fftisdf_tpu_torch.scf.hf import _eigh_gen
 
     cell, kpts, df = ctx["slice"]
-    mf = ctx.pop("slice_mf")
+    mf = ctx["slice_mf"]         # phase 10b's UMP2 and UTDA reference
     nk = len(kpts)
     # mesh points: the band serve re-fits each (band, k2) pair, the SCF's
     # serve fits the whole q sector, so they agree to the compression error
@@ -1850,8 +1877,8 @@ def _ks_slice(torch, ctx):
     ok &= d_fock <= 1e-3
     e64 = host.e_tot
     del host
-    df.x_k = df.wq = None
-    ctx.pop("slice")
+    _park(df)                    # phase 10b serves UMP2 and UTDA from it
+    df._wq_omega = {}
     torch.cuda.empty_cache()
     # float32: its own build, KUKS-PBE against the float64 energy
     df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), dtype=torch.float32,
@@ -1958,13 +1985,634 @@ def _ks_production(torch, ctx):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 10
+MB_REL = 1e-10       # card against CPU, and the identities
+MB_JAX = 1e-8        # against the JAX package's records
+QP_ABS = 1e-6        # QP energies: the Newton solve stops at 1e-8 Ha steps,
+                     # up to 1.2e-7 Ha from another solve of the same Sigma
+
+
+def phase10_many_body(torch, ctx):
+    ctx.pop("production", None)
+    _mb_card_cpu(torch)
+    _mb_identities(torch)
+    _exciton_dispersion(torch)
+    _mb_slice(torch, ctx)
+    _mb_diamond(torch)
+    _mb_production(torch)
+
+
+def _unpack(d):
+    import numpy as np
+
+    return (np.asarray(d["re"]) + 1j * np.asarray(d["im"])).reshape(
+        d["shape"])
+
+
+def _with_orbitals(mf, rec):
+    """``mf`` given a recorded reference's orbitals and density."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf.hf import _build_dm
+
+    mf.mo_coeff = _unpack(rec["mo_coeff"])
+    mf.mo_energy = np.asarray(rec["mo_energy"])
+    mf.mo_occ = np.asarray(rec["mo_occ"])
+    mf.dm = (np.stack([_build_dm(mf.mo_coeff[s], mf.mo_occ[s])
+                       for s in range(2)]) if mf.mo_coeff.ndim == 4
+             else _build_dm(mf.mo_coeff, mf.mo_occ))
+    return mf
+
+
+def _closed_shell_u(mf):
+    """A KUHF/KUKS holding a restricted reference's orbitals in both
+    spin channels."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import KUHF, KUKS
+
+    kw = {"xc": mf.xc} if hasattr(mf, "_spec") else {}
+    u = (KUKS if kw else KUHF)(mf.cell, mf.kpts, mf.with_df, verbose=0,
+                               device=mf.device, **kw)
+    u.mo_coeff = np.stack([mf.mo_coeff] * 2)
+    u.mo_energy = np.stack([mf.mo_energy] * 2)
+    u.mo_occ = np.stack([mf.mo_occ] * 2) * 0.5
+    u.dm = np.stack([mf.dm] * 2) * 0.5
+    return u
+
+
+def _h2_chain(spin=0):
+    """The H2 chain of tests/test_mp2.py."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+
+    return Cell(a=np.diag([6.0, 6.0, 7.0]),
+                atom=[("H", (3.0, 3.0, 1.8)), ("H", (3.0, 3.0, 3.2))],
+                basis={"H": [Shell(l=0, exps=np.array([1.2, 0.4]),
+                                   coeffs=np.eye(2))]},
+                pseudo="gth-pade", mesh=np.array([14, 14, 17]), unit="bohr",
+                spin=spin, precision=1e-12).build()
+
+
+def _relmax(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _mb_runs(dev, refs):
+    """{name: (value, JAX record or None, JAX tolerance kind)} of every
+    method on ``dev``, on the JAX package's points and orbitals: the H2
+    chain at gamma and 1x1x2, diamond gth-szv ke 50 1x1x2 (KRKS)."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRHF, KRKS, KUHF
+    from fftisdf_tpu_torch.scf.bse import bse
+    from fftisdf_tpu_torch.scf.gw import g0w0
+    from fftisdf_tpu_torch.scf.mp2 import kmp2, kump2
+    from fftisdf_tpu_torch.scf.rpa import drpa
+    from fftisdf_tpu_torch.scf.tddft import tda, tddft, utda
+
+    out = {}
+    for key in ("h2_gamma", "h2_k2"):
+        rec = refs[key]
+        cell = _h2_chain()
+        kpts = (np.zeros((1, 3)) if key == "h2_gamma"
+                else cell.get_kpts([1, 1, 2]))
+        df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                     select_tol=1e-18, rcond=1e-12, device=dev).build(
+                         mask=np.asarray(rec["mask"]))
+        mf = _with_orbitals(KRHF(cell, kpts, df, verbose=0, device=dev),
+                            rec["krhf"])
+        dense = lambda *a, **k: tda(*a, nroots=0, dense=True, **k)[0]
+        out[f"{key} kmp2"] = (kmp2(df, mf)[0], rec["kmp2"], "e")
+        out[f"{key} drpa"] = (drpa(df, mf, nw=24)[0], rec["drpa"], "e")
+        e_qp, info = g0w0(df, mf, nw=24)
+        out[f"{key} g0w0"] = (e_qp, rec["e_qp"], "qp")
+        out[f"{key} sigma"] = (info["sigma_iw"], _unpack(rec["sigma"])
+                               if "sigma" in rec else None, "e")
+        if key == "h2_gamma":
+            out[f"{key} cis s"] = (dense(mf, df), rec["tda_s"], "e")
+            out[f"{key} cis t"] = (dense(mf, df, singlet=False),
+                                   rec["tda_t"], "e")
+            out[f"{key} tdhf"] = (tddft(mf, df, nroots=3)[0], rec["tddft"],
+                                  "e")
+            out[f"{key} bse"] = (bse(mf, df, nroots=0, dense=True)[0],
+                                 rec["bse"], "e")
+            ks = _with_orbitals(KRKS(cell, kpts, df, xc="pbe", verbose=0,
+                                     device=dev), rec["krks_pbe"])
+            out[f"{key} pbe tda s"] = (dense(ks, df), rec["pbe_tda_s"], "e")
+            out[f"{key} pbe tda t"] = (dense(ks, df, singlet=False),
+                                       rec["pbe_tda_t"], "e")
+            out[f"{key} pbe tddft"] = (tddft(ks, df, nroots=3)[0],
+                                       rec["pbe_tddft"], "e")
+            out[f"{key} pbe g0w0"] = (g0w0(df, ks, nw=24)[0],
+                                      rec["pbe_e_qp"], "qp")
+        else:
+            um = _with_orbitals(KUHF(_h2_chain(spin=2), kpts, df, verbose=0,
+                                     device=dev), rec["kuhf_spin2"])
+            out[f"{key} kump2 spin 2"] = (kump2(df, um)[0],
+                                          rec["kump2_spin2"], "e")
+            out[f"{key} utda spin 2"] = (utda(um, df, nroots=0,
+                                              dense=True)[0],
+                                         rec["utda_spin2"], "e")
+            for q in (0, 1):
+                out[f"{key} cis s q{q}"] = (dense(mf, df, q=q),
+                                            rec[f"tda_s_q{q}"], "e")
+            out[f"{key} cis t q1"] = (dense(mf, df, q=1, singlet=False),
+                                      rec["tda_t_q1"], "e")
+            out[f"{key} tdhf q1"] = (tddft(mf, df, q=1, nroots=3)[0],
+                                     rec["tddft_q1"], "e")
+            out[f"{key} bse q1"] = (bse(mf, df, q=1, nroots=0,
+                                        dense=True)[0], None, None)
+    rec = refs["diamond"]
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                 device=dev).build(mask=np.asarray(rec["mask"]))
+    for xc in ("pbe", "b3lyp", "hse06"):
+        ks = _with_orbitals(KRKS(cell, kpts, df, xc=xc, verbose=0,
+                                 device=dev), rec[xc])
+        out[f"diamond {xc} tda s q1"] = (
+            tda(ks, df, q=1, nroots=0, dense=True)[0],
+            rec[xc]["tda_s_q1"], "e")
+        if xc != "pbe":
+            continue
+        r = rec[xc]
+        out["diamond pbe tda s q0"] = (tda(ks, df, nroots=0, dense=True)[0],
+                                       r["tda_s_q0"], "e")
+        out["diamond pbe tda t q0"] = (tda(ks, df, nroots=0, singlet=False,
+                                           dense=True)[0], r["tda_t_q0"],
+                                       "e")
+        out["diamond pbe casida"] = (tddft(ks, df, nroots=4)[0], r["tddft"],
+                                     "e")
+        out["diamond pbe utda q1"] = (utda(_closed_shell_u(ks), df, q=1,
+                                           nroots=0, dense=True)[0],
+                                      r["utda"], "e")
+        e_qp, info = g0w0(df, ks, nw=24)
+        out["diamond pbe sigma"] = (info["sigma_iw"], _unpack(r["sigma"]),
+                                    "e")
+        out["diamond pbe g0w0"] = (e_qp, r["e_qp"], "qp")
+        out["diamond pbe bse@qp"] = (
+            bse(ks, df, nroots=0, dense=True,
+                qp_energy=np.asarray(r["e_qp"]))[0], r["bse_qp"], "e")
+    return out
+
+
+def _mb_card_cpu(torch):
+    """(a) every method on the card and on the CPU: card = CPU to 1e-10
+    relative, both = the JAX package's records to 1e-8 (QP energies to
+    1e-6 Ha, the Newton solve's stopping scale)."""
+    import numpy as np
+
+    refs = json.loads(REFS.read_text())["many_body"]
+    t0 = time.perf_counter()
+    card = _mb_runs("cuda", refs)
+    t_card = time.perf_counter() - t0
+    cpu = _mb_runs("cpu", refs)
+    worst_dev = worst_jax = 0.0
+    bad = []
+    for name, (g, ref, kind) in card.items():
+        c = cpu[name][0]
+        if kind == "qp":
+            # each device's Newton solve stops at its own 1e-8 Ha step
+            r_dev = float(np.abs(np.asarray(g) - np.asarray(c)).max())
+            line = f"[10a] {name}: card-CPU {r_dev:.1e} Ha"
+            ok = r_dev <= QP_ABS
+        else:
+            r_dev = _relmax(g, c)
+            worst_dev = max(worst_dev, r_dev)
+            line = f"[10a] {name}: card-CPU {r_dev:.1e}"
+            ok = r_dev <= MB_REL
+        if ref is not None:
+            if kind == "qp":
+                d = float(np.abs(np.asarray(g) - np.asarray(ref)).max())
+                line += f", JAX {d:.1e} Ha (gate {QP_ABS:.0e})"
+                ok &= d <= QP_ABS
+            else:
+                d = _relmax(g, ref)
+                worst_jax = max(worst_jax, d)
+                line += f", JAX {d:.1e}"
+                ok &= d <= MB_JAX
+        log(line + ("" if ok else "  FAIL"))
+        if not ok:
+            bad.append(name)
+    log(f"[10a] {len(card)} quantities: card against CPU at most "
+        f"{worst_dev:.2e} relative (gate {MB_REL:.0e}; QP energies above, "
+        f"gate {QP_ABS:.0e} Ha), against the JAX "
+        f"package at most {worst_jax:.2e} (gate {MB_JAX:.0e}); card pass "
+        f"{t_card:.1f}s")
+    if bad:
+        raise RuntimeError(f"many-body card/CPU/JAX mismatch: {bad}")
+
+
+def _mb_identities(torch):
+    """(a) the JAX tests' identity gates, on the card."""
+    import numpy as np
+    from fftisdf_tpu_torch.basis.eval import make_evaluator
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.pw import get_eri_from_ao
+    from fftisdf_tpu_torch.scf import KRHF, KRKS
+    from fftisdf_tpu_torch.scf import xc as xc_mod
+    import copy
+    from fftisdf_tpu_torch.scf.bse import BSEOperator, bse
+    from fftisdf_tpu_torch.scf.gw import (drpa_poles, sigma_c_from_poles,
+                                          sigma_c_iw, sigma_c_ov_space)
+    from fftisdf_tpu_torch.scf.mp2 import kmp2, kump2
+    from fftisdf_tpu_torch.scf.rpa import drpa
+    from fftisdf_tpu_torch.scf.tddft import TDAOperator, _hvp, tda, utda
+
+    refs = json.loads(REFS.read_text())["many_body"]
+    cell = _h2_chain()
+    kpts = cell.get_kpts([1, 1, 2])
+    df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                 select_tol=1e-18, rcond=1e-12).build(
+                     mask=np.asarray(refs["h2_k2"]["mask"]))
+    mf = _with_orbitals(KRHF(cell, kpts, df, verbose=0), refs["h2_k2"]["krhf"])
+    u = _closed_shell_u(mf)
+    d_mp2 = _relmax(kump2(df, u)[0], kmp2(df, mf)[0])
+    # orbital phases move nothing (chi = A g A^H, ROADMAP §3)
+    ph = copy.copy(mf)
+    ph.mo_coeff = mf.mo_coeff * np.exp(2j * np.pi * np.random.default_rng(
+        0).random((len(kpts), 1, mf.mo_coeff.shape[2])))
+    runs = [(lambda m: [drpa(df, m, nw=12)[0]]),
+            (lambda m: sigma_c_iw(df, m, nw=12)[0]),
+            (lambda m: bse(m, df, q=1, nroots=0, dense=True)[0])]
+    d_gauge = max(_relmax(f(ph), f(mf)) for f in runs)
+    d_union = d_bare = 0.0
+    for q in (0, 1):
+        union = np.sort(np.concatenate([
+            tda(mf, df, q=q, singlet=s, nroots=0, dense=True)[0]
+            for s in (True, False)]))
+        d_union = max(d_union, _relmax(utda(u, df, q=q, nroots=0,
+                                            dense=True)[0], union))
+        a_cis = TDAOperator(mf, df, q=q).dense()
+        a_bse = BSEOperator(mf, df, q=q, wqs=df.wq).dense()
+        d_bare = max(d_bare, float(np.abs(a_bse - a_cis).max()))
+    # gamma: KRKS(xc='hf') TDA is CIS; Sigma against its oracles
+    kpts = np.zeros((1, 3))
+    df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                 select_tol=1e-18, rcond=1e-12).build(
+                     mask=np.asarray(refs["h2_gamma"]["mask"]))
+    hf = KRHF(cell, kpts, df, verbose=0, conv_tol=1e-10)
+    hf.kernel()
+    ks = KRKS(cell, kpts, df, xc="hf", verbose=0, conv_tol=1e-10)
+    ks.kernel()
+    d_hf = float(np.abs(tda(ks, df, nroots=3, dense=True)[0]
+                        - tda(hf, df, nroots=3, dense=True)[0]).max())
+    mf = _with_orbitals(KRHF(cell, kpts, df, verbose=0),
+                        refs["h2_gamma"]["krhf"])
+    coords = cell.gen_uniform_grids()
+    ao = make_evaluator(cell, kpts=kpts)(coords)[0]
+    mo = ao @ torch.as_tensor(mf.mo_coeff[0], device=ao.device)
+    eri = get_eri_from_ao(cell, (mo,) * 4, np.zeros(3), coords).cpu().numpy()
+    mo_e = mf.mo_energy[0]
+    sigma, iw, ef, _ = sigma_c_iw(df, mf, nw=24)
+    sig_ref, _, _ = sigma_c_ov_space(eri, mo_e, 1, nw=24)
+    om_s, resid, _ = drpa_poles(eri, mo_e, 1)
+    d_ov = float(np.abs(sigma[0] - sig_ref).max())
+    d_pole = float(np.abs(sig_ref.T - sigma_c_from_poles(
+        om_s, resid, ef, mo_e, 1, 1j * iw)).max())
+    # the PBE kernel's HVP against a central difference of exc_and_vxc
+    dcell, _ = _diamond()
+    fmesh = tuple(int(m) for m in dcell.mesh)
+    w = float(dcell.vol) / int(np.prod(fmesh))
+    dev = torch.device("cuda")
+    gv = torch.as_tensor(dcell.get_Gv(fmesh), device=dev)
+    rho = torch.as_tensor(_toy_rho(dcell, 4)[0], device=dev)
+    t = torch.randn(rho.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev, dtype=rho.dtype)
+    spec = xc_mod.parse_xc("pbe")
+    h = _hvp(rho, t[None], gv, spec, fmesh, w)[0]
+    vxc = lambda r: xc_mod.exc_and_vxc(r, gv, spec, fmesh, w)[1]
+    fd = (vxc(rho + 1e-5 * t) - vxc(rho - 1e-5 * t)) / 2e-5 * w
+    d_hvp = float((h - fd).abs().max() / h.abs().max())
+    gates = [("kump2 closed shell = kmp2 (H2 1x1x2, relative)", d_mp2,
+              1e-10),
+             ("drpa, Sigma^c(iw) and BSE under random orbital phases "
+              "(relative)", d_gauge, 1e-10),
+             ("UTDA closed shell = singlet + triplet TDA (q 0, 1)", d_union,
+              1e-10),
+             ("BSE with the bare W = CIS, dense matrices (q 0, 1)", d_bare,
+              1e-10),
+             ("KRKS(xc='hf') TDA = CIS (gamma, converged on the card)",
+              d_hf, 1e-7),
+             ("Sigma^c(iw) = the ov-space oracle", d_ov, 1e-8),
+             ("ov-space oracle = the dRPA pole sum", d_pole, 5e-3),
+             ("PBE HVP = central difference of exc_and_vxc (relative)",
+              d_hvp, 1e-6)]
+    for label, d, gate in gates:
+        log(f"[10a] identity on the card: {label}: {d:.2e} (gate "
+            f"{gate:.0e})")
+    if not all(d <= gate for _, d, gate in gates):
+        raise RuntimeError("a many-body identity fails on the card")
+
+
+def _exciton_dispersion(torch):
+    """(a) examples/exciton_dispersion.py at its defaults (diamond gth-szv
+    ke 50, 2x2x2, c0 40, KRHF CIS, 3 roots; --eels) on the card."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf.tddft import (dielectric_tda,
+                                             oscillator_strengths, tda)
+
+    t0 = time.perf_counter()
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([2, 2, 2])
+    df = FFTISDF(cell, kpts, c0=40.0, verbose=0).build()
+    mf = KRHF(cell, kpts, df, verbose=0)
+    mf.kernel()
+    ok = mf.converged
+    log(f"[10a] exciton dispersion: diamond gth-szv ke 50 2x2x2 c0 40 "
+        f"(m0 {df.m0}, nip {df.nip}); KRHF e_tot {mf.e_tot:.10f} conv "
+        f"{mf.converged} cycles {mf.cycles}")
+    for q in range(len(kpts)):
+        ws, info = tda(mf, df, q=q, nroots=3)
+        wt, _ = tda(mf, df, q=q, nroots=3, singlet=False)
+        qn = float(np.linalg.norm(kpts[q]))
+        line = (f"[10a]   q {q} |q| {qn:.6f}: S " + " ".join(
+            f"{w:.5f}" for w in ws) + " | T " + " ".join(
+                f"{w:.5f}" for w in wt))
+        ok &= bool(np.all(ws > 0) and np.all(wt > 0) and wt[0] <= ws[0])
+        if q == 0:
+            f = oscillator_strengths(mf, ws, info["x"])
+            line += "; f " + " ".join(f"{v:.4f}" for v in f)
+            ok &= bool(np.all(f >= 0))
+        elif qn > 1e-10:
+            om = np.linspace(0.0, float(ws[-1]) + 0.3, 13)
+            eps, d = dielectric_tda(mf, df, q=q, omegas=om)
+            peak = om[np.argmax(d["loss"])]
+            line += (f"; eps_M(0) {eps[0].real:.4f}, loss peak "
+                     f"{d['loss'].max():.4f} at w {peak:.3f}")
+            ok &= bool(eps[0].real > 1.0 and np.all(d["loss"] > -1e-12))
+        log(line)
+    log(f"[10a] exciton dispersion {time.perf_counter() - t0:.1f}s")
+    if not ok:
+        raise RuntimeError("the exciton dispersion is unphysical")
+    del df, mf
+    torch.cuda.empty_cache()
+
+
+def _integer_reference(mf, tag, **kw):
+    """``mf`` if its occupations are integral to 1e-6 (the JAX package's
+    TDA rule), else one of its class re-converged from its density without
+    smearing (said in the log)."""
+    import numpy as np
+
+    occ = np.asarray(mf.mo_occ)
+    if np.all((occ < 1e-6) | (np.abs(occ - 1.0) < 1e-6)):
+        log(f"{tag} the smeared reference's occupations are integral to "
+            "1e-6: used as it is")
+        return mf
+    frac = float(np.minimum(occ, np.abs(occ - 1.0)).max())
+    t0 = time.perf_counter()
+    new = type(mf)(mf.cell, mf.kpts, mf.with_df,
+                   **dict(kw, smearing=0.0, verbose=0))
+    new.kernel(dm0=mf.dm)
+    log(f"{tag} the smeared reference has fractional occupations (max "
+        f"{frac:.2e} off an integer): re-converged from its density without "
+        f"smearing, {new.cycles} cycles, {time.perf_counter() - t0:.2f}s, "
+        f"e_tot {new.e_tot:.10f} conv {new.converged}")
+    if not new.converged:
+        raise RuntimeError("the unsmeared re-convergence failed")
+    return new
+
+
+def _davidson_line(w, info, secs, ms=None):
+    return (f"roots " + " ".join(f"{x:.6f}" for x in w)
+            + f"; converged {info['converged']}, {info['iterations']} "
+            f"iterations, {info['matvecs']} vectors applied, {secs:.2f}s"
+            + ("" if ms is None else f"; matvec (one vector, warm) "
+               f"{ms:.2f} ms"))
+
+
+def _matvec_ms(torch, op):
+    """Warm wall milliseconds of one matvec of one seeded vector."""
+    import numpy as np
+
+    x = np.random.default_rng(0).standard_normal(op.size) + 0j
+    op.matvec(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        op.matvec(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 3 * 1e3
+
+
+def _mb_slice(torch, ctx):
+    """(b) the slice: kump2 over the 4x4x4 mesh and UTDA on the KUHF that
+    phase 6a converged on phase 4's build."""
+    from fftisdf_tpu_torch.scf.mp2 import kump2
+    from fftisdf_tpu_torch.scf.tddft import utda
+
+    cell, kpts, df = _slice(ctx)
+    if df.x_k.device.type != "cuda":
+        _unpark(df)
+    mf = _integer_reference(ctx.pop("slice_mf"), "[10b]", **SCF_KW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e2, info = kump2(df, mf)
+    secs = time.perf_counter() - t0
+    nk = len(kpts)
+    log(f"[10b] slice kump2 over {nk}^3 = {nk ** 3} k-triples (nip "
+        f"{df.nip}, nocc {info['nocc']}): e2 {e2:.10f} Ha (same-spin "
+        f"{info['e_ss'][0]:.10f} / {info['e_ss'][1]:.10f}, opposite-spin "
+        f"{info['e_os']:.10f}, imag {info['imag']:.1e}), {secs:.2f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    w, d = utda(mf, df, q=0, nroots=4, dense=False)
+    secs = time.perf_counter() - t0
+    ms = _matvec_ms(torch, d["op"])
+    log(f"[10b] slice UTDA (CIS) q 0, size {d['op'].size}: "
+        + _davidson_line(w, d, secs, ms))
+    if not (e2 < 0 and abs(info["imag"]) < 1e-8 * abs(e2)
+            and d["converged"] and w[0] > 0):
+        raise RuntimeError("the slice's kump2 or UTDA failed")
+    df.x_k = df.wq = None
+    ctx.pop("slice")
+    torch.cuda.empty_cache()
+
+
+def _timed_peak(torch, fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _mb_diamond(torch):
+    """(c) diamond at full width: gth-dzvp ke 200 4x4x4, c0 40, m0 15^3."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF, KRKS
+    from fftisdf_tpu_torch.scf.bse import bse
+    from fftisdf_tpu_torch.scf.gw import g0w0
+    from fftisdf_tpu_torch.scf.mp2 import kmp2, kump2
+    from fftisdf_tpu_torch.scf.rpa import drpa
+    from fftisdf_tpu_torch.scf.tddft import oscillator_strengths, tda
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-dzvp",
+                             pseudo="gth-pade", ke_cutoff=200.0)
+    kpts = cell.get_kpts([4, 4, 4])
+    torch.cuda.reset_peak_memory_stats()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build()
+    t = df.timings
+    log(f"[10c] diamond gth-dzvp ke 200 4x4x4: nao {cell.nao_nr()}, mesh "
+        f"{[int(m) for m in cell.mesh]}, nip {df.nip}; build "
+        f"{t['build_s']:.2f}s (selection {t['select_s']:.2f}s), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if df.nip != DIAMOND_NIP:
+        raise RuntimeError(f"diamond nip {df.nip}, not {DIAMOND_NIP}")
+    kw = dict(verbose=0, conv_tol=1e-9, max_cycle=80)
+    hf = KRHF(cell, kpts, df, **kw)
+    t0 = time.perf_counter()
+    hf.kernel()
+    log("[10c] " + _scf_line("KRHF", hf, hf.cycle_seconds))
+    ks = KRKS(cell, kpts, df, xc="pbe", **kw)
+    ks.kernel()
+    log("[10c] " + _scf_line("KRKS-PBE", ks, ks.cycle_seconds))
+    if not (hf.converged and ks.converged):
+        raise RuntimeError("diamond's references did not converge")
+    ok = True
+    (e_r, _), s_r, p_r = _timed_peak(torch, lambda: kmp2(df, hf))
+    (e_u, i_u), s_u, p_u = _timed_peak(
+        torch, lambda: kump2(df, _closed_shell_u(hf)))
+    d = _relmax(e_u, e_r)
+    log(f"[10c] kmp2 on KRHF {e_r:.10f} Ha ({s_r:.2f}s, peak {p_r:.2f} GB); "
+        f"kump2 on the same closed shell {e_u:.10f} ({s_u:.2f}s, peak "
+        f"{p_u:.2f} GB): relative {d:.1e} (gate 1e-10)")
+    ok &= d <= 1e-10 and e_r < 0
+    (e_c, _), s, p = _timed_peak(torch, lambda: drpa(df, hf, nw=24))
+    log(f"[10c] drpa on KRHF (nw 24) {e_c:.10f} Ha, {s:.2f}s, peak "
+        f"{p:.2f} GB")
+    ok &= e_c < 0
+    nocc = cell.nelectron // 2
+    orbs = list(range(nocc - 2, nocc + 2))
+    (e_qp, info), s, p = _timed_peak(
+        torch, lambda: g0w0(df, ks, orbs=orbs, nw=40, npade=18))
+    e_mf = ks.mo_energy[:, orbs]
+    gap_mf = e_mf[:, 2].min() - e_mf[:, 1].max()
+    gap_qp = e_qp[:, 2].min() - e_qp[:, 1].max()
+    log(f"[10c] g0w0 on KRKS-PBE, HOMO-1..LUMO+1 (nw 40, npade 18): "
+        f"{s:.2f}s, peak {p:.2f} GB; PBE gap {gap_mf * 27.211386:.4f} eV, "
+        f"QP gap {gap_qp * 27.211386:.4f} eV (gate: above the PBE gap); Z "
+        f"{info['z'].min():.3f}-{info['z'].max():.3f}")
+    ok &= gap_qp > gap_mf
+    rows = {}
+    for q in (0, 1):
+        for singlet in (True, False):
+            (w, d), s, p = _timed_peak(torch, lambda: tda(
+                ks, df, q=q, nroots=4, singlet=singlet, dense=False))
+            rows[q, singlet] = (w, d)
+            log(f"[10c] TDA-PBE q {q} {'singlet' if singlet else 'triplet'}"
+                f", size {d['op'].size}: " + _davidson_line(w, d, s)
+                + f", peak {p:.2f} GB")
+            # the triplet's spin-flip kernel, the exact Hessian of the
+            # discrete PBE Exc as in the JAX package, has large negative
+            # modes where the density is low and s large (PERF.md §6):
+            # its roots are reported, not gated
+            ok &= bool(d["converged"] and (w[0] > 0 or not singlet))
+    rho0 = rows[0, False][1]["op"].rho0
+    log(f"[10c] the reference density on the grid: min {float(rho0.min()):.3e}"
+        f", max {float(rho0.max()):.3e} a spin channel; negative triplet "
+        f"roots: {int((rows[0, False][0] < 0).sum())} at q 0, "
+        f"{int((rows[1, False][0] < 0).sum())} at q 1 of 4")
+    w, d = rows[0, True]
+    f = oscillator_strengths(ks, w, d["x"])
+    log("[10c] oscillator strengths at q 0: " + " ".join(
+        f"{v:.5f}" for v in f))
+    ok &= bool(np.all(f >= 0))
+    # the QP energies of the four bands computed, and for the others the
+    # mean QP shift of the band edge on their side (a scissor)
+    qp = np.array(ks.mo_energy, copy=True)
+    shift = e_qp - e_mf
+    qp[:, :nocc] += shift[:, 1].mean()
+    qp[:, nocc:] += shift[:, 2].mean()
+    qp[:, orbs] = e_qp
+    (wb, db), s, p = _timed_peak(torch, lambda: bse(
+        ks, df, q=0, nroots=4, qp_energy=qp, dense=False))
+    ms = _matvec_ms(torch, db["op"])
+    log(f"[10c] BSE on the G0W0 energies, q 0 singlet: "
+        + _davidson_line(wb, db, s, ms) + f", peak {p:.2f} GB; TDA-PBE "
+        "beside it: " + " ".join(f"{x:.6f}" for x in rows[0, True][0]))
+    ok &= bool(db["converged"] and wb[0] > 0)
+    if not ok:
+        raise RuntimeError("a many-body method failed on diamond at full "
+                           "width")
+    del df, hf, ks, db, rows
+    torch.cuda.empty_cache()
+
+
+def _mb_production(torch):
+    """(d) NiO AFM at production width on the 2x2x2 sub-mesh."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import DeviceKUHF, DeviceKUKS
+    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+    from fftisdf_tpu_torch.scf.mp2 import kump2
+    from fftisdf_tpu_torch.scf.tddft import utda
+
+    cell, _ = _production_cell()
+    kpts = cell.get_kpts([2, 2, 2])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build()
+    t = df.timings
+    log(f"[10d] production NiO AFM gth-dzvp-molopt-sr ke 200 on the 2x2x2 "
+        f"sub-mesh: nip {df.nip}; build {t['build_s']:.2f}s (selection "
+        f"{t['select_s']:.2f}s, sweep {t['sweep_s']:.2f}s, solve/FFT/gram "
+        f"{t['solve_s']:.2f}s), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if df.nip != PROD_NIP:
+        raise RuntimeError(f"nip {df.nip}, not {PROD_NIP}")
+    ok = True
+    for label, cls, kw in (
+            ("DeviceKUHF", DeviceKUHF, SCF_KW),
+            ("DeviceKUKS-PBE+U", DeviceKUKS,
+             dict(KS_KW, xc="pbe", hubbard=_nio_hubbard(NIO_U)))):
+        t0 = time.perf_counter()
+        mf = cls(cell, kpts, df, verbose=0, **kw)
+        mf.kernel()
+        scf_s = time.perf_counter() - t0
+        _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+        log(f"[10d] " + _scf_line(label, mf, mf.cycle_times)
+            + f"; {scf_s:.2f}s with setup; Ni moments {mom[0]:+.4f} "
+            f"{mom[1]:+.4f}")
+        ok &= mf.converged and mom[0] * mom[1] < 0
+        mf = _integer_reference(mf, "[10d]", **kw)
+        (e2, info), s, p = _timed_peak(torch, lambda: kump2(df, mf))
+        log(f"[10d] kump2 on {label}: e2 {e2:.10f} Ha (same-spin "
+            f"{info['e_ss'][0]:.10f} / {info['e_ss'][1]:.10f}, "
+            f"opposite-spin {info['e_os']:.10f}), {s:.2f}s, peak "
+            f"{p:.2f} GB")
+        ok &= e2 < 0
+        (w, d), s, p = _timed_peak(torch, lambda: utda(
+            mf, df, q=0, nroots=4, dense=False))
+        ms = _matvec_ms(torch, d["op"])
+        kind = "CIS" if label == "DeviceKUHF" else "the PBE kernel"
+        log(f"[10d] UTDA ({kind}) q 0 on {label}, size {d['op'].size}: "
+            + _davidson_line(w, d, s, ms) + f", peak {p:.2f} GB")
+        ok &= bool(d["converged"] and w[0] > 0)
+        del mf, d
+        torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError("a many-body method failed at production width")
+    del df
+    torch.cuda.empty_cache()
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
     only = None
     if len(sys.argv) > 1:
         only = {int(p) for p in sys.argv[1].split(",")}
-        if only & {8, 9}:               # phases 8, 9 serve phases 4/6's state
+        if only & {8, 9, 10}:       # phases 8-10 serve phases 4/6's state
             only |= {4, 6}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
@@ -1999,6 +2647,13 @@ def _run(torch, run, only, t_all, ctx):
     timed(9, phase9_ks, ctx)
     if run(9) and prod_launches < 1:
         raise RuntimeError("the build that served phase 9d did not launch K1")
+    pair_gram_sq.launches = 0
+    timed(10, phase10_many_body, ctx)
+    corr_launches = pair_gram_sq.launches
+    if run(10):
+        log(f"[10] K1 launches in phase 10's builds: {corr_launches}")
+        if corr_launches < 1:
+            raise RuntimeError("phase 10's builds did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -2010,6 +2665,7 @@ def _run(torch, run, only, t_all, ctx):
         {"name": "pair_gram_sq", **common, "dtype": "complex128",
          "launches": launches, "production_launches": prod_launches,
          "phase8_launches": rest_launches, "ks_launches": prod_launches,
+         "corr_launches": corr_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

@@ -80,6 +80,15 @@ def free_memory_bytes(device: torch.device) -> int:
     return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
 
 
+def memory_blocks(n, per_item, device):
+    """Slices of ``n`` items (vectors, frequencies, k-points) whose
+    temporaries, ``per_item`` bytes an item, fit in a quarter of the
+    device's free memory."""
+    m = int(max(1, min(n, free_memory_bytes(device)
+                       // (4 * max(int(per_item), 1)))))
+    return [slice(i, min(n, i + m)) for i in range(0, n, m)]
+
+
 def as_tensor(x, device, dtype):
     """numpy array / tensor -> tensor of ``dtype`` on ``device``."""
     if isinstance(x, torch.Tensor):

@@ -21,7 +21,9 @@ the build-dtype selection route launches K1 in complex64, the float64
 route does not, and both serve the CPU's J/K to float32 accuracy.  The
 ISDF band pair loop, the compact cderi serve and a 0d-truncated SCF on the
 card are held against the CPU, and so are the xc functionals and the
-device-resident KS loop (PBE+U, SCAN, PBE0).
+device-resident KS loop (PBE+U, SCAN, PBE0), and every many-body method
+(kmp2, kump2, drpa, Sigma^c(iw), TDA dense and Davidson, UTDA, Casida,
+BSE) on the CPU's points and orbitals.
 """
 import numpy as np
 import pytest
@@ -417,3 +419,87 @@ def test_device_kuks_on_cuda_matches_cpu(cuda, xc_name, hub):
     assert host.converged
     assert abs(e[str(cuda)] - e["cpu"]) <= 3e-8
     assert abs(e[str(cuda)] - e_host) <= 3e-8
+
+
+@pytest.fixture(scope="module")
+def many_body_states():
+    """{device: (df, KRHF, KRKS-PBE)} on diamond 1x1x2: the CPU converges
+    both references, and the card's SCF objects get the CPU's points and
+    orbitals, so each method sees the same inputs on both devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRHF, KRKS
+
+    cell, kpts = _diamond()
+    out, mask, ref = {}, None, None
+    for dev in ("cpu", "cuda"):
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                     device=dev).build(mask=mask)
+        mask = df.mask
+        mfs = (KRHF(cell, kpts, df, verbose=0, conv_tol=1e-10, device=dev),
+               KRKS(cell, kpts, df, xc="pbe", verbose=0, conv_tol=1e-10,
+                    device=dev))
+        for i, mf in enumerate(mfs):
+            if ref is None or dev == "cpu":
+                mf.kernel()
+                assert mf.converged
+            else:
+                for name in ("mo_coeff", "mo_energy", "mo_occ", "dm"):
+                    setattr(mf, name, getattr(ref[i], name))
+        if dev == "cpu":
+            ref = mfs
+        out[dev] = (df,) + mfs
+    return out
+
+
+def _unrestricted(mf):
+    from fftisdf_tpu_torch.scf import KUHF, KUKS
+
+    cls = KUKS if hasattr(mf, "_spec") else KUHF
+    kw = {"xc": mf.xc} if cls is KUKS else {}
+    u = cls(mf.cell, mf.kpts, mf.with_df, verbose=0, device=mf.device, **kw)
+    u.mo_coeff = np.stack([mf.mo_coeff] * 2)
+    u.mo_energy = np.stack([mf.mo_energy] * 2)
+    u.mo_occ = np.stack([mf.mo_occ] * 2) * 0.5
+    u.dm = np.stack([mf.dm] * 2) * 0.5
+    return u
+
+
+MANY_BODY = {
+    "kmp2": lambda df, hf, ks: [many("mp2").kmp2(df, hf)[0]],
+    "kump2": lambda df, hf, ks: [many("mp2").kump2(df, _unrestricted(hf))[0]],
+    "drpa": lambda df, hf, ks: [many("rpa").drpa(df, hf, nw=12)[0]],
+    "g0w0": lambda df, hf, ks: many("gw").sigma_c_iw(df, ks, nw=12)[0],
+    "tda": lambda df, hf, ks: np.concatenate([
+        many("tddft").tda(ks, df, q=1, nroots=0, dense=True)[0],
+        many("tddft").tda(hf, df, q=1, nroots=0, singlet=False,
+                          dense=True)[0]]),
+    "davidson": lambda df, hf, ks: many("tddft").tda(
+        ks, df, q=0, nroots=3, dense=False, tol=1e-9)[0],
+    "utda": lambda df, hf, ks: many("tddft").utda(
+        _unrestricted(ks), df, q=1, nroots=0, dense=True)[0],
+    "tddft": lambda df, hf, ks: many("tddft").tddft(ks, df, q=1,
+                                                    nroots=4)[0],
+    "bse": lambda df, hf, ks: many("bse").bse(ks, df, q=1, nroots=0,
+                                              dense=True)[0],
+}
+
+
+def many(name):
+    import importlib
+
+    return importlib.import_module(f"fftisdf_tpu_torch.scf.{name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(MANY_BODY))
+def test_many_body_on_cuda_matches_cpu(cuda, many_body_states, method):
+    """Each many-body method on the card against the CPU on the same
+    points and orbitals (diamond 1x1x2): 1e-10 relative (the Davidson
+    roots 1e-8, the solve's tol 1e-9)."""
+    out = {dev: np.asarray(MANY_BODY[method](*many_body_states[dev]))
+           for dev in ("cpu", "cuda")}
+    g, c = out["cuda"], out["cpu"]
+    tol = 1e-8 if method == "davidson" else 1e-10
+    assert np.abs(g - c).max() <= tol * np.abs(c).max(), method

@@ -3,8 +3,9 @@ the JAX package can be imported (the GPU machine has no JAX, and the port
 keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
-module of the port imports (the KS modules among them), and one tiny
-build, ``get_jk`` and xc evaluation run on a small He2 cell on the CPU;
+module of the port imports (the KS and many-body modules among them),
+one tiny build, ``get_jk`` and xc evaluation run on a small He2 cell on
+the CPU, and one ``kmp2`` on the H2 chain of tests/test_mp2.py;
 none of the refused modules may reach ``sys.modules``."""
 import os
 import subprocess
@@ -38,7 +39,8 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     for name in ("isdf.bands", "isdf.cderi", "isdf.gamma", "isdf.ao2mo",
                  "isdf.thc", "lattice.becke", "scf.xc", "scf.ks",
-                 "scf.hubbard", "scf.dos"):
+                 "scf.hubbard", "scf.dos", "scf.mp2", "scf.rpa", "scf.gw",
+                 "scf.tddft", "scf.bse"):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np
@@ -64,6 +66,25 @@ SCRIPT = textwrap.dedent("""
     rho = torch.full((2, int(np.prod(fmesh))), 0.1, dtype=torch.float64)
     exc, v = xc.exc_and_vxc(rho, gv, xc.parse_xc("pbe"), fmesh, 0.01)
     assert bool(torch.isfinite(v).all()) and float(exc) < 0.0
+
+    # the many-body layer: one kmp2 on the H2 chain of tests/test_mp2.py
+    from fftisdf_tpu_torch.lattice.cell import Shell
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf.mp2 import kmp2
+
+    h2 = Cell(a=np.diag([6.0, 6.0, 7.0]),
+              atom=[("H", (3.0, 3.0, 1.8)), ("H", (3.0, 3.0, 3.2))],
+              basis={"H": [Shell(l=0, exps=np.array([1.2, 0.4]),
+                                 coeffs=np.eye(2))]},
+              pseudo="gth-pade", mesh=np.array([14, 14, 17]), unit="bohr",
+              precision=1e-12).build()
+    kpts = np.zeros((1, 3))
+    df = FFTISDF(h2, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                 select_tol=1e-18, rcond=1e-12, device="cpu").build()
+    mf = KRHF(h2, kpts, df, verbose=0, conv_tol=1e-10, device="cpu")
+    mf.kernel()
+    e2, info = kmp2(df, mf)
+    assert mf.converged and e2 < 0.0 and abs(info["imag"]) < 1e-10
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     assert "fftisdf_tpu_torch.native" in sys.modules

@@ -147,7 +147,8 @@ def _scf(refs):
 
 SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
             "trunc": lambda r: _trunc(r), "bands": lambda r: _bands(r),
-            "lsthc": lambda r: _lsthc(r), "ks": lambda r: _ks(r)}
+            "lsthc": lambda r: _lsthc(r), "ks": lambda r: _ks(r),
+            "many_body": lambda r: _many_body(r)}
 
 
 def main():
@@ -393,6 +394,246 @@ def _ks(refs):
                     "cycles": mf.cycles,
                     "moments": [float(m) for m in mom]}
     KS_ANCHOR.write_text(json.dumps(rec, indent=1) + "\n")
+
+
+
+def h2_chain(cell_cls, shell_cls, nz=1, lz=7.0):
+    """The H2 chain of tests/test_mp2.py (two 2-exponent s shells per H)."""
+    atoms = []
+    for i in range(nz):
+        atoms += [("H", (3.0, 3.0, 1.8 + lz * i)),
+                  ("H", (3.0, 3.0, 3.2 + lz * i))]
+    return cell_cls(
+        a=np.diag([6.0, 6.0, lz * nz]), atom=atoms,
+        basis={"H": [shell_cls(l=0, exps=np.array([1.2, 0.4]),
+                               coeffs=np.eye(2))]},
+        pseudo="gth-pade",
+        mesh=np.array([14, 14, int(14 * nz * lz / 6) // 2 * 2 + 1]),
+        unit="bohr", precision=1e-12).build()
+
+
+def _c(a):
+    """A complex array as {shape, re, im} (numpy reads it back exactly)."""
+    a = np.asarray(a)
+    return {"shape": list(a.shape), "re": np.real(a).ravel().tolist(),
+            "im": np.imag(a).ravel().tolist()}
+
+
+def _real_gauge(mf):
+    """Give ``mf`` real orbitals, in place, on a mesh of time-reversal
+    invariant k-points (gamma and the zone-boundary point of 1x1x2),
+    where S_k and the converged F_k are real up to the grid quadrature's
+    ~4e-7: the orbitals and energies become those of (Re F_k, Re S_k) and
+    the density is rebuilt from them.  The JAX package's chi (A g A^T)
+    equals the port's (A g A^H) for real orbitals only, so both packages
+    see the same numbers on these inputs."""
+    from fftisdf_tpu.scf.hf import _build_dm, _eigh_gen
+
+    s1e = np.asarray(mf.s1e)
+    assert np.abs(s1e.imag).max() < 1e-10, "not a time-reversal-invariant mesh"
+    fock = np.asarray(mf.get_fock(mf.dm)[0])
+    assert np.abs(fock.imag).max() < 1e-5
+    flat_f = fock.reshape(-1, *fock.shape[-2:])
+    nk = s1e.shape[0]
+    es, cs = [], []
+    for idx in range(flat_f.shape[0]):
+        e, c = _eigh_gen(flat_f[idx].real, s1e[idx % nk].real,
+                         cutoff=mf.ovlp_cutoff)
+        es.append(e)
+        cs.append(np.asarray(c, dtype=np.complex128))
+    e_new = np.asarray(es).reshape(np.shape(mf.mo_energy))
+    assert np.abs(e_new - np.asarray(mf.mo_energy)).max() < 1e-5
+    out = np.asarray(cs).reshape(np.shape(mf.mo_coeff))
+    assert np.abs(out.imag).max() == 0.0
+    mf.mo_coeff, mf.mo_energy = out, e_new
+    occ = np.asarray(mf.mo_occ)
+    mf.dm = (np.stack([np.asarray(_build_dm(out[s], occ[s]))
+                       for s in range(2)]) if out.ndim == 4
+             else np.asarray(_build_dm(out, occ)))
+    return mf
+
+
+def _orbitals(mf):
+    return {"mo_coeff": _c(mf.mo_coeff),
+            "mo_energy": np.asarray(mf.mo_energy).tolist(),
+            "mo_occ": np.asarray(mf.mo_occ).tolist()}
+
+
+def _hvp_probes(fmesh, gv, weight):
+    """HVP of the discrete Exc, jvp(grad(Exc)) as scf.tddft takes it, on
+    diamond's mesh: the toy density and the zeta = +-1 tie of
+    tests/test_torch_xc.py, two seeded tangents each, read as projections
+    on three seeded probes."""
+    import jax
+    import jax.numpy as jnp
+    from fftisdf_tpu.linalg.fft import fft3, ifft3
+    from fftisdf_tpu.scf import xc as xc_mod
+
+    ng = int(np.prod(fmesh))
+    rng = np.random.default_rng(17)
+    tangents = rng.standard_normal((2, 2, ng))
+    probes = rng.standard_normal((3, 2, ng))
+    gvt = jnp.asarray(gv).T
+    out = {}
+    for case, rho in hvp_densities(fmesh).items():
+        for name in ("lda", "pbe", "b3lyp", "hse06"):
+            spec = xc_mod.parse_xc(name)
+
+            def total(r):
+                sigma = None
+                if spec.is_gga:
+                    g = jnp.stack([ifft3(1j * gvt[i] * fft3(
+                        r.astype(jnp.complex128), fmesh), fmesh).real
+                        for i in range(3)], axis=1)
+                    sigma = jnp.stack([jnp.sum(g[0] * g[0], axis=0),
+                                       jnp.sum(g[0] * g[1], axis=0),
+                                       jnp.sum(g[1] * g[1], axis=0)])
+                return weight * jnp.sum(xc_mod._exc_density(r, sigma, spec))
+
+            rows = []
+            for t in tangents:
+                h = np.asarray(jax.jvp(jax.grad(total), (jnp.asarray(rho),),
+                                       (jnp.asarray(t),))[1])
+                rows.append([float(np.sum(p * h)) for p in probes])
+            out[f"{case}/{name}"] = rows
+    return out
+
+
+def hvp_densities(fmesh):
+    """{case: rho (2, ng)}: the toy density and the zeta = +-1 tie (one
+    channel empty on each half of the grid) of tests/test_torch_xc.py."""
+    ng = int(np.prod(fmesh))
+
+    def toy(seed):
+        coef = np.random.default_rng(seed).standard_normal((2, 4, 4, 4))
+        field = np.zeros((2,) + tuple(fmesh))
+        for s in range(2):
+            f = np.zeros(fmesh, dtype=complex)
+            f[:4, :4, :4] = coef[s] * 0.05 * ng
+            field[s] = np.real(np.fft.ifftn(f))
+        return (0.3 + field - field.min()).reshape(2, ng)
+
+    pol = toy(5)
+    pol[1, : ng // 2] = 0.0
+    pol[0, ng // 2:] = 0.0
+    return {"toy": toy(1), "zeta=+-1": pol}
+
+
+def _many_body(refs):
+    """The many-body layer (scf.mp2/rpa/gw/tddft/bse) on the JAX tests'
+    fixtures: the H2 chain at gamma and 1x1x2, diamond gth-szv ke 50
+    1x1x2 on KRKS references, and the xc kernel's HVP.  The inputs (the
+    interpolation points and the converged orbitals) are recorded beside
+    the outputs, so the port's tests run the methods on the same
+    orbitals."""
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice.cell import Cell, Shell
+    from fftisdf_tpu.scf import KRHF, KUHF
+    from fftisdf_tpu.scf import bse, gw, mp2, rpa, tddft
+    from fftisdf_tpu.scf.ks import KRKS, KUKS
+
+    isdf_kw = dict(c0=60.0, m0=(11, 11, 13), verbose=0, select_tol=1e-18,
+                   rcond=1e-12)
+    out = {"config": "H2 chain of tests/test_mp2.py (c0 60, m0 11x11x13, "
+                     "select_tol 1e-18, rcond 1e-12; KRHF conv_tol 1e-10; "
+                     "nw 24): gamma and 1x1x2 (open shell: spin 2 KUHF "
+                     "conv_tol 1e-9); diamond gth-szv ke 50 1x1x2 c0 40 "
+                     "m0 9^3, KRKS conv_tol 1e-10; Davidson tol 1e-8; "
+                     "every reference's orbitals in a real gauge"}
+    cell = h2_chain(Cell, Shell)
+    kpts = np.zeros((1, 3))
+    df = FFTISDF(cell, kpts, **isdf_kw).build()
+    mf = KRHF(cell, kpts, with_df=df, verbose=0, conv_tol=1e-10)
+    mf.kernel()
+    ks = KRKS(cell, kpts, xc="pbe", with_df=df, verbose=0, conv_tol=1e-10)
+    ks.kernel()
+    _real_gauge(mf)
+    _real_gauge(ks)
+    sig, _, ef, _ = gw.sigma_c_iw(df, mf, nw=24)
+    e_qp, info = gw.g0w0(df, mf, nw=24)
+    e_qp_ks, info_ks = gw.g0w0(df, ks, nw=24)
+    out["h2_gamma"] = {
+        "mask": _mask(df), "krhf": _orbitals(mf), "krks_pbe": _orbitals(ks),
+        "kmp2": mp2.kmp2(df, mf)[0], "drpa": rpa.drpa(df, mf, nw=24)[0],
+        "sigma": _c(sig), "efermi": float(ef), "e_qp": e_qp.tolist(),
+        "z": np.asarray(info["z"]).tolist(),
+        "tda_s": tddft.tda(mf, df, nroots=0, dense=True)[0].tolist(),
+        "tda_t": tddft.tda(mf, df, nroots=0, singlet=False,
+                           dense=True)[0].tolist(),
+        "tddft": tddft.tddft(mf, df, nroots=3)[0].tolist(),
+        "bse": bse.bse(mf, df, nroots=0, dense=True)[0].tolist(),
+        "pbe_tda_s": tddft.tda(ks, df, nroots=0, dense=True)[0].tolist(),
+        "pbe_tda_t": tddft.tda(ks, df, nroots=0, singlet=False,
+                               dense=True)[0].tolist(),
+        "pbe_tddft": tddft.tddft(ks, df, nroots=3)[0].tolist(),
+        "pbe_e_qp": e_qp_ks.tolist(),
+        "pbe_correction": np.asarray(info_ks["correction"]).tolist()}
+
+    kpts = cell.get_kpts([1, 1, 2])
+    df = FFTISDF(cell, kpts, **isdf_kw).build()
+    mf = KRHF(cell, kpts, with_df=df, verbose=0, conv_tol=1e-10)
+    mf.kernel()
+    cell2 = cell.copy(spin=2).build()
+    umf = KUHF(cell2, kpts, with_df=df, verbose=0, conv_tol=1e-9,
+               max_cycle=80)
+    umf.kernel()
+    _real_gauge(mf)
+    _real_gauge(umf)
+    w_dav, d = tddft.tda(mf, df, q=0, nroots=3, dense=False, tol=1e-8)
+    assert d["converged"]
+    out["h2_k2"] = {
+        "mask": _mask(df), "krhf": _orbitals(mf), "kuhf_spin2":
+        _orbitals(umf), "kmp2": mp2.kmp2(df, mf)[0],
+        "kump2_spin2": mp2.kump2(df, umf)[0],
+        "drpa": rpa.drpa(df, mf, nw=24)[0],
+        "e_qp": gw.g0w0(df, mf, nw=24)[0].tolist(),
+        "tda_s_q0": tddft.tda(mf, df, q=0, nroots=0, dense=True)[0].tolist(),
+        "tda_s_q1": tddft.tda(mf, df, q=1, nroots=0, dense=True)[0].tolist(),
+        "tda_t_q1": tddft.tda(mf, df, q=1, nroots=0, singlet=False,
+                              dense=True)[0].tolist(),
+        "tda_davidson_q0": w_dav.tolist(),
+        "utda_spin2": tddft.utda(umf, df, nroots=0, dense=True)[0].tolist(),
+        "tddft_q1": tddft.tddft(mf, df, q=1, nroots=3)[0].tolist()}
+
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0).build()
+    rec = {"mask": _mask(df)}
+    for xc in ("pbe", "b3lyp", "hse06"):
+        ks = KRKS(cell, kpts, xc=xc, with_df=df, verbose=0, conv_tol=1e-10)
+        ks.kernel()
+        _real_gauge(ks)
+        rec[xc] = _orbitals(ks)
+        rec[xc]["tda_s_q1"] = tddft.tda(ks, df, q=1, nroots=0,
+                                        dense=True)[0].tolist()
+        if xc != "pbe":
+            continue
+        w0, info0 = tddft.tda(ks, df, q=0, nroots=0, dense=True)
+        e_qp, info = gw.g0w0(df, ks, nw=24)
+        eps, d = tddft.dielectric_tda(ks, df, q=1,
+                                      omegas=np.linspace(0.0, 2.0, 9))
+        uks = KUKS(cell, kpts, xc=xc, with_df=df, verbose=0)
+        uks.mo_coeff = np.stack([ks.mo_coeff] * 2)
+        uks.mo_energy = np.stack([ks.mo_energy] * 2)
+        uks.mo_occ = np.stack([ks.mo_occ] * 2) * 0.5
+        uks.dm = np.stack([ks.dm] * 2) * 0.5
+        rec[xc].update(
+            tda_s_q0=w0.tolist(),
+            tda_t_q0=tddft.tda(ks, df, q=0, nroots=0, singlet=False,
+                               dense=True)[0].tolist(),
+            osc=tddft.oscillator_strengths(ks, w0, np.asarray(info0["x"])
+                                           ).tolist(),
+            eps=_c(eps), e_qp=e_qp.tolist(), sigma=_c(info["sigma_iw"]),
+            correction=np.asarray(info["correction"]).tolist(),
+            bse_qp=bse.bse(ks, df, nroots=0, dense=True,
+                           qp_energy=e_qp)[0].tolist(),
+            utda=tddft.utda(uks, df, q=1, nroots=0,
+                            dense=True)[0].tolist(),
+            tddft=tddft.tddft(ks, df, q=0, nroots=4)[0].tolist())
+    out["diamond"] = rec
+    fmesh = tuple(int(m) for m in cell.mesh)
+    out["hvp"] = {"fmesh": list(fmesh), **_hvp_probes(
+        fmesh, cell.get_Gv(fmesh), float(cell.vol) / int(np.prod(fmesh)))}
+    refs["many_body"] = out
 
 
 if __name__ == "__main__":
