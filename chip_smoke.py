@@ -164,14 +164,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    (d) NiO production on the 2x2x2 sub-mesh (nip 2480): DeviceKUHF and
    DeviceKUKS-PBE+U (Ni moments of opposite sign; re-converged without
    smearing where the occupations are fractional), kump2 and UTDA (CIS,
-   the PBE kernel) on each.
+   the PBE kernel) on each;
+11. FCI, DMET and the CC layer (``scf.fci``, ``dmet``, ``cc``) through the
+   default-device entry points, with K1's count reset right before and
+   >= 1 after: (a) on the H2 chain of tests/test_cc.py (gamma and 1x1x2)
+   and diamond gth-szv ke 50 1x1x2 (c0 40, m0 9^3), on the JAX package's
+   points and orbitals, kccsd, kccsd_t, eomee (dense and Davidson),
+   eomip/eomea, onerdm, ao_density, the CCSD of a KS reference and of the
+   spin-2 KUHF, dmet_energy with the FCI and the CCSD solvers with and
+   without the mu fit (on diamond with one carbon's 2s AO and with its 4
+   AOs, the latter on the card alone: FCI over 4900 determinants), and
+   fci_ground / ccsd_solver on a random embedding problem, on the card and
+   on the CPU (1e-10 relative) and against tests/data/jax_port_refs.json
+   (1e-8); the JAX tests' identities on the card (CCSD = FCI for two
+   electrons, the first iterate = kmp2 / kump2, closed-shell KUHF = KRHF,
+   the KS-reference invariance, the determinant-space oracle of
+   tests/cc_oracle.py at random complex amplitudes for the step, (T),
+   EOM-EE/IP/EA and both densities, the structured amplitude basis = the
+   dense one, torch's complex autodiff conventions); (b) diamond gth-szv
+   ke 50 2x2x2 c0 40 (README.md's KCCSD system): KRHF, kccsd_t (cycles
+   beside README.md's 8, the first iterate = kmp2 to 1e-10),
+   eomee_davidson (4 roots, converged) and dmet_energy on one carbon (an
+   8-orbital embedding) with the mu fit by the FCI and the CCSD solvers,
+   each with seconds and peak memory; (c) the same cell at 3x3x3 (nk 27,
+   U 20.6 GB): kccsd converged, the first iterate = kmp2 to 1e-10, the U
+   assembly's seconds, s/cycle, cycles and peak memory (below 80 GB).
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
                                      # prints no result lines; 8, 9 and 10
-                                     # run 4 and 6 first for their state
+                                     # run 4 and 6 first for their state;
+                                     # 11 needs no other phase
 """
 import json
 import os
@@ -2606,6 +2631,514 @@ def _mb_production(torch):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 11
+CC_REL = 1e-10       # card against CPU
+CC_JAX = 1e-8        # against the JAX package's records
+CC_README_CYCLES = 8  # README.md: KCCSD on diamond gth-szv 2x2x2
+
+
+def phase11_correlated(torch, ctx):
+    _cc_card_cpu(torch)
+    _cc_identities(torch)
+    _cc_diamond_222(torch)
+    _cc_diamond_333(torch)
+
+
+def _cplx_rec(pairs):
+    import numpy as np
+
+    a = np.asarray(pairs)
+    return a[..., 0] + 1j * a[..., 1]
+
+
+def _energy_at_density(mf):
+    _, vj, vk = mf.get_fock(mf.dm)
+    mf.e_tot = mf.energy_elec(mf.dm, vj, vk) + mf.e_nuc
+    return mf
+
+
+def _cc_states(dev):
+    """{key: (df, KRHF)} of the correlated fixtures on ``dev``: the H2
+    chain (gamma, 1x1x2) and diamond szv 1x1x2 on the JAX package's points
+    and real-gauge orbitals."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRHF
+
+    refs = json.loads(REFS.read_text())
+    mb, corr = refs["many_body"], refs["correlated"]
+    out = {}
+    for key in ("h2_gamma", "h2_k2"):
+        cell = _h2_chain()
+        kpts = (np.zeros((1, 3)) if key == "h2_gamma"
+                else cell.get_kpts([1, 1, 2]))
+        df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                     select_tol=1e-18, rcond=1e-12, device=dev).build(
+                         mask=np.asarray(mb[key]["mask"]))
+        out[key] = (df, _energy_at_density(_with_orbitals(
+            KRHF(cell, kpts, df, verbose=0, device=dev), mb[key]["krhf"])))
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(9, 9, 9), verbose=0,
+                 device=dev).build(mask=np.asarray(corr["diamond"]["mask"]))
+    out["diamond"] = (df, _energy_at_density(_with_orbitals(
+        KRHF(cell, kpts, df, verbose=0, device=dev),
+        corr["diamond"]["krhf"])))
+    return out
+
+
+def _cc_runs(dev, refs):
+    """{name: (value, JAX record or None)} of every correlated method on
+    ``dev`` (the CPU skips the diamond one-carbon DMET: FCI over 4900
+    determinants, the card's alone against the record)."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import KRKS, KUHF
+    from fftisdf_tpu_torch.scf import cc
+    from fftisdf_tpu_torch.scf.dmet import dmet_energy
+    from fftisdf_tpu_torch.scf.fci import fci_ground
+
+    mb = json.loads(REFS.read_text())["many_body"]
+    st = _cc_states(dev)
+    out = {}
+    rec = refs["h2_gamma"]
+    df, mf = st["h2_gamma"]
+    out["h2_gamma kccsd"] = (cc.kccsd(df, mf, conv_tol=1e-10,
+                                      max_cycle=80)[0], rec["kccsd"]["e"])
+    out["h2_gamma eomee"] = (cc.eomee(df, mf, conv_tol=1e-10)[0],
+                             _cplx_rec(rec["eomee"]))
+    out["h2_gamma eomee_davidson"] = (
+        cc.eomee_davidson(df, mf, nroots=4, conv_tol=1e-10, tol=1e-8)[0],
+        _cplx_rec(rec["eomee_davidson"]))
+    for name, fn in (("eomip", cc.eomip), ("eomea", cc.eomea)):
+        out[f"h2_gamma {name}"] = (fn(df, mf, conv_tol=1e-10)[0][0],
+                                   _cplx_rec(rec[name][0]))
+    ks = _with_orbitals(KRKS(mf.cell, mf.kpts, df, xc="pbe", verbose=0,
+                             device=dev), mb["h2_gamma"]["krks_pbe"])
+    out["h2_gamma kccsd@pbe"] = (cc.kccsd(df, ks, conv_tol=1e-10,
+                                          max_cycle=120)[0],
+                                 rec["kccsd_pbe_ref"]["e"])
+    rec = refs["h2_k2"]
+    df, mf = st["h2_k2"]
+    e_cc, e_t, _ = cc.kccsd_t(df, mf, conv_tol=1e-9, max_cycle=80)
+    out["h2_k2 kccsd"] = (e_cc, rec["kccsd_t"]["e_ccsd"])
+    out["h2_k2 (T)"] = (e_t, rec["kccsd_t"]["e_t"])
+    out["h2_k2 eomee"] = (cc.eomee(df, mf, conv_tol=1e-10)[0],
+                          _cplx_rec(rec["eomee"]))
+    for name, fn in (("eomip", cc.eomip), ("eomea", cc.eomea)):
+        w = fn(df, mf, conv_tol=1e-10)[0]
+        out[f"h2_k2 {name}"] = (np.concatenate([w[0], w[1]]), np.concatenate(
+            [_cplx_rec(r) for r in rec[name]]))
+    gam, _ = cc.onerdm(df, mf, conv_tol=1e-9)
+    # the density's blocks as one quantity, on the scale of its occupied
+    # block (~1): the ov blocks alone are O(t1)
+    out["h2_k2 onerdm"] = (np.concatenate([np.ravel(b) for b in gam]),
+                           np.concatenate([np.ravel(_unpack(
+                               rec["onerdm"][n])) for n in ("goo", "gov",
+                                                            "gvo", "gvv")]))
+    out["h2_k2 ao_density"] = (cc.ao_density(df, mf, conv_tol=1e-9)[0],
+                               _unpack(rec["ao_density"]))
+    um = _with_orbitals(KUHF(_h2_chain(spin=2), mf.kpts, df, verbose=0,
+                             device=dev), mb["h2_k2"]["kuhf_spin2"])
+    out["h2_k2 kccsd spin 2"] = (cc.kccsd(df, um, conv_tol=1e-8,
+                                          max_cycle=80)[0],
+                                 rec["kccsd_spin2"])
+    rec = refs["diamond"]
+    df, mf = st["diamond"]
+    # diamond 1x1x2's amplitude rms stalls near 1e-7 in both packages:
+    # the record is converged at 1e-6 (tools/jax_port_refs.py CC_TOL)
+    e_cc, e_t, _ = cc.kccsd_t(df, mf, conv_tol=1e-6, max_cycle=80)
+    out["diamond kccsd"] = (e_cc, rec["kccsd_t"]["e_ccsd"])
+    out["diamond (T)"] = (e_t, rec["kccsd_t"]["e_t"])
+    for key, frag, kinds in DMET_CASES:
+        if dev == "cpu" and len(frag) == 4 and key == "diamond":
+            continue
+        df, mf = st[key]
+        for kind in kinds:
+            solver = cc.ccsd_solver if kind.startswith("ccsd") else None
+            e, _ = dmet_energy(mf, df, frag_ao=list(frag), solver=solver,
+                               fit_mu=kind.endswith("_mu"))
+            out[f"{key} dmet {list(frag)} {kind}"] = (
+                e, refs["dmet"][f"{key} {list(frag)} {kind}"]["e"])
+    h, eri = _solver_integrals()
+    for ne in (2, 4):
+        e, g, gg = cc.ccsd_solver(h, eri, ne, device=dev)
+        r = refs["ccsd_solver"][str(ne)]
+        out[f"ccsd_solver {ne}e energy"] = (e, r["e"])
+        out[f"ccsd_solver {ne}e gamma"] = (g, _unpack(r["gamma"]))
+        out[f"ccsd_solver {ne}e Gamma"] = (gg, _unpack(r["Gamma"]))
+        e_f, g_f, gg_f = fci_ground(h, eri, ne, device=dev)
+        out[f"fci {ne}e"] = (np.concatenate([[e_f], g_f.ravel(),
+                                             gg_f.ravel()]), None)
+    return out
+
+
+# DMET cases of tools/jax_port_refs.py: (fixture, fragment AOs, solvers)
+DMET_CASES = (("h2_gamma", (0, 1, 2, 3), ("fci",)),
+              ("h2_k2", (0, 1), ("fci", "fci_mu", "ccsd", "ccsd_mu")),
+              ("h2_k2", (2, 3), ("fci",)),
+              ("diamond", (0,), ("fci", "fci_mu", "ccsd", "ccsd_mu")),
+              ("diamond", (0, 1, 2, 3), ("fci", "fci_mu", "ccsd",
+                                         "ccsd_mu")))
+
+
+def _solver_integrals(n=4, seed=43):
+    """tools/jax_port_refs.py::solver_integrals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h = h + h.conj().T
+    np.fill_diagonal(h, np.sort(rng.standard_normal(n)) * 2 - 1)
+    a = 0.15 * (rng.standard_normal((n,) * 4)
+                + 1j * rng.standard_normal((n,) * 4))
+    a = a + a.transpose(2, 3, 0, 1)
+    return h, a + a.transpose(1, 0, 3, 2).conj()
+
+
+def _cc_card_cpu(torch):
+    """(a) every correlated method on the card and on the CPU: card = CPU
+    to 1e-10 relative, both = the JAX package's records to 1e-8."""
+    refs = json.loads(REFS.read_text())["correlated"]
+    t0 = time.perf_counter()
+    card = _cc_runs("cuda", refs)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = _cc_runs("cpu", refs)
+    t_cpu = time.perf_counter() - t0
+    worst_dev = worst_jax = 0.0
+    bad = []
+    for name, (g, ref) in card.items():
+        line = f"[11a] {name}:"
+        ok = True
+        if name in cpu:
+            d = _relmax(g, cpu[name][0])
+            worst_dev = max(worst_dev, d)
+            line += f" card-CPU {d:.1e}"
+            ok &= d <= CC_REL
+        if ref is not None:
+            d = _relmax(g, ref)
+            worst_jax = max(worst_jax, d)
+            line += f", JAX {d:.1e}"
+            ok &= d <= CC_JAX
+        log(line + ("" if ok else "  FAIL"))
+        if not ok:
+            bad.append(name)
+    log(f"[11a] {len(card)} quantities: card against CPU at most "
+        f"{worst_dev:.2e} relative (gate {CC_REL:.0e}), against the JAX "
+        f"package at most {worst_jax:.2e} (gate {CC_JAX:.0e}); card pass "
+        f"{t_card:.1f}s, CPU pass {t_cpu:.1f}s")
+    if bad:
+        raise RuntimeError(f"correlated card/CPU/JAX mismatch: {bad}")
+
+
+def _cc_identities(torch):
+    """(a) the JAX tests' identities on the card: CCSD = FCI for two
+    electrons (the full-fragment DMET), the first iterate = kmp2 / kump2,
+    closed-shell KUHF = KRHF, the KS-reference invariance, the
+    determinant-space oracle at random complex amplitudes (step, (T), EOM
+    and both densities), the structured basis against the dense one, and
+    torch's complex autodiff conventions."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import KRKS
+    from fftisdf_tpu_torch.scf import cc
+    from fftisdf_tpu_torch.scf.dmet import dmet_energy
+    from fftisdf_tpu_torch.scf.mp2 import kmp2, kump2
+    sys.path.insert(0, str(REPO / "tests"))
+    import cc_oracle as orc
+
+    mb = json.loads(REFS.read_text())["many_body"]
+    st = _cc_states("cuda")
+    gates = []
+    df, mf = st["h2_gamma"]
+    e_cc, info = cc.kccsd(df, mf, conv_tol=1e-10, max_cycle=80)
+    e_dmet, _ = dmet_energy(mf, df, frag_ao=[0, 1, 2, 3])
+    gates.append(("CCSD = FCI, 2 electrons (H2 gamma: full-fragment DMET "
+                  "= E_HF + E_CCSD, Ha)", abs(e_dmet - mf.e_tot - e_cc),
+                  1e-7))
+    e_u, _ = cc.kccsd(df, _closed_shell_u(mf), conv_tol=1e-10, max_cycle=80)
+    gates.append(("closed-shell KUHF = KRHF (H2 gamma, Ha)", abs(e_u - e_cc),
+                  1e-9))
+    ks = _with_orbitals(KRKS(mf.cell, mf.kpts, df, xc="pbe", verbose=0),
+                        mb["h2_gamma"]["krks_pbe"])
+    e_ks, _ = cc.kccsd(df, ks, conv_tol=1e-10, max_cycle=120)
+    _, vj, vk = mf.get_fock(ks.dm)
+    e_det = mf.energy_elec(ks.dm, vj, vk) + mf.e_nuc
+    gates.append(("KS-reference invariance, E_det(PBE) + E_corr = E_HF + "
+                  "E_corr (Ha)", abs(e_det + e_ks - mf.e_tot - e_cc), 3e-6))
+    for key in ("h2_k2", "diamond"):
+        df, mf = st[key]
+        _, info = cc.kccsd(df, mf, conv_tol=1e-6, max_cycle=1)
+        gates.append((f"first iterate = kmp2 ({key}, relative)", _relmax(
+            info["energies"][0], kmp2(df, mf)[0]), 1e-10))
+    df, mf = st["h2_k2"]
+    um = _with_orbitals(_h2_kuhf_spin2(mf, df), mb["h2_k2"]["kuhf_spin2"])
+    _, info = cc.kccsd(df, um, conv_tol=1e-8, max_cycle=80)
+    gates.append(("first iterate = kump2 (H2 1x1x2 spin 2, relative)",
+                  _relmax(info["energies"][0], kump2(df, um)[0]), 1e-10))
+    gates += _cc_oracle_gates(torch, cc, orc)
+    for label, d, gate in gates:
+        log(f"[11a] identity on the card: {label}: {d:.2e} (gate "
+            f"{gate:.0e})")
+    if not all(d <= gate for _, d, gate in gates):
+        raise RuntimeError("a correlated identity fails on the card")
+
+
+def _h2_kuhf_spin2(mf, df):
+    from fftisdf_tpu_torch.scf import KUHF
+
+    return KUHF(_h2_chain(spin=2), mf.kpts, df, verbose=0)
+
+
+def _cc_oracle_gates(torch, cc, orc):
+    """The determinant-space oracle on the card at random complex
+    amplitudes and integrals (tests/test_cc.py's seeds), the structured
+    basis, and the autodiff conventions."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, device=dev)
+    kp3 = np.zeros((1, 1, 1), dtype=np.int64)
+    out = []
+
+    def system(seed, no, nv, scale):
+        rng = np.random.default_rng(seed)
+        u = scale * orc._random_u(no + nv, rng)
+        e = np.concatenate([-1.0 - rng.random(no), 1.0 + rng.random(nv)])
+        return rng, u, e
+
+    rng, u, e = system(7, 2, 3, 0.2)
+    t1, t2 = orc._random_amps(2, 3, rng)
+    r1_o, r2_o, e_o = orc.Oracle(u, e, 2).residuals(t1, t2)
+    t1n, t2n, e_t = cc.make_step(1, 2, 3, kp3, e[None, :2], e[None, 2:])(
+        t(t1)[None], t(t2)[None, None, None], t(u)[None, None, None])
+    d1 = e[:2, None] - e[None, 2:]
+    d2 = (e[:2, None, None, None] + e[None, :2, None, None]
+          - e[None, None, 2:, None] - e[None, None, None, 2:])
+    out.append(("CCSD step = the oracle's residuals", max(
+        abs(complex(e_t) - e_o),
+        np.abs(d1 * (t1n[0].cpu().numpy() - t1) - r1_o).max(),
+        np.abs(d2 * (t2n[0, 0, 0].cpu().numpy() - t2) - r2_o).max()), 1e-10))
+    rng, u, e = system(11, 3, 3, 0.2)
+    t1, t2 = orc._random_amps(3, 3, rng)
+    fn = cc.make_t3_energy(1, 3, 3, kp3, e[None, :3], e[None, 3:])
+    e_t = complex(fn(t(t1)[None], t(t2)[None, None, None],
+                     t(u)[None, None, None]))
+    out.append(("(T) = the oracle's", abs(e_t - orc.t3_energy(
+        orc.Oracle(u, e, 3), e, t1, t2)), 1e-10))
+    for no, nv, seed in ((2, 3, 13), (3, 2, 37)):
+        _, u, e = system(seed, no, nv, 0.1)
+        eo, ev = e[None, :no], e[None, no:]
+        U = t(u)[None, None, None]
+        step = cc.make_step(1, no, nv, kp3, eo, ev)
+        a1 = torch.zeros((1, no, nv), dtype=U.dtype, device=dev)
+        a2 = cc._mp2_guess(U, no, eo, ev, kp3)
+        for _ in range(400):
+            n1, n2, _ = step(a1, a2, U)
+            dt = max(float((n1 - a1).abs().max()),
+                     float((n2 - a2).abs().max()))
+            a1, a2 = n1, n2
+            if dt < 1e-13:
+                break
+        oracle = orc.Oracle(u, e, no)
+        expT, expmT, hb = orc.hbar(oracle, a1[0].cpu().numpy(),
+                                   a2[0, 0, 0].cpu().numpy())
+        want = orc.eom_spectra(oracle, hb)
+        w = cc.eom_dense(1, no, nv, kp3, eo, ev, a1, a2, U)
+        d_eom = float(np.abs(w - want["ee"]).max())
+        for sector in ("ip", "ea"):
+            w = cc.eom_qp(1, no, nv, kp3, eo, ev, a1.cpu().numpy(),
+                          a2.cpu().numpy(), u[None, None, None], sector)[0]
+            d_eom = max(d_eom, float(np.abs(w - want[sector]).max()))
+        out.append((f"EOM-EE/IP/EA = the oracle's Hbar spectra ({no} "
+                    f"electrons)", d_eom, 1e-9))
+        gam1, lam = cc.lambda_rdm(1, no, nv, kp3, eo, ev, a1, a2, U)
+        gam2 = cc.lambda_rdm2(1, no, nv, kp3, eo, ev, a1, a2, U, lam=lam,
+                              gam1=gam1)[0, 0, 0]
+        left = orc.left_state(oracle, hb, cc._amp_basis(1, no, nv, kp3)[1])
+        g1_o, g2_o = orc.densities(oracle, expT, expmT, left)
+        g1 = np.block([[gam1[0][0], gam1[1][0]], [gam1[2][0], gam1[3][0]]])
+        out.append((f"1- and 2-RDM = the oracle's ({no} electrons)", max(
+            float(np.abs(g1 - g1_o).max()),
+            float(np.abs(gam2 - g2_o).max())), 1e-9))
+    kp = np.array([[[0, 1], [1, 0]], [[1, 0], [0, 1]]])
+    _, dense = cc._amp_basis(2, 2, 3, kp)
+    b = cc.AmpBasis(2, 2, 3, kp, dev)
+    out.append(("structured amplitude basis = the dense one",
+                float(np.abs(b.dense().cpu().numpy() - dense).max()), 0.0))
+    out += _autodiff_conventions(torch)
+    return out
+
+
+def _autodiff_conventions(torch):
+    """torch's complex autodiff on the card, as the CC layer uses it:
+    jvp of a holomorphic map = J x (against a central difference), a
+    vmap of jvps = the stacked jvps, and reverse mode with grad_outputs 1
+    = conj(df/dz)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, dtype=torch.complex128, device=dev,
+                           generator=g)
+
+    a, z, x = rnd(6, 6), rnd(6), rnd(6)
+    f = lambda v: (a @ v) * v + v.exp()                  # holomorphic
+    jx = torch.func.jvp(f, (z,), (x,))[1]
+    h = 1e-6
+    fd = (f(z + h * x) - f(z - h * x)) / (2 * h)
+    eye = torch.eye(6, dtype=z.dtype, device=dev)
+    jac = torch.func.vmap(lambda c: torch.func.jvp(f, (z,), (c,))[1],
+                          in_dims=1, out_dims=1)(eye)
+    zr = z.clone().requires_grad_(True)
+    s = (f(zr) * x).sum()
+    gr = torch.autograd.grad(s, zr, grad_outputs=torch.ones_like(s))[0]
+    return [("jvp of a holomorphic map = central difference (relative)",
+             float((jx - fd).abs().max() / fd.abs().max()), 1e-8),
+            ("vmap of jvps = the Jacobian's columns",
+             float((jac @ x - jx).abs().max()), 1e-12),
+            ("reverse mode, grad_outputs 1 = conj(J^T x)",
+             float((gr - (jac.T @ x).conj()).abs().max()), 1e-12)]
+
+
+def _cc_diamond_222(torch):
+    """(b) diamond gth-szv ke 50 2x2x2, c0 40 (examples/exciton_
+    dispersion.py's system; README.md's KCCSD record): KRHF, CCSD(T),
+    EOM-EE Davidson (4 roots), DMET on one carbon (its 4 AOs: an
+    8-orbital embedding, FCI over 4900 determinants) with the mu fit, by
+    the FCI and by the CCSD solver."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf import cc
+    from fftisdf_tpu_torch.scf.dmet import dmet_energy
+    from fftisdf_tpu_torch.scf.mp2 import kmp2
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([2, 2, 2])
+    (df, s_b, p_b) = _timed_peak(torch, lambda: FFTISDF(
+        cell, kpts, c0=40.0, verbose=0).build())
+    mf = KRHF(cell, kpts, df, verbose=0)
+    mf.kernel()
+    log(f"[11b] diamond gth-szv ke 50 2x2x2 c0 40: nao {cell.nao_nr()}, m0 "
+        f"{df.m0}, nip {df.nip}; build {s_b:.2f}s, peak {p_b:.2f} GB; "
+        + _scf_line("KRHF", mf, mf.cycle_seconds))
+    ok = mf.converged
+    (r, s, p) = _timed_peak(torch, lambda: cc.kccsd_t(df, mf))
+    e_cc, e_t, info = r
+    e2 = kmp2(df, mf)[0]
+    d = _relmax(info["energies"][0], e2)
+    per = info["cycle_s"][1:] or info["cycle_s"]
+    log(f"[11b] kccsd_t: e_ccsd {e_cc:.10f}, e_(T) {e_t:.10f} Ha/cell "
+        f"(imag {info['imag']:.1e} / {info['imag_t']:.1e}); converged "
+        f"{info['converged']} in {info['niter']} cycles (README.md: "
+        f"{CC_README_CYCLES}); first iterate - kmp2 {d:.1e} relative "
+        f"(gate 1e-10); integrals {info['eris_s']:.2f}s, "
+        f"{sum(per) / len(per):.3f} s/cycle past the first; {s:.2f}s in "
+        f"all, peak {p:.2f} GB")
+    ok &= bool(info["converged"] and d <= 1e-10 and e_cc < 0 and e_t < 0)
+    _cycle_parts(torch, cc, info, "[11b]", t3=True)
+    (r, s, p) = _timed_peak(torch, lambda: cc.eomee_davidson(df, mf,
+                                                             nroots=4))
+    w, info = r
+    log(f"[11b] eomee_davidson, 4 roots: " + " ".join(
+        f"{x.real:.6f}{x.imag:+.1e}j" for x in w)
+        + f" Ha; converged {info['eom_converged']}; {s:.2f}s with its "
+        f"kccsd, peak {p:.2f} GB")
+    ok &= bool(info["eom_converged"] and np.all(w.real > 0))
+    from fftisdf_tpu_torch.isdf.ao2mo import trans_2e
+    from fftisdf_tpu_torch.scf.dmet import build_embedding
+
+    c_lo = build_embedding(mf, [0, 1, 2, 3])[0]
+    trans_2e(df, c_lo)
+    (_, s, _) = _timed_peak(torch, lambda: trans_2e(df, c_lo))
+    log(f"[11b] the embedding ERIs (trans_2e, {len(kpts)}^3 = "
+        f"{len(kpts) ** 3} assemble_eri calls, 8 embedding orbitals): "
+        f"{s * 1e3:.2f} ms warm")
+    for label, solver in (("FCI", None), ("CCSD", cc.ccsd_solver)):
+        (r, s, p) = _timed_peak(torch, lambda: dmet_energy(
+            mf, df, frag_ao=[0, 1, 2, 3], solver=solver, fit_mu=True))
+        e, info = r
+        log(f"[11b] dmet, one carbon (AOs 0-3), {label} solver, mu fit: "
+            f"e {e:.10f} Ha (de_corr {info['de_corr']:.10f}, nbath "
+            f"{info['nbath']}, nemb {info['nemb']}, mu {info['mu']:+.6f}, "
+            f"|dN_frag| {info.get('nfrag_err', 0.0):.1e}); {s:.2f}s, peak "
+            f"{p:.2f} GB")
+        ok &= bool(info["nemb"] == 8 and info["de_corr"] < 0
+                   and info.get("nfrag_err", 0.0) < 1e-6)
+    if not ok:
+        raise RuntimeError("a correlated method failed on diamond 2x2x2")
+    del df, mf
+    torch.cuda.empty_cache()
+
+
+def _cycle_parts(torch, cc, info, tag, t3=False):
+    """A CCSD cycle's parts alone, warm, on kccsd's converged amplitudes:
+    the step (the residual and its update) and the DIIS update on the
+    card; with ``t3``, the (T) energy."""
+    U, t1, t2 = info["U"], info["t1"], info["t2"]
+    nk, nocc, nvir = t1.shape
+    step = cc.make_step(nk, nocc, nvir, info["kp3"], info["eo"], info["ev"])
+
+    def diis():
+        d = cc.AmplitudeDIIS(8, cc._pack(t1, t2, nk))
+        vec = cc._pack(t1, t2, nk)
+        for _ in range(8):
+            d.update(vec, vec)
+        return d
+
+    parts = [("step", lambda: step(t1, t2, U)),
+             ("8 DIIS updates", diis)]
+    if t3:
+        fn = cc.make_t3_energy(nk, nocc, nvir, info["kp3"], info["eo"],
+                               info["ev"])
+        parts.append(("(T)", lambda: fn(t1, t2, U)))
+    out = []
+    for name, f in parts:
+        f()
+        _, s, p = _timed_peak(torch, f)
+        out.append(f"{name} {s * 1e3:.1f} ms (peak {p:.2f} GB)")
+    log(f"{tag} the cycle's parts alone (warm): " + "; ".join(out))
+
+
+def _cc_diamond_333(torch):
+    """(c) the same cell at 3x3x3 (nk 27; U 20.6 GB in complex128): kccsd
+    with the gathered operands in memory blocks."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf import cc
+    from fftisdf_tpu_torch.scf.mp2 import kmp2
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([3, 3, 3])
+    (df, s_b, p_b) = _timed_peak(torch, lambda: FFTISDF(
+        cell, kpts, c0=40.0, verbose=0).build())
+    mf = KRHF(cell, kpts, df, verbose=0)
+    mf.kernel()
+    log(f"[11c] diamond gth-szv ke 50 3x3x3 c0 40: nip {df.nip}; build "
+        f"{s_b:.2f}s, peak {p_b:.2f} GB; "
+        + _scf_line("KRHF", mf, mf.cycle_seconds))
+    (r, s, p) = _timed_peak(torch, lambda: cc.kccsd(df, mf,
+                                                    return_amps=True))
+    e_cc, info = r
+    d = _relmax(info["energies"][0], kmp2(df, mf)[0])
+    per = info["cycle_s"][1:] or info["cycle_s"]
+    log(f"[11c] kccsd: e_ccsd {e_cc:.10f} Ha/cell (imag {info['imag']:.1e})"
+        f"; converged {info['converged']} in {info['niter']} cycles; first "
+        f"iterate - kmp2 {d:.1e} relative (gate 1e-10); U assembly "
+        f"{info['eris_s']:.2f}s, {sum(per) / len(per):.3f} s/cycle past the "
+        f"first (first {info['cycle_s'][0]:.2f}s); {s:.2f}s in all, peak "
+        f"{p:.2f} GB (gate 80)")
+    if not (mf.converged and info["converged"] and d <= 1e-10
+            and e_cc < 0 and p < 80.0):
+        raise RuntimeError("kccsd failed on diamond 3x3x3")
+    _cycle_parts(torch, cc, info, "[11c]")
+    del df, mf, info, r
+    torch.cuda.empty_cache()
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
@@ -2654,6 +3187,13 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[10] K1 launches in phase 10's builds: {corr_launches}")
         if corr_launches < 1:
             raise RuntimeError("phase 10's builds did not launch K1")
+    pair_gram_sq.launches = 0
+    timed(11, phase11_correlated, ctx)
+    cc_launches = pair_gram_sq.launches
+    if run(11):
+        log(f"[11] K1 launches in phase 11's builds: {cc_launches}")
+        if cc_launches < 1:
+            raise RuntimeError("phase 11's builds did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -2665,7 +3205,7 @@ def _run(torch, run, only, t_all, ctx):
         {"name": "pair_gram_sq", **common, "dtype": "complex128",
          "launches": launches, "production_launches": prod_launches,
          "phase8_launches": rest_launches, "ks_launches": prod_launches,
-         "corr_launches": corr_launches,
+         "corr_launches": corr_launches, "cc_launches": cc_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

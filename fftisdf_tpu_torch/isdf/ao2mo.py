@@ -9,8 +9,9 @@ C_{k,m,i}.  Tensors stay on the device of the ISDF object.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from fftisdf_tpu_torch.isdf.eri import assemble_eri
+from fftisdf_tpu_torch.isdf.eri import assemble_eri, pair_vectors
 from fftisdf_tpu_torch.utils.device import as_tensor
 
 
@@ -43,7 +44,11 @@ def trans_2e(df, c_ao_lo=None):
 
     ``c_ao_lo`` (nk, nao, nemb) the k-resolved AO -> local-orbital
     coefficients (identity per k when None, the k2gamma AO transform of
-    ref ``fftisdf.py:246-250``).  For nk = 1 it is the plain MO ERI."""
+    ref ``fftisdf.py:246-250``).  For nk = 1 it is the plain MO ERI.
+
+    The sum over k3 of a (k1, k2) row, whose triples share w^q and the
+    pair vectors of (k1, k2), is taken on the (k3, k4) pair vectors
+    first: one product a row (the JAX package assembles each triple)."""
     nk = df.nkpt
     x = df.x_k
     nao = x.shape[2]
@@ -51,13 +56,14 @@ def trans_2e(df, c_ao_lo=None):
         c_ao_lo = np.broadcast_to(np.eye(nao), (nk, nao, nao))
     c = as_tensor(np.asarray(c_ao_lo).astype(complex), x.device, x.dtype)
     k2c, k3c = df.kconserv2(), df.kconserv3()
-    xlo = [x[k] @ c[k] for k in range(nk)]
+    xlo = x @ c                                      # (nk, nip, nemb)
+    n = xlo.shape[2]
     out = None
     for k1 in range(nk):
         for k2 in range(nk):
-            wq = df.wq[int(k2c[k1, k2])]
-            for k3 in range(nk):
-                t = assemble_eri(wq, xlo[k1], xlo[k2], xlo[k3],
-                                 xlo[int(k3c[k1, k2, k3])])
-                out = t if out is None else out + t
+            k4s = torch.as_tensor(k3c[k1, k2], device=x.device)
+            t34 = pair_vectors(xlo, xlo[k4s]).sum(0)     # sum over k3
+            t = (pair_vectors(xlo[k1], xlo[k2]).T
+                 @ (df.wq[int(k2c[k1, k2])] @ t34)).reshape(n, n, n, n)
+            out = t if out is None else out + t
     return out / nk

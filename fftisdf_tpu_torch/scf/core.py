@@ -22,14 +22,20 @@ def _real_finfo(dtype):
 def diis_extrapolate(errs, focks, valid):
     """Pulay-extrapolated Fock from stored (error, fock) rows.
 
-    errs/focks: (m, L) complex rows; valid: (m,) bool mask of live slots.
+    errs/focks: (m, L) complex rows; valid: (m,) bool mask of live slots."""
+    return diis_coefficients(errs.conj() @ errs.T, valid) @ focks
+
+
+def diis_coefficients(b, valid):
+    """Pulay coefficients from the error Gram matrix b[i, j] = <err_i,
+    err_j> (m, m) and the (m,) bool mask of live slots.
+
     Minimises |sum_i c_i err_i|^2 subject to sum_i c_i = 1, with B
     normalised by its largest live element and a relative Tikhonov term
     (well-posed from |err| ~ 1 to convergence; a scalar rescale of B does
     not move the constrained minimiser)."""
-    m = errs.shape[0]
-    dt, dev = errs.dtype, errs.device
-    b = errs.conj() @ errs.T
+    m = b.shape[0]
+    dt, dev = b.dtype, b.device
     vv = valid[:, None] & valid[None, :]
     scale = torch.where(vv, b.abs(), 0.0).max() + _real_finfo(dt).tiny
     b = torch.where(vv, b / scale, torch.eye(m, dtype=dt, device=dev))
@@ -41,8 +47,7 @@ def diis_extrapolate(errs, focks, valid):
     rhs = torch.cat([torch.zeros(m, dtype=dt, device=dev),
                      -torch.ones(1, dtype=dt, device=dev)])
     # solve_ex: no error check, so no wait on the device
-    coef = torch.linalg.solve_ex(a, rhs)[0][:m] * valid.to(dt)
-    return coef @ focks
+    return torch.linalg.solve_ex(a, rhs)[0][:m] * valid.to(dt)
 
 
 def adiis_coeffs(dms, focks, ref, valid, n_steps=400):

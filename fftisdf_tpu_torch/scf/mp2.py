@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fftisdf_tpu_torch.isdf.eri import pair_vectors as _pair_mat
 from fftisdf_tpu_torch.utils.device import as_tensor
 
 
@@ -50,13 +51,6 @@ def _sector_maps(df):
     for ki in range(1, nk):
         assert np.array_equal(k3c[ki, ka_of[ki]], kb_of)
     return k2c, ka_of, kb_of
-
-
-def _pair_mat(a, b):
-    """(..., nip, na), (..., nip, nb) -> (..., nip, na*nb) pair vectors
-    conj(a)*b, the slot layout of ``assemble_eri``."""
-    p = a.conj()[..., :, None] * b[..., None, :]
-    return p.reshape(*p.shape[:-2], a.shape[-1] * b.shape[-1])
 
 
 def _sector_products(wq, xo, xv, kb_of):

@@ -116,16 +116,19 @@ def test_f32_build_matches_jax_given_mask(diamond):
     the JAX package's interpolation points serves the JAX float32 build's
     J/K to 5e-5 (each is ~5e-6 from the exact J/K; two float32 roundoff
     histories of a fit with cond ~1e5).  The build-dtype selection route
-    (through K1's plain version here) holds the same gate against it."""
+    (through K1's plain version here) holds the same gate against it.  The
+    JAX build's mask and J/K on this density are recorded
+    (tests/data/jax_port_refs.json ``jax_sides``)."""
     cell_j, cell, kpts, dm = diamond
+    rec = REFS["jax_sides"]["f32_build"]
+    unpack = lambda d: (np.asarray(d["re"]) + 1j * np.asarray(d["im"])
+                        ).reshape(d["shape"])
+    vj_j, vk_j = unpack(rec["vj"]), unpack(rec["vk"])
     ctx = _quiet()
-    df_j = JaxISDF(cell_j, kpts, c0=20.0, m0=(7, 7, 7), verbose=0,
-                   dtype=jnp.float32).build()
-    vj_j, vk_j = df_j.get_jk(to_device(dm, dtype=jnp.complex64))
     df = FFTISDF(cell, kpts, c0=20.0, m0=(7, 7, 7), verbose=0, dtype=F32,
-                 device="cpu").build(mask=np.asarray(df_j.mask))
+                 device="cpu").build(mask=np.asarray(rec["mask"]))
     vj, vk = df.get_jk(dm)
-    assert df.nip == df_j.nip
+    assert df.nip == rec["nip"]
     assert _maxerr(vj, vj_j) < 5e-5 and _maxerr(vk, vk_j) < 5e-5
     df_k1 = FFTISDF(cell, kpts, c0=20.0, m0=(7, 7, 7), verbose=0, dtype=F32,
                     select_host_f64=False, device="cpu").build()

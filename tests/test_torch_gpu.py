@@ -21,9 +21,11 @@ the build-dtype selection route launches K1 in complex64, the float64
 route does not, and both serve the CPU's J/K to float32 accuracy.  The
 ISDF band pair loop, the compact cderi serve and a 0d-truncated SCF on the
 card are held against the CPU, and so are the xc functionals and the
-device-resident KS loop (PBE+U, SCAN, PBE0), and every many-body method
+device-resident KS loop (PBE+U, SCAN, PBE0), every many-body method
 (kmp2, kump2, drpa, Sigma^c(iw), TDA dense and Davidson, UTDA, Casida,
-BSE) on the CPU's points and orbitals.
+BSE) on the CPU's points and orbitals, and FCI, DMET and the CC layer
+(CCSD(T), EOM-EE Davidson, EOM-IP, the Lambda density, the CCSD solver),
+with the complex autodiff conventions the CC derivatives rest on.
 """
 import numpy as np
 import pytest
@@ -503,3 +505,123 @@ def test_many_body_on_cuda_matches_cpu(cuda, many_body_states, method):
     g, c = out["cuda"], out["cpu"]
     tol = 1e-8 if method == "davidson" else 1e-10
     assert np.abs(g - c).max() <= tol * np.abs(c).max(), method
+
+
+@pytest.fixture(scope="module")
+def cc_states():
+    """{device: (df, KRHF)} on the H2 chain of tests/test_cc.py at 1x1x2,
+    the JAX package's points and real-gauge orbitals
+    (tests/data/jax_port_refs.json) on both devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    from pathlib import Path
+
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf.hf import _build_dm
+
+    rec = json.loads((Path(__file__).resolve().parent / "data"
+                      / "jax_port_refs.json").read_text())["many_body"]["h2_k2"]
+    cell = Cell(a=np.diag([6.0, 6.0, 7.0]),
+                atom=[("H", (3.0, 3.0, 1.8)), ("H", (3.0, 3.0, 3.2))],
+                basis={"H": [Shell(l=0, exps=np.array([1.2, 0.4]),
+                                   coeffs=np.eye(2))]},
+                pseudo="gth-pade", mesh=np.array([14, 14, 17]), unit="bohr",
+                precision=1e-12).build()
+    kpts = cell.get_kpts([1, 1, 2])
+    orb = rec["krhf"]
+    mo = (np.asarray(orb["mo_coeff"]["re"]) + 1j * np.asarray(
+        orb["mo_coeff"]["im"])).reshape(orb["mo_coeff"]["shape"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                     select_tol=1e-18, rcond=1e-12, device=dev).build(
+                         mask=np.asarray(rec["mask"]))
+        mf = KRHF(cell, kpts, df, verbose=0, device=dev)
+        mf.mo_coeff, mf.mo_energy = mo, np.asarray(orb["mo_energy"])
+        mf.mo_occ = np.asarray(orb["mo_occ"])
+        mf.dm = _build_dm(mo, mf.mo_occ)
+        _, vj, vk = mf.get_fock(mf.dm)
+        mf.e_tot = mf.energy_elec(mf.dm, vj, vk) + mf.e_nuc
+        out[dev] = (df, mf)
+    return out
+
+
+def _random_embedding(n=4, seed=43):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h = h + h.conj().T
+    a = 0.15 * (rng.standard_normal((n,) * 4)
+                + 1j * rng.standard_normal((n,) * 4))
+    a = a + a.transpose(2, 3, 0, 1)
+    return h, a + a.transpose(1, 0, 3, 2).conj()
+
+
+CORRELATED = {
+    "kccsd_t": lambda df, mf, dev: list(many("cc").kccsd_t(
+        df, mf, conv_tol=1e-9, max_cycle=80)[:2]),
+    "eomee_davidson": lambda df, mf, dev: many("cc").eomee_davidson(
+        df, mf, nroots=3, conv_tol=1e-10, tol=1e-9)[0],
+    "eomip": lambda df, mf, dev: np.concatenate(list(many("cc").eomip(
+        df, mf, conv_tol=1e-10)[0].values())),
+    "onerdm": lambda df, mf, dev: np.concatenate([np.ravel(b) for b in
+                                                  many("cc").onerdm(
+        df, mf, conv_tol=1e-9)[0]]),
+    "dmet_fci": lambda df, mf, dev: [many("dmet").dmet_energy(
+        mf, df, frag_ao=[0, 1], fit_mu=True)[0]],
+    "dmet_ccsd": lambda df, mf, dev: [many("dmet").dmet_energy(
+        mf, df, frag_ao=[0, 1], solver=many("cc").ccsd_solver)[0]],
+    "fci": lambda df, mf, dev: np.concatenate([
+        np.ravel(x) for x in many("fci").fci_ground(
+            *_random_embedding(), 4, device=dev)]),
+    "ccsd_solver": lambda df, mf, dev: np.concatenate([
+        np.ravel(x) for x in many("cc").ccsd_solver(
+            *_random_embedding(), 4, device=dev)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(CORRELATED))
+def test_correlated_on_cuda_matches_cpu(cuda, cc_states, method):
+    """FCI, DMET and the CC layer on the card against the CPU on the same
+    points and orbitals (the H2 chain at 1x1x2; FCI and the CCSD solver on
+    a random embedding problem): 1e-10 relative (the Davidson roots 1e-8,
+    the solve's tol 1e-9)."""
+    out = {dev: np.asarray(CORRELATED[method](*cc_states[dev], dev))
+           for dev in ("cpu", "cuda")}
+    g, c = out["cuda"], out["cpu"]
+    tol = 1e-8 if method == "eomee_davidson" else 1e-10
+    assert np.abs(g - c).max() <= tol * np.abs(c).max(), method
+
+
+@pytest.mark.gpu
+def test_complex_autodiff_conventions_on_cuda(cuda):
+    """The three conventions the CC layer's derivatives rest on, on the
+    card: torch.func.jvp of a holomorphic map is J x (a central
+    difference), vmap of jvps over unit vectors gives J's columns, and
+    reverse mode with grad_outputs 1 returns conj(J^T x), i.e. conj of
+    the holomorphic gradient."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, dtype=torch.complex128, device=cuda,
+                           generator=g)
+
+    a, z, x = rnd(6, 6), rnd(6), rnd(6)
+
+    def f(v):
+        return (a @ v) * v + v.exp()
+
+    jx = torch.func.jvp(f, (z,), (x,))[1]
+    fd = (f(z + 1e-6 * x) - f(z - 1e-6 * x)) / 2e-6
+    assert float((jx - fd).abs().max()) <= 1e-8 * float(fd.abs().max())
+    jac = torch.func.vmap(lambda c: torch.func.jvp(f, (z,), (c,))[1],
+                          in_dims=1, out_dims=1)(
+        torch.eye(6, dtype=z.dtype, device=cuda))
+    assert float((jac @ x - jx).abs().max()) <= 1e-12
+    zr = z.clone().requires_grad_(True)
+    s = (f(zr) * x).sum()
+    gr = torch.autograd.grad(s, zr, grad_outputs=torch.ones_like(s))[0]
+    assert float((gr - (jac.T @ x).conj()).abs().max()) <= 1e-12

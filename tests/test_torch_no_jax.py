@@ -3,7 +3,8 @@ the JAX package can be imported (the GPU machine has no JAX, and the port
 keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
-module of the port imports (the KS and many-body modules among them),
+module of the port imports (the KS, many-body and correlated modules
+among them),
 one tiny build, ``get_jk`` and xc evaluation run on a small He2 cell on
 the CPU, and one ``kmp2`` on the H2 chain of tests/test_mp2.py;
 none of the refused modules may reach ``sys.modules``."""
@@ -40,7 +41,7 @@ SCRIPT = textwrap.dedent("""
     for name in ("isdf.bands", "isdf.cderi", "isdf.gamma", "isdf.ao2mo",
                  "isdf.thc", "lattice.becke", "scf.xc", "scf.ks",
                  "scf.hubbard", "scf.dos", "scf.mp2", "scf.rpa", "scf.gw",
-                 "scf.tddft", "scf.bse"):
+                 "scf.tddft", "scf.bse", "scf.fci", "scf.dmet", "scf.cc"):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np
@@ -95,6 +96,10 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    # two threads, as torch_test_threads gives the port's other tests: the
+    # suite's xdist workers share the machine's cores
+    env.update(OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -10,7 +10,9 @@ The exact oracle of the port is held against the JAX package's with the
 same kernel to 1e-10 relative, and a truncated state goes through the
 ``.npz`` format in both directions.
 """
+import json
 import warnings
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -130,23 +132,28 @@ def test_full_rank_screened_jk_exact(he2):
 def test_compressed_screened_jk(he2, he2_compressed):
     """Compression regime: screened J/K at the usual ISDF gate against the
     exact screened J/K, against the JAX package's screened serve given its
-    interpolation points (1e-8 relative), and SR + LR - full a rank-1
-    metric in the q = 0 sector only."""
+    interpolation points (1e-8 relative; its mask and J/K on this density
+    recorded in tests/data/jax_port_refs.json ``jax_sides``), and SR + LR
+    - full a rank-1 metric in the q = 0 sector only."""
     cell_j, cell, kpts, ao, dm = he2
     df = he2_compressed
+    rec = json.loads((Path(__file__).parent / "data"
+                      / "jax_port_refs.json").read_text())["jax_sides"][
+                          "omega_he2"]
+    unpack = lambda d: (np.asarray(d["re"]) + 1j * np.asarray(d["im"])
+                        ).reshape(d["shape"])
+    assert OMEGA == 0.6
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 13),
-                       verbose=0).build()
         df_m = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 13), verbose=0,
-                       device="cpu").build(mask=np.asarray(df_j.mask))
+                       device="cpu").build(mask=np.asarray(rec["mask"]))
     for omega in (OMEGA, -OMEGA):
         vj_ref, vk_ref = pw_jk.get_jk_kpts(cell, dm, ao, kpts, omega=omega)
         vj, vk = df.get_jk(dm, omega=omega)
         scale = float(vk_ref.abs().max())
         assert _maxerr(vj, vj_ref) < 1e-4, omega
         assert _maxerr(vk, vk_ref) < 1e-4 * max(scale, 1.0), omega
-        vj_j, vk_j = df_j.get_jk(dm, omega=omega)
+        vj_j, vk_j = (unpack(rec[str(omega)][x]) for x in ("vj", "vk"))
         vj_m, vk_m = df_m.get_jk(dm, omega=omega)
         assert _rel(vj_m, vj_j) < 1e-8 and _rel(vk_m, vk_j) < 1e-8, omega
     wq_g0 = (df.get_wq_omega(-OMEGA) + df.get_wq_omega(OMEGA)

@@ -7,7 +7,8 @@ relative, Madelung to 1e-12, compressed ISDF serves to 1e-8 relative
 (test_torch_isdf_kpoint.py), full-rank ISDF against the exact oracle to
 1e-9 (test_full_rank_jk_exact).  The port's ISDF is given the JAX
 package's interpolation points.  The exact KRHF energy of the JAX package
-is read from its record, tests/data/jax_port_refs.json
+and the JAX side of the ISDF serve and of ``PWDF.get_jk`` on this
+density are read from its record, tests/data/jax_port_refs.json
 (tools/jax_port_refs.py, same configuration).
 """
 import json
@@ -17,11 +18,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fftisdf_tpu.isdf import FFTISDF as JaxISDF
 from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.pw import eri as jax_pw_eri, jk as jax_pw_jk
 from fftisdf_tpu.scf import integrals as jax_integrals
-from fftisdf_tpu.scf.hf import PWDF as JaxPWDF
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
@@ -96,43 +95,54 @@ def test_madelung_matches_jax(diamond, kmesh):
     assert abs(integrals.madelung(cell, kmesh) - ref) <= 1e-12 * abs(ref)
 
 
+def _unpack(d):
+    return (np.asarray(d["re"]) + 1j * np.asarray(d["im"])).reshape(
+        d["shape"])
+
+
 @pytest.fixture(scope="module")
 def diamond_isdf(diamond):
-    cell_j, cell, kpts = diamond[:3]
-    df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 9), verbose=0).build()
+    """(the JAX package's c0 10, m0 9^3 build on this density: its mask,
+    Madelung constant, overlap, J/K and ERI blocks, recorded in
+    tests/data/jax_port_refs.json ``jax_sides``; the port's build on its
+    mask)."""
+    cell, kpts = diamond[1:3]
+    rec = json.loads((Path(__file__).resolve().parent / "data"
+                      / "jax_port_refs.json").read_text())["jax_sides"][
+                          "pw_diamond"]
     df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
-                 device="cpu").build(mask=np.asarray(df_j.mask))
-    return df_j, df
+                 device="cpu").build(mask=np.asarray(rec["mask"]))
+    return rec, df
 
 
 def test_isdf_exxdiv_ewald_matches_jax(diamond, diamond_isdf):
     _, _, kpts, _, dm = diamond
-    df_j, df = diamond_isdf
-    assert abs(df.madelung() - df_j.madelung()) <= 1e-12 * df_j.madelung()
-    assert _rel(df.get_ovlp().numpy(), df_j.get_ovlp()) < 1e-12
+    rec, df = diamond_isdf
+    assert abs(df.madelung() - rec["madelung"]) <= 1e-12 * rec["madelung"]
+    assert _rel(df.get_ovlp().numpy(), _unpack(rec["ovlp"])) < 1e-12
     dms = np.stack([dm, trs_dm(diamond[1], kpts, dm.shape[-1], seed=7)[0]])
-    vj_j, vk_j = df_j.get_jk(dms, exxdiv="ewald")
+    vj_j, vk_j = _unpack(rec["vj_ewald"]), _unpack(rec["vk_ewald"])
     vj, vk = df.get_jk(dms, exxdiv="ewald")
     assert _rel(vj.numpy(), vj_j) < 1e-8
     assert _rel(vk.numpy(), vk_j) < 1e-8
     _, vk0 = df.get_jk(dms)
-    assert _rel(vk.numpy() - vk0.numpy(),
-                np.asarray(vk_j) - np.asarray(df_j.get_jk(dms)[1])) < 1e-10
+    assert _rel(vk.numpy() - vk0.numpy(), vk_j - _unpack(rec["vk"])) < 1e-10
 
 
 def test_isdf_get_eri_matches_jax(diamond_isdf):
-    df_j, df = diamond_isdf
+    rec, df = diamond_isdf
     for kidx in [(0, 0, 0, 0), (0, 1, 1, 0), (1, 0, 0, 1), (0, 1, 0, 1)]:
-        ref = df_j.get_eri(kidx)
+        ref = _unpack(rec[str(list(kidx))])
         assert _rel(df.get_eri(kidx).numpy(), ref) < 1e-8
     with pytest.raises(ValueError):
         df.get_eri((0, 1, 0, 0))
 
 
-def test_pwdf_ewald_matches_jax(diamond):
-    cell_j, cell, kpts, _, dm = diamond
+def test_pwdf_ewald_matches_jax(diamond, diamond_isdf):
+    _, cell, kpts, _, dm = diamond
+    rec = diamond_isdf[0]
     dms = np.stack([dm, dm.conj()])
-    vj_j, vk_j = JaxPWDF(cell_j, kpts).get_jk(dms, exxdiv="ewald")
+    vj_j, vk_j = _unpack(rec["pwdf_vj"]), _unpack(rec["pwdf_vk"])
     vj, vk = PWDF(cell, kpts, device="cpu").get_jk(dms, exxdiv="ewald")
     assert vj.shape == dms.shape
     assert _rel(vj.numpy(), vj_j) < 1e-10

@@ -16,8 +16,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from fftisdf_tpu.isdf import FFTISDF as JaxISDF
-from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.linalg import solvers as jax_solvers
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
@@ -293,23 +291,29 @@ def test_pairgram_equals_dense_route_through_k1():
 # ------------------------------------------------------- solvers in a build
 @pytest.fixture(scope="module")
 def diamond_ridge():
-    """Diamond gth-szv ke 50 1x1x2, c0 10: (JAX cell, port cell, kpts, the
-    JAX package's ridge build, a density)."""
-    import warnings
+    """Diamond gth-szv ke 50 1x1x2, c0 10: (port cell, kpts, the JAX
+    package's builds (ridge and each eigh-family solver: mask and J/K on
+    the density, recorded in tests/data/jax_port_refs.json
+    ``jax_sides``), the density)."""
+    import json
+    from pathlib import Path
 
     kw = dict(basis="gth-szv", pseudo="gth-pade", ke_cutoff=50.0)
-    cell_j = jax_structure.to_cell(*jax_structure.bulk_diamond(), **kw)
     cell = structure.to_cell(*structure.bulk_diamond(), **kw)
     kpts = cell.get_kpts([1, 1, 2])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(7, 7, 7),
-                       verbose=0).build()
+    rec = json.loads((Path(__file__).parent / "data"
+                      / "jax_port_refs.json").read_text())["jax_sides"][
+                          "solver_builds"]
     rng = np.random.default_rng(0)
     nao = cell.nao_nr()
     dm = rng.standard_normal((2, nao, nao)) * 0.1 + np.eye(nao)[None]
     dm = (dm + dm.transpose(0, 2, 1)).astype(np.complex128)
-    return cell_j, cell, kpts, df_j, dm
+    return cell, kpts, rec, dm
+
+
+def _recorded_jk(rec):
+    return tuple((np.asarray(rec[x]["re"]) + 1j * np.asarray(rec[x]["im"])
+                  ).reshape(rec[x]["shape"]) for x in ("vj", "vk"))
 
 
 @pytest.mark.parametrize("solver", ["lstsq", "pinv", "svd"])
@@ -320,19 +324,17 @@ def test_build_with_eigh_solvers_matches_jax(diamond_ridge, solver):
     stays within the compression error (1e-3) of the ridge build."""
     import warnings
 
-    cell_j, cell, kpts, df_ridge, dm = diamond_ridge
-    mask = np.asarray(df_ridge.mask)
+    cell, kpts, rec, dm = diamond_ridge
+    mask = np.asarray(rec["ridge"]["mask"])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(7, 7, 7), verbose=0,
-                       solver=solver).build()
         df = FFTISDF(cell, kpts, c0=10.0, m0=(7, 7, 7), verbose=0,
                      solver=solver, device="cpu").build(mask=mask)
-    np.testing.assert_array_equal(np.asarray(df_j.mask), mask)
+    np.testing.assert_array_equal(np.asarray(rec[solver]["mask"]), mask)
     vj, vk = df.get_jk(dm)
-    vj_j, vk_j = df_j.get_jk(dm)
+    vj_j, vk_j = _recorded_jk(rec[solver])
     assert _rel(vj.numpy(), vj_j) < 1e-7 and _rel(vk.numpy(), vk_j) < 1e-7
-    vj_r, vk_r = df_ridge.get_jk(dm)
+    vj_r, vk_r = _recorded_jk(rec["ridge"])
     assert _rel(vj.numpy(), vj_r) < 1e-3 and _rel(vk.numpy(), vk_r) < 1e-3
 
 

@@ -3,6 +3,7 @@
 
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py           # every record
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py bands     # one section
+    JAX_PLATFORMS=cpu python tools/jax_port_refs.py correlated  # after many_body
 
 Writes ``tests/data/jax_port_refs.json``: energies, interpolation-point
 masks and meshes of the JAX package (``fftisdf_tpu``) on the CPU in float64,
@@ -148,7 +149,9 @@ def _scf(refs):
 SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
             "trunc": lambda r: _trunc(r), "bands": lambda r: _bands(r),
             "lsthc": lambda r: _lsthc(r), "ks": lambda r: _ks(r),
-            "many_body": lambda r: _many_body(r)}
+            "many_body": lambda r: _many_body(r),
+            "correlated": lambda r: _correlated(r),
+            "jax_sides": lambda r: _jax_sides(r)}
 
 
 def main():
@@ -634,6 +637,338 @@ def _many_body(refs):
     out["hvp"] = {"fmesh": list(fmesh), **_hvp_probes(
         fmesh, cell.get_Gv(fmesh), float(cell.vol) / int(np.prod(fmesh)))}
     refs["many_body"] = out
+
+
+def _with_orbitals(mf, rec):
+    """A JAX SCF object given a recorded reference's orbitals, density and
+    the energy of that density."""
+    from fftisdf_tpu.scf.hf import _build_dm
+
+    mf.mo_coeff = (np.asarray(rec["mo_coeff"]["re"])
+                   + 1j * np.asarray(rec["mo_coeff"]["im"])).reshape(
+                       rec["mo_coeff"]["shape"])
+    mf.mo_energy = np.asarray(rec["mo_energy"])
+    mf.mo_occ = np.asarray(rec["mo_occ"])
+    mf.dm = (np.stack([np.asarray(_build_dm(mf.mo_coeff[s], mf.mo_occ[s]))
+                       for s in range(2)]) if mf.mo_coeff.ndim == 4
+             else np.asarray(_build_dm(mf.mo_coeff, mf.mo_occ)))
+    _, vj, vk = mf.get_fock(mf.dm)
+    mf.e_tot = float(mf.energy_elec(mf.dm, vj, vk) + mf.e_nuc)
+    return mf
+
+
+def _cplx(a):
+    return [[float(np.real(x)), float(np.imag(x))] for x in np.ravel(a)]
+
+
+def packed_inputs():
+    """The seeded random inputs of tests/test_cc.py::test_packed_equations_
+    match_reference: (t1, t2 packed, f blocks, U, kp3) at nk 2, o 2, v 2."""
+    rng = np.random.default_rng(31)
+    nk, no, nv = 2, 2, 2
+    n = no + nv
+    U = (rng.standard_normal((nk, nk, nk, n, n, n, n))
+         + 1j * rng.standard_normal((nk, nk, nk, n, n, n, n))) * 0.1
+    kp3 = np.array([[[(a + b - c) % nk for c in range(nk)]
+                     for b in range(nk)] for a in range(nk)], dtype=np.int64)
+    t1 = 0.1 * (rng.standard_normal((nk, no, nv))
+                + 1j * rng.standard_normal((nk, no, nv)))
+    t2 = np.zeros((nk, nk, nk, no, no, nv, nv), dtype=complex)
+    for a in range(nk):
+        for b in range(nk):
+            for c in range(nk):
+                t2[a, b, c] = 0.1 * (
+                    rng.standard_normal((no, no, nv, nv))
+                    + 1j * rng.standard_normal((no, no, nv, nv)))
+    f = tuple(np.stack([rng.standard_normal(sh)
+                        + 1j * rng.standard_normal(sh) for _ in range(nk)])
+              for sh in ((no, no), (no, nv), (nv, no), (nv, nv)))
+    return t1, t2, f, U, kp3
+
+
+def solver_integrals(n=4, seed=43):
+    """The random embedding problem of tests/test_dmet.py::test_ccsd_solver_
+    vs_fci: complex Hermitian h1 with a sorted diagonal and (pq|rs) with
+    the physical symmetries."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h = h + h.conj().T
+    np.fill_diagonal(h, np.sort(rng.standard_normal(n)) * 2 - 1)
+    a = 0.15 * (rng.standard_normal((n,) * 4)
+                + 1j * rng.standard_normal((n,) * 4))
+    a = a + a.transpose(2, 3, 0, 1)
+    return h, a + a.transpose(1, 0, 3, 2).conj()
+
+
+DMET_CASES = (("h2_gamma", (0, 1, 2, 3), ("fci",)),
+              ("h2_k2", (0, 1), ("fci", "fci_mu", "ccsd", "ccsd_mu")),
+              ("h2_k2", (2, 3), ("fci",)),
+              ("diamond", (0,), ("fci", "fci_mu", "ccsd", "ccsd_mu")),
+              ("diamond", (0, 1, 2, 3), ("fci", "fci_mu", "ccsd",
+                                         "ccsd_mu")))
+
+
+def f32_density(nao, nk=2):
+    """The density of tests/test_f32_regime.py (test_torch_f32_regime.py's
+    ``diamond`` fixture)."""
+    rng = np.random.default_rng(0)
+    dm = rng.standard_normal((nk, nao, nao)) * 0.1 + np.eye(nao)[None]
+    return (dm + dm.transpose(0, 2, 1)).astype(np.complex128)
+
+
+OMEGA_HE2 = dict(a=np.diag([5.0, 5.0, 7.0]),
+                 atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],
+                 basis="sto-3g", pseudo=None, mesh=np.array([15, 15, 21]),
+                 unit="bohr", precision=1e-12)
+
+
+def omega_density(cell, kpts, nao, seed=0):
+    """test_torch_omega_trunc.py::trs_dm: a random hermitian density with
+    dm[-k] = conj(dm[k])."""
+    from fftisdf_tpu.lattice import kpoints as kpt_mod
+
+    rng = np.random.default_rng(seed)
+    nk = len(kpts)
+    s = cell.get_scaled_kpts(kpts)
+    dm = rng.standard_normal((nk, nao, nao)) \
+        + 1j * rng.standard_normal((nk, nao, nao))
+    dm = dm + dm.conj().transpose(0, 2, 1)
+    for k in range(nk):
+        km = kpt_mod.member(-s[k], s)
+        if km < k:
+            continue
+        avg = (dm[k] + dm[km].conj()) / 2
+        dm[k], dm[km] = avg, avg.conj()
+    return dm
+
+
+def _jax_sides(refs):
+    """The JAX side of four build-parity test groups, recorded: the float32
+    build of test_torch_f32_regime.py::test_f32_build_matches_jax_given_
+    mask (diamond 1x1x2, c0 20, m0 7^3: its mask and J/K on the test's
+    density), the screened serve of test_torch_omega_trunc.py::
+    test_compressed_screened_jk (He2 1x1x2, c0 10, m0 9x9x13: its mask
+    and J/K at omega = +-0.6), the builds of test_torch_solvers.py::
+    test_build_with_eigh_solvers_matches_jax (diamond 1x1x2, c0 10, m0
+    7^3, ridge and each eigh-family solver: mask and J/K), and the
+    diamond build and exact serve of test_torch_pw.py (c0 10, m0 9^3:
+    mask, Madelung constant, overlap, J/K with and without exxdiv='ewald',
+    four ERI blocks; PWDF's J/K with exxdiv='ewald')."""
+    import jax.numpy as jnp
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice.cell import Cell
+    from fftisdf_tpu.utils.device import to_device
+
+    cell, kpts = _diamond()
+    dm = f32_density(cell.nao_nr())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        df = FFTISDF(cell, kpts, c0=20.0, m0=(7, 7, 7), verbose=0,
+                     dtype=jnp.float32).build()
+    vj, vk = df.get_jk(to_device(dm, dtype=jnp.complex64))
+    out = {"f32_build": {
+        "config": "diamond gth-szv ke 50 1x1x2, float32 build c0 20 m0 7^3;"
+                  " J/K on tools/jax_port_refs.py::f32_density",
+        "mask": _mask(df), "nip": int(df.nip), "vj": _c(np.asarray(vj)),
+        "vk": _c(np.asarray(vk))}}
+    cell = Cell(**OMEGA_HE2).build()
+    kpts = cell.get_kpts([1, 1, 2])
+    dm = omega_density(cell, kpts, 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 13), verbose=0).build()
+    rec = {"config": "He2 STO-3G 1x1x2 mesh 15x15x21, c0 10 m0 9x9x13; "
+                     "J/K on tools/jax_port_refs.py::omega_density",
+           "mask": _mask(df)}
+    for omega in (0.6, -0.6):
+        vj, vk = df.get_jk(dm, omega=omega)
+        rec[str(omega)] = {"vj": _c(np.asarray(vj)), "vk": _c(np.asarray(vk))}
+    out["omega_he2"] = rec
+
+    cell, kpts = _diamond()
+    dm = f32_density(cell.nao_nr())
+    rec = {"config": "diamond gth-szv ke 50 1x1x2, c0 10 m0 7^3, each "
+                     "solver; J/K on tools/jax_port_refs.py::f32_density"}
+    for solver in ("ridge", "lstsq", "pinv", "svd"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            df = FFTISDF(cell, kpts, c0=10.0, m0=(7, 7, 7), verbose=0,
+                         solver=solver).build()
+        vj, vk = df.get_jk(dm)
+        rec[solver] = {"mask": _mask(df), "vj": _c(np.asarray(vj)),
+                       "vk": _c(np.asarray(vk))}
+    out["solver_builds"] = rec
+
+    from fftisdf_tpu.scf.hf import PWDF
+
+    cell, kpts = _diamond()
+    nao = cell.nao_nr()
+    dm = pw_density(cell, kpts, nao, seed=2)
+    dms = np.stack([dm, pw_density(cell, kpts, nao, seed=7)])
+    df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0).build()
+    vj, vk = df.get_jk(dms, exxdiv="ewald")
+    rec = {"config": "diamond gth-szv ke 50 1x1x2, c0 10 m0 9^3; densities "
+                     "tools/jax_port_refs.py::pw_density seeds 2 and 7",
+           "mask": _mask(df), "madelung": float(df.madelung()),
+           "ovlp": _c(np.asarray(df.get_ovlp())), "vj_ewald": _c(vj),
+           "vk_ewald": _c(vk), "vk": _c(np.asarray(df.get_jk(dms)[1]))}
+    for kidx in PW_ERI_KIDX:
+        rec[str(list(kidx))] = _c(np.asarray(df.get_eri(kidx)))
+    pair = np.stack([dm, dm.conj()])
+    vj, vk = PWDF(cell, kpts).get_jk(pair, exxdiv="ewald")
+    rec["pwdf_vj"], rec["pwdf_vk"] = _c(vj), _c(vk)
+    out["pw_diamond"] = rec
+    refs["jax_sides"] = out
+
+
+PW_ERI_KIDX = ((0, 0, 0, 0), (0, 1, 1, 0), (1, 0, 0, 1), (0, 1, 0, 1))
+
+
+def pw_density(cell, kpts, nao, seed):
+    """test_torch_isdf_kpoint.py::trs_dm(cell, kpts, nao, seed)[0]: a
+    random hermitian density with dm[-k] = conj(dm[k])."""
+    from fftisdf_tpu.lattice import kpoints as kpt_mod
+
+    rng = np.random.default_rng(seed)
+    nk = len(kpts)
+    s = cell.get_scaled_kpts(kpts)
+    dm = rng.standard_normal((1, nk, nao, nao)) \
+        + 1j * rng.standard_normal((1, nk, nao, nao))
+    dm = dm + dm.conj().transpose(0, 1, 3, 2)
+    for k in range(nk):
+        km = kpt_mod.member(-s[k], s)
+        if km < k:
+            continue
+        avg = (dm[:, k] + dm[:, km].conj()) / 2
+        dm[:, k] = avg
+        dm[:, km] = avg.conj()
+    return dm[0]
+
+
+# kccsd's conv_tol a fixture: diamond 1x1x2's amplitude rms stalls near
+# 1e-7 in both packages (DIIS on a flat residual), so it is held where
+# both converge, at the same cycle
+CC_TOL = {"h2_gamma": 1e-10, "h2_k2": 1e-9, "diamond": 1e-6}
+
+
+def _correlated(refs):
+    """FCI, DMET and the CC layer (scf.fci, scf.dmet, scf.cc) on the
+    many_body section's H2 chain inputs (its interpolation points and
+    real-gauge orbitals, read from the record) and on diamond gth-szv ke 50
+    1x1x2 (c0 40, m0 9^3; its KRHF orbitals recorded here in a real
+    gauge), plus the seeded random inputs of the JAX tests."""
+    import jax.numpy as jnp
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.lattice.cell import Cell, Shell
+    from fftisdf_tpu.scf import KRHF, KUHF
+    from fftisdf_tpu.scf import cc, dmet
+    from fftisdf_tpu.scf.ks import KRKS
+
+    mb = refs["many_body"]
+    out = {"config": "H2 chain of tests/test_cc.py on many_body's points "
+                     "and orbitals (c0 60, m0 11x11x13); diamond gth-szv ke "
+                     "50 1x1x2 c0 40 m0 9^3 KRHF conv_tol 1e-10 (orbitals "
+                     "in a real gauge); kccsd max_cycle 80, conv_tol 1e-9 "
+                     "(h2_gamma 1e-10, diamond 1e-6); EOM conv_tol 1e-10 (Davidson tol "
+                     "1e-8); dmet tol 1e-7; complex values as [re, im]"}
+    cell = h2_chain(Cell, Shell)
+    states = {}
+    for key, kpts in (("h2_gamma", np.zeros((1, 3))),
+                      ("h2_k2", cell.get_kpts([1, 1, 2]))):
+        df = FFTISDF(cell, kpts, c0=60.0, m0=(11, 11, 13), verbose=0,
+                     select_tol=1e-18, rcond=1e-12).build()
+        assert _mask(df) == mb[key]["mask"], "the H2 selection moved"
+        states[key] = (df, _with_orbitals(KRHF(cell, kpts, with_df=df,
+                                               verbose=0), mb[key]["krhf"]))
+    dcell, dkpts = _diamond()
+    df = FFTISDF(dcell, dkpts, c0=40.0, m0=(9, 9, 9), verbose=0).build()
+    assert _mask(df) == mb["diamond"]["mask"], "the diamond selection moved"
+    mf = KRHF(dcell, dkpts, with_df=df, verbose=0, conv_tol=1e-10)
+    mf.kernel()
+    _real_gauge(mf)
+    _, vj, vk = mf.get_fock(mf.dm)
+    mf.e_tot = float(mf.energy_elec(mf.dm, vj, vk) + mf.e_nuc)
+    states["diamond"] = (df, mf)
+    out["diamond"] = {"mask": _mask(df), "krhf": _orbitals(mf)}
+
+    for key, (df, mf) in states.items():
+        rec = out.setdefault(key, {})
+        rec["e_tot"] = mf.e_tot
+        tol = CC_TOL[key]
+        e, info = cc.kccsd(df, mf, conv_tol=tol, max_cycle=80)
+        rec["kccsd"] = {"e": e, "niter": info["niter"],
+                        "converged": info["converged"]}
+        if key != "h2_gamma":
+            e_cc, e_t, info = cc.kccsd_t(df, mf, conv_tol=tol,
+                                         max_cycle=80)
+            rec["kccsd_t"] = {"e_ccsd": e_cc, "e_t": e_t,
+                              "imag_t": info["imag_t"]}
+        if key == "diamond":
+            continue
+        rec["eomee"] = _cplx(cc.eomee(df, mf, conv_tol=1e-10)[0])
+        for name, fn in (("eomip", cc.eomip), ("eomea", cc.eomea)):
+            w, _ = fn(df, mf, conv_tol=1e-10)
+            rec[name] = [_cplx(w[k]) for k in sorted(w)]
+    df, mf = states["h2_gamma"]
+    w, info = cc.eomee_davidson(df, mf, nroots=4, conv_tol=1e-10, tol=1e-8)
+    out["h2_gamma"]["eomee_davidson"] = _cplx(w)
+    ks = _with_orbitals(KRKS(cell, np.zeros((1, 3)), xc="pbe", with_df=df,
+                             verbose=0), mb["h2_gamma"]["krks_pbe"])
+    e, info = cc.kccsd(df, ks, conv_tol=1e-10, max_cycle=120)
+    fock, vj, vk = mf.get_fock(ks.dm)
+    out["h2_gamma"]["kccsd_pbe_ref"] = {
+        "e": e, "reference": info["reference"],
+        "e_det": float(mf.energy_elec(np.asarray(ks.dm), vj, vk) + mf.e_nuc)}
+
+    df, mf = states["h2_k2"]
+    gam, info = cc.onerdm(df, mf, conv_tol=1e-9)
+    out["h2_k2"]["onerdm"] = {n: _c(np.stack([np.asarray(g) for g in blk]))
+                              for n, blk in zip(("goo", "gov", "gvo", "gvv"),
+                                                gam)}
+    out["h2_k2"]["onerdm_trace"] = info["trace"]
+    out["h2_k2"]["ao_density"] = _c(cc.ao_density(df, mf, conv_tol=1e-9)[0])
+    umf = _with_orbitals(KUHF(cell.copy(spin=2).build(), df.kpts,
+                              with_df=df, verbose=0),
+                         mb["h2_k2"]["kuhf_spin2"])
+    out["h2_k2"]["kccsd_spin2"] = cc.kccsd(df, umf, conv_tol=1e-8,
+                                           max_cycle=80)[0]
+
+    dm_recs = {}
+    for key, frag, kinds in DMET_CASES:
+        df, mf = states[key]
+        for kind in kinds:
+            solver = cc.ccsd_solver if kind.startswith("ccsd") else None
+            e, info = dmet.dmet_energy(mf, df, frag_ao=list(frag),
+                                       solver=solver,
+                                       fit_mu=kind.endswith("_mu"))
+            dm_recs[f"{key} {list(frag)} {kind}"] = {
+                "e": e, "de_corr": info["de_corr"],
+                "nbath": int(info["nbath"]), "nemb": int(info["nemb"]),
+                "mu": float(info.get("mu", 0.0)),
+                "nfrag_err": float(info.get("nfrag_err", 0.0))}
+            print(key, frag, kind, e, flush=True)
+    out["dmet"] = dm_recs
+
+    t1, t2, f, U, kp3 = packed_inputs()
+    nk = t1.shape[0]
+    r1, r2, e = cc._equations_packed(nk, 2, 2, kp3)(
+        jnp.asarray(t1),
+        {(a, b, c): jnp.asarray(t2[a, b, c]) for a in range(nk)
+         for b in range(nk) for c in range(nk)},
+        tuple([jnp.asarray(x) for x in blk] for blk in f), jnp.asarray(U))
+    out["packed"] = {"r1": _c(np.stack([np.asarray(x) for x in r1])),
+                     "r2": _c(np.stack([np.asarray(r2[a, b, c])
+                                        for a in range(nk)
+                                        for b in range(nk)
+                                        for c in range(nk)])),
+                     "e": [float(np.real(e)), float(np.imag(e))]}
+    h, eri = solver_integrals()
+    out["ccsd_solver"] = {}
+    for ne in (2, 4):
+        e, g, G = cc.ccsd_solver(h, eri, ne)
+        out["ccsd_solver"][str(ne)] = {"e": e, "gamma": _c(g),
+                                       "Gamma": _c(G)}
+    refs["correlated"] = out
 
 
 if __name__ == "__main__":
