@@ -189,6 +189,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    each with seconds and peak memory; (c) the same cell at 3x3x3 (nk 27,
    U 20.6 GB): kccsd converged, the first iterate = kmp2 to 1e-10, the U
    assembly's seconds, s/cycle, cycles and peak memory (below 80 GB).
+12. the derivative layer (``isdf.autodiff``, ``scf.grad``, ``stress``,
+   ``optimize``, ``hessian``, ``md``, ``phonon``, ``elastic``, ``eos``),
+   with K1's count reset right before and >= 1 after: (a) the JAX tests'
+   fixtures (tests/torch_deriv_fixtures.py): the forces and stress of
+   every case (pw and ISDF; RHF, UHF, LDA, PBE, +U, SCAN, HSE06, exxdiv
+   ewald) on the JAX package's density and mask, card against CPU (1e-10)
+   and against tests/data/jax_port_refs.json (1e-8), eri_grad_fn the
+   same, the port's own SCF then forces (1e-7 of the JAX forces), diamond
+   gth-szv 1x1x2 KRKS-PBE+U card against CPU, npt_kernel on LiH against
+   the JAX record, and
+   examples/relax_vibrations.py's system with --isdf (relaxed below
+   5e-4, then its frequencies); (b) NiO AFM gth-szv ke 100 4x4x4 (nip
+   1040) with the first O displaced 0.05 bohr along x, built fresh:
+   DeviceKUHF and DeviceKUKS-PBE+U (smeared, then unsmeared from that
+   density), the ISDF force through the sector-chunked state at a budget
+   from free memory (seconds, peak, sectors a chunk, |sum F|), against
+   the central difference (h 1e-3 bohr) of DeviceKUHF/KUKS energies on
+   frozen-mask builds (conv_tol 1e-10) within 1e-5 Ha/bohr, under 80 GB;
+   (c) diamond gth-dzvp ke 200 2x2x2 (nip 1040) KRKS-PBE: the ISDF
+   stress (Lagrangian = e_tot to 1e-8, dE/d(isotropic strain) against a
+   Richardson FD of frozen-mask energies at +-2e-3, +-4e-3), the pw
+   stress on an exact-J KRKS, eos over 5 scales (fitted -dE/dV against
+   the analytic pressures), elastic constants C11, C12, C44 (Maxwell
+   symmetry); (d) diamond gth-szv ke 50 2x2x2 c0 40: the ISDF Hessian at
+   Gamma (three projected translations, the optical mode triply
+   degenerate to 2%), a relaxation and 10 NVE MD steps of 0.5 fs with
+   an FFTISDF rebuilt every step (drift below 3e-4 Ha), and phonons on
+   the 1x1x2 supercell with the acoustic sum rule.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -196,7 +224,7 @@ The line before the last holds the kernel table as JSON; the last line is
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
                                      # prints no result lines; 8, 9 and 10
                                      # run 4 and 6 first for their state;
-                                     # 11 needs no other phase
+                                     # 11 and 12 need no other phase
 """
 import json
 import os
@@ -3139,6 +3167,472 @@ def _cc_diamond_333(torch):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 12
+DERIV_FD_TOL = 1e-5               # Ha/bohr: NiO force against its FD
+NIO_DISP = 0.05                   # bohr, the first O along x
+DIAMOND_OPT_CM1 = 1332.0          # experiment, for the record only
+
+
+def phase12_derivatives(torch, ctx):
+    _deriv_fixtures(torch)
+    _deriv_nio(torch)
+    _deriv_diamond_stress(torch)
+    _deriv_diamond_sweeps(torch)
+
+
+def _deriv_mod():
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_deriv_fixtures as fx
+
+    return fx, json.loads(REFS.read_text())["derivatives"]
+
+
+def _deriv_scf(rec, cell, kpts, kw):
+    """The JAX package's converged SCF of a recorded case, as the
+    attributes the derivative layer reads."""
+    import types
+    import numpy as np
+
+    def arr(r):
+        return (np.asarray(r["re"]) + 1j * np.asarray(r["im"])).reshape(
+            r["shape"])
+
+    return types.SimpleNamespace(
+        cell=cell, kpts=kpts, dm=arr(rec["dm"]), mo_coeff=arr(rec["mo_coeff"]),
+        mo_energy=np.asarray(rec["mo_energy"]),
+        mo_occ=np.asarray(rec["mo_occ"]), e_tot=rec["e_tot"], trunc=None,
+        converged=True, xc=kw.get("xc"), hubbard=kw.get("hubbard"),
+        exxdiv=kw.get("exxdiv"))
+
+
+def _deriv_fixtures(torch):
+    """(a) the JAX tests' fixtures: card against CPU and the JAX records."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.isdf.autodiff import eri_grad_fn
+    from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+    from fftisdf_tpu_torch.scf import KRHF, KRKS, KUHF
+    from fftisdf_tpu_torch.scf import grad, hessian, md, stress
+    from fftisdf_tpu_torch.scf import optimize as scf_opt
+
+    t_a = time.perf_counter()
+    fx, refs = _deriv_mod()
+    cell = fx.he2_strain(Cell, Shell)
+    kpts = cell.get_kpts([1, 1, 2])
+    worst = {"card-cpu": 0.0, "card-jax": 0.0}
+    for name, _, kw, backend in fx.CASES:
+        rec = refs["cases"][name]
+        mf = _deriv_scf(rec, cell, kpts, kw)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            df = None
+            if backend == "isdf":
+                df = FFTISDF(cell, kpts, verbose=0, device=dev,
+                             **fx.ISDF_BUILD)
+                df.mask = np.asarray(refs["isdf_mask"])
+            fkw = dict(two_electron=backend, df=df, xc=kw.get("xc"),
+                       hubbard=kw.get("hubbard"), exxdiv=kw.get("exxdiv"),
+                       device=dev)
+            g, val = grad.make_grad_fn(cell, kpts, **fkw)(mf)
+            geps = None
+            if name not in fx.NO_STRESS:
+                sval, geps, _ = stress.make_cell_grad_fn(cell, kpts,
+                                                         **fkw)(mf)
+            out[dev] = (g, val, geps)
+        g, val, geps = out["cuda"]
+        gc, valc, gepsc = out["cpu"]
+        d_cc = max(_relmax(g, gc), abs(val - valc) / abs(valc))
+        d_cj = max(_relmax(g, np.asarray(rec["grad"])),
+                   abs(val - rec["value"]) / abs(rec["value"]))
+        if geps is not None:
+            d_cc = max(d_cc, _relmax(geps, gepsc))
+            sig = 0.5 * (geps + geps.T) / float(cell.vol)
+            d_cj = max(d_cj, _relmax(sig, np.asarray(rec["sigma"])))
+        worst["card-cpu"] = max(worst["card-cpu"], d_cc)
+        worst["card-jax"] = max(worst["card-jax"], d_cj)
+        if d_cc > 1e-10 or d_cj > 1e-8:
+            raise RuntimeError(f"{name}: card-cpu {d_cc:.1e}, card-jax "
+                               f"{d_cj:.1e}")
+    log(f"[12a] He2 1x1x2, {len(fx.CASES)} Lagrangians (pw and ISDF; RHF, "
+        "UHF, LDA, PBE, LDA+U, PBE+U, SCAN, HSE06, exxdiv ewald) on the JAX "
+        f"density and mask: forces and stress card-cpu {worst['card-cpu']:.1e}"
+        f" (gate 1e-10), card-JAX {worst['card-jax']:.1e} (gate 1e-8)")
+
+    pc = fx.he2_probe(Cell, Shell)
+    for km, rec in refs["eri_grad"].items():
+        kp = pc.get_kpts([int(v) for v in km.split("x")])
+        k2c = kpt_mod.get_kconserv2(pc, kp)
+        nao = pc.nao_nr()
+        rng = np.random.default_rng(0)
+        probe = (rng.standard_normal((nao,) * 4)
+                 + 1j * rng.standard_normal((nao,) * 4))
+        outs = [eri_grad_fn(pc, kp, rec["mask"], tuple(rec["kidx"]), k2c,
+                            m0=tuple(rec["m0"]), device=dev)(
+            pc.atom_coords(), probe) for dev in ("cuda", "cpu")]
+        g, gc = (o[1].cpu().numpy() for o in outs)
+        d_cc, d_cj = _relmax(g, gc), _relmax(g, np.asarray(rec["grad"]))
+        # the ERI gradient reads the fit's near-null directions, where
+        # roundoff is amplified by up to eps/rcond: gated at 1e-8 both ways
+        log(f"[12a] eri_grad_fn He2 {km}: card-cpu {d_cc:.1e}, card-JAX "
+            f"{d_cj:.1e} (gate 1e-8)")
+        if d_cc > 1e-8 or d_cj > 1e-8:
+            raise RuntimeError(f"eri_grad_fn {km} disagrees")
+
+    # the port's own SCF, then its forces, against the JAX records
+    mf = KUHF(cell, kpts, verbose=0, conv_tol=1e-11)
+    mf.kernel()
+    g, _ = grad.kernel(mf)
+    d1 = _relmax(g, np.asarray(refs["cases"]["pw_uhf"]["grad"]))
+    df = FFTISDF(cell, kpts, verbose=0, **fx.ISDF_BUILD).build(
+        mask=np.asarray(refs["isdf_mask"]))
+    mf = KRHF(cell, kpts, df, verbose=0, conv_tol=1e-11)
+    mf.kernel()
+    g, _ = grad.kernel(mf, two_electron="isdf", df=df)
+    d2 = _relmax(g, np.asarray(refs["cases"]["isdf_rhf"]["grad"]))
+    log(f"[12a] the port's own SCF on the card, then its forces: KUHF pw "
+        f"{d1:.1e}, KRHF ISDF {d2:.1e} of max|g| from the JAX package's "
+        "(gate 1e-7)")
+    if max(d1, d2) > 1e-7:
+        raise RuntimeError("the port's SCF forces miss the JAX package's")
+
+    # diamond gth-szv ke 50 1x1x2, one atom displaced: KRKS-PBE+U
+    cell, kpts = _diamond()
+    pos = cell.atom_coords().copy()
+    pos[1, 2] += 0.1
+    cell = cell.copy(atom=[(s, p) for s, p in
+                           zip(cell.atom_symbols(), pos)]).build()
+    hub = {0: (1, 0.2)}
+    df = FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0).build()
+    mf = KRKS(cell, kpts, df, xc="pbe", hubbard=hub, verbose=0,
+              conv_tol=1e-10)
+    mf.kernel()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            df = FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0,
+                         device=dev).build(mask=df.mask)
+        for backend in ("pw", "isdf"):
+            fkw = dict(two_electron=backend, xc="pbe", hubbard=hub,
+                       device=dev, df=df if backend == "isdf" else None)
+            g, val = grad.make_grad_fn(cell, kpts, **fkw)(mf)
+            sval, geps, _ = stress.make_cell_grad_fn(cell, kpts, **fkw)(mf)
+            out[dev, backend] = (g, geps, val, sval)
+    d = max(max(_relmax(out["cuda", b][i], out["cpu", b][i])
+                for i in (0, 1)) for b in ("pw", "isdf"))
+    dv = abs(out["cuda", "isdf"][2] - mf.e_tot)
+    log(f"[12a] diamond gth-szv ke 50 1x1x2 (atom 1 +0.1 bohr z) KRKS-PBE+U:"
+        f" forces and stress card-cpu {d:.1e} (gate 1e-10) for pw and ISDF;"
+        f" ISDF Lagrangian - e_tot {dv:.1e}; max|F| "
+        f"{np.abs(out['cuda', 'isdf'][0]).max():.6f} Ha/bohr")
+    if d > 1e-10 or dv > 1e-8:
+        raise RuntimeError("diamond forces or stress disagree")
+
+    # NPT (Berendsen, on the analytic stress) on the LiH of tests/test_md.py
+    ref = refs["drivers"]["npt_lih"]
+    c = fx.lih(Cell, Shell, 6.5)
+    run = md.npt_kernel(KRHF(c, c.get_kpts([1, 1, 1]), verbose=0,
+                             conv_tol=1e-10, diis_space=1),
+                        dt_fs=1.0, nsteps=2, pressure_gpa=0.0, taup_fs=5.0,
+                        compressibility_au=1.0)
+    dv = _relmax(run.volumes, np.asarray(ref["volumes"]))
+    dp = float(np.abs(np.asarray([r["pressure_au"] for r in run.trajectory])
+                      - np.asarray(ref["pressures"])).max())
+    log(f"[12a] npt_kernel on LiH (2 steps): volumes "
+        + " ".join(f"{v:.6f}" for v in run.volumes)
+        + f" bohr^3, {dv:.1e} relative from the JAX record (gate 1e-9); "
+        f"pressures {dp:.1e} Ha/bohr^3 off (gate 1e-8)")
+    if not (dv <= 1e-9 and dp <= 1e-8 and np.all(np.diff(run.volumes) > 0)):
+        raise RuntimeError("npt_kernel misses the JAX record")
+
+    # examples/relax_vibrations.py at its defaults with --isdf
+    c = fx.h2(Cell, Shell, d=2.0, mesh=20)
+    mf = KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-10)
+    t0 = time.perf_counter()
+    res = scf_opt.kernel(mf, fmax=5e-4, max_steps=20, two_electron="isdf",
+                         isdf_kwargs={"c0": 40.0, "m0": (9, 9, 9)})
+    t_opt = time.perf_counter() - t0
+    bond = np.linalg.norm(res.positions[1] - res.positions[0])
+    t0 = time.perf_counter()
+    h, _ = hessian.kernel(res.mf, step=1.5e-3)
+    wav, _ = hessian.frequencies(res.mf.cell, h)
+    log(f"[12a] examples/relax_vibrations.py --isdf: converged "
+        f"{res.converged} in {res.nsteps} steps ({t_opt:.1f}s), E "
+        f"{res.energy:.8f} Ha, bond {bond:.4f} bohr, max|F| "
+        f"{res.trajectory[-1][2]:.2e}; frequencies (cm^-1) "
+        + " ".join(f"{w:.1f}" for w in wav)
+        + f" ({time.perf_counter() - t0:.1f}s)")
+    if not (res.converged and res.trajectory[-1][2] < 5e-4
+            and np.abs(wav[:3]).max() < 0.05 * np.abs(wav).max()):
+        raise RuntimeError("relax_vibrations failed on the card")
+    log(f"[12a] {time.perf_counter() - t_a:.1f}s")
+
+
+def _deriv_nio(torch):
+    """(b) the Pulay-complete ISDF force at full width: NiO AFM gth-szv ke
+    100 4x4x4, c0 40, m0 15^3, the first O displaced along x, KUHF and
+    KUKS-PBE+U, against central differences of re-converged energies."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import DeviceKUHF, DeviceKUKS
+    from fftisdf_tpu_torch.scf import grad
+    from fftisdf_tpu_torch.utils.device import free_memory_bytes
+
+    base, kpts = _nio(100.0, [4, 4, 4])
+    io = base.atom_symbols().index("O")
+    h = 1e-3
+
+    def displaced(dx):
+        pos = base.atom_coords().copy()
+        pos[io, 0] += NIO_DISP + dx
+        return base.copy(atom=[(s, p) for s, p in
+                               zip(base.atom_symbols(), pos)]).build()
+
+    cell = displaced(0.0)
+    torch.cuda.reset_peak_memory_stats()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build()
+    t = df.timings
+    log(f"[12b] NiO AFM gth-szv ke 100 4x4x4, O{io} +{NIO_DISP} bohr x: "
+        f"nip {df.nip}, mesh {[int(m) for m in cell.mesh]}, build "
+        f"{t['build_s']:.2f}s (selection {t['select_s']:.2f}s)")
+    if df.nip != SLICE_NIP:
+        raise RuntimeError(f"the displaced slice's nip {df.nip}")
+    dfs = {s: FFTISDF(displaced(s * h), kpts, c0=40.0, m0=(15, 15, 15),
+                      verbose=0).build(mask=df.mask) for s in (+1, -1)}
+    kw = dict(verbose=0, conv_tol=1e-10, max_cycle=150, init_spin=AFM)
+    for tag, cls, extra in (
+            ("KUHF", DeviceKUHF, {}),
+            ("KUKS-PBE+U", DeviceKUKS,
+             dict(xc="pbe", hubbard=_nio_hubbard(NIO_U)))):
+        t0 = time.perf_counter()
+        smeared = cls(cell, kpts, df, **dict(kw, conv_tol=1e-8,
+                                             smearing=5e-3), **extra)
+        smeared.kernel()
+        mf = cls(cell, kpts, df, **kw, **extra)
+        mf.kernel(dm0=smeared.dm)
+        del smeared
+        if not mf.converged:
+            raise RuntimeError(f"the displaced slice's {tag} did not "
+                               "converge")
+        log(f"[12b] {tag}: smeared then unsmeared from its density, "
+            f"{mf.cycles} cycles, e_tot {mf.e_tot:.10f} "
+            f"({time.perf_counter() - t0:.2f}s)")
+        torch.cuda.empty_cache()
+        budget = 0.75 * free_memory_bytes(df.device) / 1e9
+        (g, val), secs, peak = _timed_peak(torch, lambda: grad.kernel(
+            mf, two_electron="isdf", df=df, max_memory_gb=budget))
+        if tag == "KUHF":
+            _force_parts(torch, cell, kpts, df, mf, budget, secs)
+        es = {}
+        for s in (+1, -1):
+            m = cls(dfs[s].cell, kpts, dfs[s], **kw, **extra)
+            m.kernel(dm0=mf.dm)
+            if not m.converged:
+                raise RuntimeError(f"{tag} at {s:+d}h did not converge")
+            es[s] = m.e_tot
+            del m
+        fd = (es[+1] - es[-1]) / (2 * h)
+        err = abs(g[io, 0] - fd)
+        log(f"[12b] {tag} force sweep: {secs:.2f}s, peak {peak:.2f} GB, "
+            f"budget {budget:.1f} GB ({_chunk_plan(cell, kpts, df, budget)}); "
+            f"L - e_tot {val - mf.e_tot:+.1e}; dE/dx(O{io}) {g[io, 0]:.8f}, "
+            f"FD (h {h:g}) {fd:.8f}, |diff| {err:.1e} Ha/bohr (gate "
+            f"{DERIV_FD_TOL:g}); |sum F| {np.linalg.norm(g.sum(axis=0)):.2e}"
+            f", max|F| {np.abs(g).max():.6f}")
+        if not (err <= DERIV_FD_TOL and peak < 80.0
+                and abs(val - mf.e_tot) < 1e-7):
+            raise RuntimeError(f"the slice's {tag} force misses its FD")
+        del mf
+
+
+def _force_parts(torch, cell, kpts, df, mf, budget, sweep_s):
+    """Where the force sweep's seconds go: the chunked ISDF state alone
+    and the whole Lagrangian, each forward only (no autograd), beside the
+    sweep (forward and backward)."""
+    from fftisdf_tpu_torch.isdf.autodiff import isdf_state_fn
+    from fftisdf_tpu_torch.scf import grad
+
+    pos = torch.as_tensor(cell.atom_coords(), device=df.device)
+    state = isdf_state_fn(cell, kpts, df.mask, m0=df.m0,
+                          max_memory_gb=budget)
+    e_fn = grad.make_energy_fn(cell, kpts, two_electron="isdf",
+                               mask=df.mask, m0=df.m0,
+                               max_memory_gb=budget)
+    dm, wdm, w_trace = grad.scf_tensors(mf, df.device, df.cdtype)
+    with torch.no_grad():
+        _, s_state, _ = _timed_peak(torch, lambda: state(pos))
+        _, s_value, _ = _timed_peak(torch, lambda: e_fn(pos, dm, wdm,
+                                                         w_trace))
+    log(f"[12b] the sweep's parts: chunked ISDF state forward {s_state:.2f}s"
+        f", the whole Lagrangian forward {s_value:.2f}s; the rest of the "
+        f"sweep (the backward pass with the chunks' and blocks' "
+        f"recomputation, and W's Fock) {sweep_s - s_value:.2f}s of "
+        f"{sweep_s:.2f}s")
+
+
+def _chunk_plan(cell, kpts, df, budget):
+    """'N canonical sectors, Q a chunk, B grid rows a block' of the
+    chunked state at ``budget`` GB."""
+    from fftisdf_tpu_torch.isdf.autodiff import isdf_state_fn
+
+    st = isdf_state_fn(cell, kpts, df.mask, m0=df.m0, max_memory_gb=budget)
+    return f"{st.nsectors} canonical sectors, {st.qchunk} a chunk, " \
+        f"{st.blk} grid rows a block"
+
+
+def _deriv_diamond_stress(torch):
+    """(c) stress, EOS and elastic constants at full width: diamond
+    gth-dzvp ke 200 2x2x2, c0 40, m0 15^3 (nip 1040), KRKS-PBE."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRKS
+    from fftisdf_tpu_torch.scf import elastic, eos, stress
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-dzvp",
+                             pseudo="gth-pade", ke_cutoff=200.0)
+    kpts = cell.get_kpts([2, 2, 2])
+    kscaled = cell.get_scaled_kpts(kpts)
+    vol = float(cell.vol)
+    df, s_b, _ = _timed_peak(torch, lambda: FFTISDF(
+        cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build())
+    if df.nip != DIAMOND_NIP:
+        raise RuntimeError(f"diamond nip {df.nip}, not {DIAMOND_NIP}")
+    kw = dict(xc="pbe", verbose=0, conv_tol=1e-10, max_cycle=80)
+    ks = KRKS(cell, kpts, df, **kw)
+    ks.kernel()
+    log(f"[12c] diamond gth-dzvp ke 200 2x2x2: nao {cell.nao_nr()}, mesh "
+        f"{[int(m) for m in cell.mesh]}, nip {df.nip}, build {s_b:.2f}s; "
+        + _scf_line("KRKS-PBE (ISDF)", ks, ks.cycle_seconds))
+    (sig, p, val), secs, peak = _timed_peak(
+        torch, lambda: stress.kernel(ks, two_electron="isdf", df=df))
+    # the central FD of E under isotropic strain, +-h and +-2h (Richardson,
+    # O(h^4)), on the frozen fractional mask
+    h = 2e-3
+    es = {}
+    for m in (-2, -1, 1, 2):
+        sc = elastic.strained_cell(cell, m * h * np.eye(3))
+        kp = kscaled @ sc.reciprocal_vectors()
+        dfs = FFTISDF(sc, kp, c0=40.0, m0=(15, 15, 15),
+                      verbose=0).build(mask=df.mask)
+        mfs = KRKS(sc, kp, dfs, **kw)
+        mfs.kernel(dm0=ks.dm)
+        if not mfs.converged:
+            raise RuntimeError(f"strained KRKS ({m}h) did not converge")
+        es[m] = mfs.e_tot
+        del dfs, mfs
+    fd1 = (es[1] - es[-1]) / (2 * h)
+    fd = (4.0 * fd1 - (es[2] - es[-2]) / (4 * h)) / 3.0
+    an = -3.0 * vol * p
+    log(f"[12c] ISDF stress: {secs:.2f}s, peak {peak:.2f} GB; L - e_tot "
+        f"{val - ks.e_tot:+.1e} (gate 1e-8); P {p:.8e} Ha/bohr^3 "
+        f"({p * 29421.02648438959:.4f} GPa); dE/ds analytic {an:.8f}, FD "
+        f"+-{h:g} {fd1:.8f}, Richardson {fd:.8f}, |diff| "
+        f"{abs(an - fd):.1e} Ha (gate 1e-5 relative + 1e-6)")
+    if not (abs(val - ks.e_tot) <= 1e-8
+            and abs(an - fd) <= 1e-5 * abs(fd) + 1e-6):
+        raise RuntimeError("the ISDF stress misses its FD")
+
+    pw = KRKS(cell, kpts, **kw)
+    pw.kernel()
+    (sig, p, val), secs, peak = _timed_peak(torch, lambda: stress.kernel(pw))
+    log(f"[12c] " + _scf_line("KRKS-PBE (exact J)", pw, pw.cycle_seconds)
+        + f"; pw stress {secs:.2f}s, peak {peak:.2f} GB, L - e_tot "
+        f"{val - pw.e_tot:+.1e} (gate 1e-8), P {p:.8e} Ha/bohr^3")
+    if abs(val - pw.e_tot) > 1e-8:
+        raise RuntimeError("the pw stress Lagrangian misses e_tot")
+    res, secs, _ = _timed_peak(torch, lambda: eos.kernel(pw))
+    p_fit = eos.bm_pressure(res.fit["poly"], res.volumes)
+    scale = np.abs(res.pressures).max()
+    d = np.abs(p_fit - res.pressures).max()
+    log(f"[12c] eos over 5 scales ({secs:.2f}s): V0 {res.fit['v0']:.4f} "
+        f"bohr^3, B0 {res.fit['b0_gpa']:.2f} GPa, B' {res.fit['bp']:.3f}; "
+        f"fitted -dE/dV - analytic P {d:.2e} of {scale:.2e} (gate 5e-3)")
+    if not d <= 5e-3 * scale:
+        raise RuntimeError("the EOS fit misses the analytic pressures")
+    res, secs, _ = _timed_peak(torch, lambda: elastic.kernel(
+        pw, components=(0, 3)))
+    c = res.c_gpa
+    sym = abs(res.c[0, 3] - res.c[3, 0])
+    bulk = (c[0, 0] + 2.0 * c[1, 0]) / 3.0
+    log(f"[12c] elastic (components 0, 3; {secs:.2f}s): C11 {c[0, 0]:.2f}, "
+        f"C12 {c[1, 0]:.2f}, C44 {c[3, 3]:.2f} GPa, B = (C11 + 2 C12)/3 "
+        f"{bulk:.2f} GPa (EOS B0 beside it); Maxwell |C14 - C41| "
+        f"{sym:.2e} Ha/bohr^3 (gate 5e-4 |C11|)")
+    if not sym <= 5e-4 * abs(res.c[0, 0]):
+        raise RuntimeError("the elastic tensor breaks Maxwell symmetry")
+
+
+def _deriv_diamond_sweeps(torch):
+    """(d) geometry sweeps at full width: diamond gth-szv ke 50 2x2x2, c0
+    40 (README.md's KCCSD cell): the Gamma Hessian on the ISDF backend,
+    a relaxation and NVE MD with an FFTISDF rebuilt at every step, and
+    phonons on the 1x1x2 supercell."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf import hessian, md, phonon
+    from fftisdf_tpu_torch.scf import optimize as scf_opt
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([2, 2, 2])
+    kw = dict(verbose=0, conv_tol=1e-10, max_cycle=80)
+    df = FFTISDF(cell, kpts, c0=40.0, verbose=0).build()
+    mf = KRHF(cell, kpts, df, **kw)
+    mf.kernel()
+    (hs, g0), secs, peak = _timed_peak(torch, lambda: hessian.kernel(
+        mf, two_electron="isdf", df=df))
+    wav, _ = hessian.frequencies(cell, hs)
+    opt = wav[3:]
+    spread = (opt.max() - opt.min()) / opt.mean()
+    log(f"[12d] diamond gth-szv ke 50 2x2x2 c0 40: nip {df.nip}; ISDF "
+        f"Hessian at Gamma ({secs:.2f}s, peak {peak:.2f} GB): "
+        + " ".join(f"{w:.2f}" for w in wav) + " cm^-1 (three translations "
+        f"projected; optical spread {spread:.2e}, gate 2e-2; experiment "
+        f"{DIAMOND_OPT_CM1:g}, for the record)")
+    if not (np.abs(wav[:3]).max() < 1e-3 * opt.mean() and spread < 2e-2):
+        raise RuntimeError("the Gamma Hessian is not a diamond's")
+
+    pos = cell.atom_coords().copy()
+    pos[1, 0] += 0.1
+    start = cell.copy(atom=[(s, p) for s, p in
+                            zip(cell.atom_symbols(), pos)]).build()
+    t0 = time.perf_counter()
+    res = scf_opt.kernel(KRHF(start, kpts, **kw), two_electron="isdf",
+                         isdf_kwargs={"c0": 40.0})
+    t_opt = time.perf_counter() - t0
+    log(f"[12d] relaxation from +0.1 bohr x (FFTISDF rebuilt each step): "
+        f"converged {res.converged} in {res.nsteps} steps, {t_opt:.1f}s "
+        f"({t_opt / max(res.nsteps, 1):.2f} s/step), E {res.energy:.10f}, "
+        f"max|F| {res.trajectory[-1][2]:.2e}, d(C-C) - start "
+        f"{np.linalg.norm(res.positions[1] - res.positions[0]) - np.linalg.norm(cell.atom_coords()[1] - cell.atom_coords()[0]):+.4f} bohr")
+    if not (res.converged and res.trajectory[-1][2] < 5e-4):
+        raise RuntimeError("the diamond relaxation did not converge")
+
+    t0 = time.perf_counter()
+    run = md.kernel(KRHF(start, kpts, **kw), dt_fs=0.5, nsteps=10,
+                    two_electron="isdf", isdf_kwargs={"c0": 40.0})
+    t_md = time.perf_counter() - t0
+    drift = float(np.abs(run.energies - run.energies[0]).max())
+    log(f"[12d] NVE MD 10 x 0.5 fs from +0.1 bohr x: {t_md:.1f}s "
+        f"({t_md / 10:.2f} s/step), E_tot drift {drift:.2e} Ha (gate "
+        f"3e-4), T_end {run.temperatures[-1]:.1f} K")
+    if not drift < 3e-4:
+        raise RuntimeError("NVE drift above the Verlet floor")
+
+    t0 = time.perf_counter()
+    ph = phonon.kernel(KRHF(cell, kpts, **kw), (1, 1, 2))
+    w = ph.frequencies(cell.get_kpts([1, 1, 2]))
+    log(f"[12d] phonons on the 1x1x2 supercell (pw, ASR; "
+        f"{time.perf_counter() - t0:.1f}s): Gamma "
+        + " ".join(f"{v:.1f}" for v in w[0]) + "; q = (0, 0, 1/2) "
+        + " ".join(f"{v:.1f}" for v in w[1]) + " cm^-1")
+    if not (np.abs(w[0][:3]).max() < 1e-3 and np.all(w[0][3:] > 0)):
+        raise RuntimeError("the acoustic sum rule misses the Gamma modes")
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
@@ -3194,6 +3688,13 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[11] K1 launches in phase 11's builds: {cc_launches}")
         if cc_launches < 1:
             raise RuntimeError("phase 11's builds did not launch K1")
+    pair_gram_sq.launches = 0
+    timed(12, phase12_derivatives, ctx)
+    deriv_launches = pair_gram_sq.launches
+    if run(12):
+        log(f"[12] K1 launches in phase 12's builds: {deriv_launches}")
+        if deriv_launches < 1:
+            raise RuntimeError("phase 12's builds did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -3206,6 +3707,7 @@ def _run(torch, run, only, t_all, ctx):
          "launches": launches, "production_launches": prod_launches,
          "phase8_launches": rest_launches, "ks_launches": prod_launches,
          "corr_launches": corr_launches, "cc_launches": cc_launches,
+         "deriv_launches": deriv_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

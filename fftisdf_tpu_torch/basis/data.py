@@ -32,6 +32,18 @@ ATOMIC_NUMBER = {
     "Zn": 30,
 }
 
+# standard atomic weights (amu): the masses of the dynamics and vibrational
+# drivers
+ATOMIC_MASS = {
+    "H": 1.008, "He": 4.002602, "Li": 6.94, "Be": 9.0121831, "B": 10.81,
+    "C": 12.011, "N": 14.007, "O": 15.999, "F": 18.998403163, "Ne": 20.1797,
+    "Na": 22.98976928, "Mg": 24.305, "Al": 26.9815385, "Si": 28.085,
+    "P": 30.973761998, "S": 32.06, "Cl": 35.45, "Ar": 39.948, "K": 39.0983,
+    "Ca": 40.078, "Sc": 44.955908, "Ti": 47.867, "V": 50.9415,
+    "Cr": 51.9961, "Mn": 54.938044, "Fe": 55.845, "Co": 58.933194,
+    "Ni": 58.6934, "Cu": 63.546, "Zn": 65.38,
+}
+
 
 def element_symbol(label: str) -> str:
     """'Ni1' / 'ni' / 'O@2' -> canonical element symbol."""

@@ -150,6 +150,20 @@ def _group_chi(coords, group_specs, group_exps, centers):
     return out
 
 
+def group_specs(group, t):
+    """(specs, exps) of a center group for :func:`_group_chi`: the shells
+    as (l, rpow, nfunc, exps index, coeffs) and the group's distinct
+    exponent sets, arrays converted by ``t`` (to device tensors)."""
+    exps, specs = [], []
+    for s in group.specs:
+        iexp = next((i for i, e in enumerate(exps)
+                     if np.array_equal(e, s.exps)), len(exps))
+        if iexp == len(exps):
+            exps.append(s.exps)
+        specs.append((s.l, s.rpow, s.nfunc, iexp, t(s.coeffs)))
+    return specs, [t(e) for e in exps]
+
+
 class Evaluator:
     """``fn(coords) -> (nk, ng, nao)`` complex Bloch AOs (``(ng, nao)`` real
     at the gamma point, ``kpts=None``), on ``device``.
@@ -173,14 +187,7 @@ class Evaluator:
         self.groups = []
         self.max_chi_row = 1
         for g in groups:
-            exps, specs = [], []
-            for s in g.specs:
-                iexp = next((i for i, e in enumerate(exps)
-                             if np.array_equal(e, s.exps)), len(exps))
-                if iexp == len(exps):
-                    exps.append(s.exps)
-                specs.append((s.l, s.rpow, s.nfunc, iexp, t(s.coeffs)))
-            exps = [t(e) for e in exps]
+            specs, exps = group_specs(g, t)
             centers = t(g.center[None, :] + g.images)
             if self.gamma:
                 ph = None

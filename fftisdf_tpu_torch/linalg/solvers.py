@@ -53,7 +53,9 @@ def _jacobi(a):
     d = torch.where(dok, 1.0 / torch.sqrt(safe), zero)
     dinv = torch.where(dok, torch.sqrt(safe), zero)
     a_s = a * d[:, None] * d[None, :]
-    a_s = a_s / torch.clamp(a_s.abs(), min=1.0)
+    # detached, as the JAX package's stop_gradient: |.| is not smooth at 0
+    # and the clamp only rescales noise-level entries
+    a_s = a_s / torch.clamp(a_s.abs().detach(), min=1.0)
     return d, dinv, a_s
 
 
@@ -78,7 +80,10 @@ def _ridge_factor(a, rcond):
     added, so that the refinement factor lam / (w + lam) stays below 10/9
     on the noise direction."""
     d, dinv, a_s = _jacobi(a)
-    lam = float(rcond * torch.diagonal(a_s).real.max())
+    # lam leaves the autograd graph here.  After the Jacobi scaling every
+    # kept diagonal entry is 1, so lam = rcond and its derivative is 0 in
+    # exact arithmetic; the JAX package stops its gradient too
+    lam = float(rcond * torch.diagonal(a_s).real.max().detach())
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     chol, ok = _finite_cholesky(a_s + lam * eye)
     nesc = 0

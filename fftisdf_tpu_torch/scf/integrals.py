@@ -97,9 +97,9 @@ def gth_vloc_G0(pseudo):
             * (c[0] + 3.0 * c[1] + 15.0 * c[2] + 105.0 * c[3]))
 
 
-def vloc_on_grid(cell, trunc=None, dtype=None, *, device="cuda"):
-    """Total local pseudopotential on the FFT grid: real (ngrid,) of
-    ``dtype``.  The form factors are summed on the host in float64.
+def vloc_form_factors(cell, gv, trunc=None):
+    """Per-atom local pseudopotential form factors v_a(G) on the
+    reciprocal vectors ``gv``: (natm, ngrid) real, float64 on the host.
 
     ``trunc``: the Coulomb tail of the electron-ion interaction goes
     through the truncated kernel v_trunc.  For a point nucleus v(G) =
@@ -108,14 +108,11 @@ def vloc_on_grid(cell, trunc=None, dtype=None, *, device="cuda"):
     non-Coulomb rest plus -Z e^{-G^2 rloc^2/2} v_trunc(G).  The finite
     v_trunc(q+G=0) is kept: with a consistent finite kernel the G = 0
     pieces of E_H, E_ne and E_ii cancel by neutrality."""
-    mesh = tuple(int(m) for m in cell.mesh)
-    gv = cell.get_Gv()
     G2 = np.einsum("gi,gi->g", gv, gv)
-    ng = G2.shape[0]
-    f = np.zeros(ng, dtype=np.complex128)
     g0 = G2 <= 1e-12
     vtr = coulG_np(gv, trunc) if trunc is not None else None
-    for sym, xyz in cell.atom:
+    out = []
+    for sym, _ in cell.atom:
         ps = cell._pseudo.get(sym)
         if ps is None:
             # all-electron point charge: v(G) = -4 pi Z / G^2, G=0 zeroed
@@ -137,6 +134,19 @@ def vloc_on_grid(cell, trunc=None, dtype=None, *, device="cuda"):
                     g0, 0.0,
                     4.0 * np.pi * ps.zion * damp / np.where(g0, 1.0, G2))
                 vG = vG - ps.zion * damp * vtr
+        out.append(vG)
+    return np.stack(out)
+
+
+def vloc_on_grid(cell, trunc=None, dtype=None, *, device="cuda"):
+    """Total local pseudopotential on the FFT grid: real (ngrid,) of
+    ``dtype``, from :func:`vloc_form_factors` (``trunc`` there).  The
+    form factors are summed on the host in float64."""
+    mesh = tuple(int(m) for m in cell.mesh)
+    gv = cell.get_Gv()
+    ng = gv.shape[0]
+    f = np.zeros(ng, dtype=np.complex128)
+    for vG, (_, xyz) in zip(vloc_form_factors(cell, gv, trunc), cell.atom):
         f += vG * np.exp(-1j * gv @ np.asarray(xyz))
     f_t = torch.as_tensor(f, dtype=real_complex(dtype)[1], device=device)
     return ifft3(f_t, mesh).real * (ng / cell.vol)

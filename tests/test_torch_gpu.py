@@ -25,7 +25,8 @@ device-resident KS loop (PBE+U, SCAN, PBE0), every many-body method
 (kmp2, kump2, drpa, Sigma^c(iw), TDA dense and Davidson, UTDA, Casida,
 BSE) on the CPU's points and orbitals, and FCI, DMET and the CC layer
 (CCSD(T), EOM-EE Davidson, EOM-IP, the Lambda density, the CCSD solver),
-with the complex autodiff conventions the CC derivatives rest on.
+with the complex autodiff conventions the CC derivatives rest on, and the
+analytic forces and stress of both two-electron backends.
 """
 import numpy as np
 import pytest
@@ -625,3 +626,43 @@ def test_complex_autodiff_conventions_on_cuda(cuda):
     s = (f(zr) * x).sum()
     gr = torch.autograd.grad(s, zr, grad_outputs=torch.ones_like(s))[0]
     assert float((gr - (jac.T @ x).conj()).abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["pw", "isdf"])
+def test_forces_and_stress_on_cuda_match_cpu(cuda, backend):
+    """Analytic forces and stress (KRKS-PBE+U on diamond 1x1x2 with one
+    atom displaced, the plane-wave and the ISDF backend) on the card equal
+    the CPU's on the same density and mask, to 1e-10 relative."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KRKS
+    from fftisdf_tpu_torch.scf import grad, stress
+
+    cell, kpts = _diamond()
+    pos = cell.atom_coords().copy()
+    pos[1, 2] += 0.1
+    cell = cell.copy(atom=[(s, p) for s, p in
+                           zip(cell.atom_symbols(), pos)]).build()
+    df = FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0,
+                 device="cpu").build()
+    mf = KRKS(cell, kpts, df, xc="pbe", hubbard={0: (1, 0.2)}, verbose=0,
+              conv_tol=1e-10, device="cpu")
+    mf.kernel()
+    assert mf.converged
+    out = {}
+    for dev in ("cpu", cuda):
+        dfd = (FFTISDF(cell, kpts, c0=20.0, m0=(9, 9, 9), verbose=0,
+                       device=dev).build(mask=df.mask)
+               if backend == "isdf" else None)
+        kw = dict(two_electron=backend, df=dfd, xc="pbe",
+                  hubbard={0: (1, 0.2)}, device=dev)
+        g, val = grad.make_grad_fn(cell, kpts, **kw)(mf)
+        sval, geps, _ = stress.make_cell_grad_fn(cell, kpts, **kw)(mf)
+        out[str(dev)] = (g, val, geps, sval)
+    (g, val, geps, sval), (gc, valc, gepsc, svalc) = \
+        out[str(cuda)], out["cpu"]
+    assert abs(val - mf.e_tot) < 1e-8 and abs(sval - mf.e_tot) < 1e-8
+    assert abs(val - valc) <= 1e-10 * abs(valc)
+    assert abs(sval - svalc) <= 1e-10 * abs(svalc)
+    assert np.abs(g - gc).max() <= 1e-10 * np.abs(gc).max()
+    assert np.abs(geps - gepsc).max() <= 1e-10 * np.abs(gepsc).max()

@@ -3,10 +3,10 @@ the JAX package can be imported (the GPU machine has no JAX, and the port
 keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
-module of the port imports (the KS, many-body and correlated modules
-among them),
-one tiny build, ``get_jk`` and xc evaluation run on a small He2 cell on
-the CPU, and one ``kmp2`` on the H2 chain of tests/test_mp2.py;
+module of the port imports (the KS, many-body, correlated and derivative
+modules among them),
+one tiny build, ``get_jk``, an ISDF force and xc evaluation run on a small
+He2 cell on the CPU, and one ``kmp2`` on the H2 chain of tests/test_mp2.py;
 none of the refused modules may reach ``sys.modules``."""
 import os
 import subprocess
@@ -41,7 +41,10 @@ SCRIPT = textwrap.dedent("""
     for name in ("isdf.bands", "isdf.cderi", "isdf.gamma", "isdf.ao2mo",
                  "isdf.thc", "lattice.becke", "scf.xc", "scf.ks",
                  "scf.hubbard", "scf.dos", "scf.mp2", "scf.rpa", "scf.gw",
-                 "scf.tddft", "scf.bse", "scf.fci", "scf.dmet", "scf.cc"):
+                 "scf.tddft", "scf.bse", "scf.fci", "scf.dmet", "scf.cc",
+                 "isdf.autodiff", "scf.grad", "scf.stress", "scf.optimize",
+                 "scf.hessian", "scf.md", "scf.phonon", "scf.elastic",
+                 "scf.eos"):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np
@@ -57,6 +60,15 @@ SCRIPT = textwrap.dedent("""
                  device="cpu").build()
     vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
     assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
+
+    # the derivative layer: the ISDF force of one KRHF on that build
+    from fftisdf_tpu_torch.scf import KRHF as _KRHF
+    from fftisdf_tpu_torch.scf import grad
+
+    mf = _KRHF(cell, kpts, df, verbose=0, conv_tol=1e-9, device="cpu")
+    mf.kernel()
+    g, val = grad.kernel(mf, two_electron="isdf", df=df)
+    assert g.shape == (2, 3) and abs(val - mf.e_tot) < 1e-8
 
     import torch
     from fftisdf_tpu_torch.scf import KRKS, KUKS, DeviceKRKS, DeviceKUKS

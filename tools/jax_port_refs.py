@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py           # every record
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py bands     # one section
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py correlated  # after many_body
+    JAX_PLATFORMS=cpu python tools/jax_port_refs.py derivatives
 
 Writes ``tests/data/jax_port_refs.json``: energies, interpolation-point
 masks and meshes of the JAX package (``fftisdf_tpu``) on the CPU in float64,
@@ -31,6 +32,7 @@ def _jax():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))
 
 
 def _diamond():
@@ -151,7 +153,8 @@ SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
             "lsthc": lambda r: _lsthc(r), "ks": lambda r: _ks(r),
             "many_body": lambda r: _many_body(r),
             "correlated": lambda r: _correlated(r),
-            "jax_sides": lambda r: _jax_sides(r)}
+            "jax_sides": lambda r: _jax_sides(r),
+            "derivatives": lambda r: _derivatives(r)}
 
 
 def main():
@@ -969,6 +972,181 @@ def _correlated(refs):
         out["ccsd_solver"][str(ne)] = {"e": e, "gamma": _c(g),
                                        "Gamma": _c(G)}
     refs["correlated"] = out
+
+
+def _scf_record(mf):
+    """A converged SCF's density and orbitals (the inputs of W_k)."""
+    return {"dm": _c(mf.dm), "mo_coeff": _c(mf.mo_coeff),
+            "mo_energy": np.asarray(mf.mo_energy).tolist(),
+            "mo_occ": np.asarray(mf.mo_occ).tolist(),
+            "e_tot": float(mf.e_tot)}
+
+
+def _derivatives(refs):
+    """The derivative layer (isdf.autodiff, scf.grad/stress/optimize/
+    hessian/md/phonon/elastic/eos) on the fixtures of the JAX package's
+    derivative tests (tests/torch_deriv_fixtures.py): the Lagrangian value,
+    forces and stress of each case at the JAX package's converged density
+    and mask, the ERI gradient of test_autodiff.py, and every driver's
+    result."""
+    import jax
+    import jax.numpy as jnp
+    import torch_deriv_fixtures as fx
+    from fftisdf_tpu.isdf import FFTISDF
+    from fftisdf_tpu.isdf.autodiff import eri_grad_fn
+    from fftisdf_tpu.lattice import kpoints as kpt_mod
+    from fftisdf_tpu.lattice.cell import Cell, Shell
+    from fftisdf_tpu.scf import KRHF, KUHF
+    from fftisdf_tpu.scf import elastic, eos, md, phonon
+    from fftisdf_tpu.scf import grad as scf_grad
+    from fftisdf_tpu.scf import hessian as scf_hess
+    from fftisdf_tpu.scf import optimize as scf_opt
+    from fftisdf_tpu.scf import stress as scf_stress
+    from fftisdf_tpu.scf.ks import KRKS, KUKS
+
+    out = {}
+    classes = {"KRHF": KRHF, "KUHF": KUHF, "KRKS": KRKS, "KUKS": KUKS}
+    cell = fx.he2_strain(Cell, Shell)
+    kpts = cell.get_kpts([1, 1, 2])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        df = FFTISDF(cell, kpts, verbose=0, **fx.ISDF_BUILD).build()
+    out["isdf_mask"] = _mask(df)
+    cases = {}
+    for name, cls, kw, backend in fx.CASES:
+        # the JAX package's jit caches key the xc pass on the functional:
+        # a cached LDA trace met by an LDA+U case fails its static-argument
+        # comparison, so each case starts from empty caches
+        jax.clear_caches()
+        isdf = backend == "isdf"
+        mf = classes[cls](cell, kpts, with_df=df if isdf else None,
+                          verbose=0, conv_tol=1e-10, **kw)
+        mf.kernel()
+        assert mf.converged, name
+        rec = _scf_record(mf)
+        g, val = scf_grad.kernel(mf, two_electron=backend,
+                                 df=df if isdf else None)
+        rec.update(grad=np.asarray(g).tolist(), value=float(val))
+        if name not in fx.NO_STRESS:
+            sigma, p, sval = scf_stress.kernel(
+                mf, two_electron=backend, df=df if isdf else None)
+            rec.update(sigma=np.asarray(sigma).tolist(), pressure=float(p),
+                       stress_value=float(sval))
+        cases[name] = rec
+        print(name, val, flush=True)
+    out["cases"] = cases
+
+    # the ISDF ERI gradient of test_autodiff.py (1x1x2: self-conjugate
+    # sectors; 1x1x3: a mirror pair)
+    cell = fx.he2_probe(Cell, Shell)
+    pos = np.asarray(cell.atom_coords())
+    eri = {}
+    for km in ((1, 1, 2), (1, 1, 3)):
+        kp = cell.get_kpts(list(km))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            dfp = FFTISDF(cell, kp, c0=12.0, m0=(7, 7, 9), verbose=0).build()
+        nao = dfp.x_k.shape[2]
+        rng = np.random.default_rng(0)
+        probe = (rng.standard_normal((nao,) * 4)
+                 + 1j * rng.standard_normal((nao,) * 4))
+        k2c = kpt_mod.get_kconserv2(cell, kp)
+        # momentum-conserving blocks: sector 1, and at 1x1x3 the mirror
+        # sector 2 (a block that breaks momentum conservation reads the
+        # fit's near-null directions, eps/rcond noise in either package)
+        kidx = (0, 1, 1, 0) if km[2] == 2 else (0, 2, 2, 0)
+        val, g = eri_grad_fn(cell, kp, dfp.mask, kidx, k2c, m0=dfp.m0)(
+            jnp.asarray(pos), jnp.asarray(probe))
+        eri["x".join(map(str, km))] = {
+            "mask": _mask(dfp), "m0": [int(m) for m in dfp.m0],
+            "kidx": list(kidx), "value": float(val),
+            "grad": np.asarray(g).tolist()}
+    out["eri_grad"] = eri
+
+    # the drivers, on SCFs without DIIS (diis_space=1): the JAX package
+    # builds W from the orbitals of its last DIIS-extrapolated Fock, which
+    # at a warm start mixes in the previous geometry's Fock (an O(1e-4)
+    # force error, ROADMAP section 3); without DIIS its orbitals are those
+    # of the converged density, as the port's W always is
+    drv = {}
+    c = fx.h2(Cell, Shell, d=2.0)
+    r = scf_opt.kernel(KRHF(c, c.get_kpts([1, 1, 1]), verbose=0,
+                            conv_tol=1e-10, diis_space=1),
+                       fmax=5e-4, max_steps=15)
+    drv["opt_h2_rhf"] = {"converged": bool(r.converged),
+                         "nsteps": r.nsteps, "energy": float(r.energy),
+                         "positions": np.asarray(r.positions).tolist(),
+                         "energies": [float(e) for _, e, _ in r.trajectory]}
+    c = fx.lih(Cell, Shell, 6.8)
+    r = scf_opt.relax_cell(KRHF(c, c.get_kpts([1, 1, 1]), verbose=0,
+                                conv_tol=1e-10, diis_space=1),
+                           smax=1e-9, max_steps=1, relax_atoms=False,
+                           re_anchor=0.5)
+    drv["relax_cell_lih"] = {"energies": [float(e) for e, _, _ in
+                                          r.trajectory],
+                             "a": np.asarray(r.cell.a).tolist()}
+    c = fx.h2(Cell, Shell, d=1.30, mesh=14)
+    mf = KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-11,
+              diis_space=1)
+    mf.kernel()
+    h, g0 = scf_hess.kernel(mf, step=1.5e-3)
+    wav, _ = scf_hess.frequencies(c, h)
+    drv["hessian_h2"] = {"hess": np.asarray(h).tolist(),
+                         "g0": np.asarray(g0).tolist(),
+                         "freqs": np.asarray(wav).tolist()}
+    dfh = FFTISDF(c, mf.kpts, c0=40.0, verbose=0).build()
+    h_is, _ = scf_hess.kernel(mf, step=1.5e-3, two_electron="isdf", df=dfh)
+    drv["hessian_h2_isdf"] = {"hess": np.asarray(h_is).tolist(),
+                              "mask": _mask(dfh),
+                              "m0": [int(m) for m in dfh.m0]}
+    c = fx.h2(Cell, Shell, d=1.4)
+    mk = lambda: KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-10,
+                      diis_space=1)
+    r = md.kernel(mk(), dt_fs=0.3, nsteps=3, temperature=300.0, seed=0)
+    drv["md_nve"] = {"energies": r.energies.tolist(),
+                     "positions": np.asarray(r.positions).tolist()}
+    r = md.kernel(mk(), dt_fs=1.0, nsteps=2, temperature=600.0,
+                  thermostat="langevin", friction_fs=2.0,
+                  velocities0=np.zeros((2, 3)), seed=1)
+    drv["md_langevin"] = {"e_kin": [rec["e_kin"] for rec in r.trajectory]}
+    r = md.kernel(mk(), dt_fs=0.5, nsteps=2, temperature=300.0,
+                  thermostat="csvr", tau_fs=1.0, seed=2)
+    drv["md_csvr"] = {"temps": r.temperatures.tolist()}
+    c = fx.lih(Cell, Shell, 6.5)
+    r = md.npt_kernel(KRHF(c, c.get_kpts([1, 1, 1]), verbose=0,
+                           conv_tol=1e-10, diis_space=1),
+                      dt_fs=1.0, nsteps=2, pressure_gpa=0.0, taup_fs=5.0,
+                      compressibility_au=1.0)
+    drv["npt_lih"] = {"volumes": r.volumes.tolist(),
+                      "pressures": [rec["pressure_au"]
+                                    for rec in r.trajectory]}
+    c = fx.he_chain(Cell, Shell)
+    res = phonon.kernel(KRHF(c, c.get_kpts([1, 1, 1]), verbose=0,
+                             conv_tol=1e-11, diis_space=1), (1, 1, 2),
+                        step=2e-3, asr=False)
+    drv["phonon_he_chain"] = {
+        "fc": np.asarray(res.fc).tolist(),
+        "freqs": res.frequencies(c.get_kpts([1, 1, 2])).tolist(),
+        "e_sc": float(res.e_sc)}
+    c = fx.he_sc(Cell, Shell)
+    mf = KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-11,
+              diis_space=1)
+    mf.kernel()
+    r = elastic.kernel(mf, step=3e-3, components=(0, 1))
+    drv["elastic_he_sc"] = {"c01": np.asarray(r.c[:, :2]).tolist(),
+                            "sigma0": np.asarray(r.sigma0).tolist(),
+                            "e0": float(r.e0)}
+    r = eos.kernel(mf, scales=np.linspace(0.97, 1.03, 5))
+    drv["eos_he_sc"] = {"energies": r.energies.tolist(),
+                        "pressures": r.pressures.tolist(),
+                        "v0": float(r.fit["v0"]), "b0": float(r.fit["b0"]),
+                        "bp": float(r.fit["bp"])}
+    out["drivers"] = drv
+    out["config"] = (
+        "tests/torch_deriv_fixtures.py: CASES on he2_strain 1x1x2 "
+        "(conv_tol 1e-10; ISDF c0 20 m0 11^3), eri_grad on he2_probe "
+        "(c0 12 m0 7x7x9), and the drivers of the JAX derivative tests")
+    refs["derivatives"] = out
 
 
 if __name__ == "__main__":
