@@ -195,10 +195,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    fixtures (tests/torch_deriv_fixtures.py): the forces and stress of
    every case (pw and ISDF; RHF, UHF, LDA, PBE, +U, SCAN, HSE06, exxdiv
    ewald) on the JAX package's density and mask, card against CPU (1e-10)
-   and against tests/data/jax_port_refs.json (1e-8), eri_grad_fn the
-   same, the port's own SCF then forces (1e-7 of the JAX forces), diamond
-   gth-szv 1x1x2 KRKS-PBE+U card against CPU, npt_kernel on LiH against
-   the JAX record, and
+   and against tests/data/jax_port_refs.json (1e-8), eri_grad_fn split by
+   block (the recorded momentum-conserving blocks card against CPU and
+   against the JAX record at 1e-10, blocks off momentum conservation card
+   against CPU at 1e-8, each reported as an open fault where it misses
+   its gate; the run stops past 1e-8 and 1e-4), the port's own SCF then
+   forces (1e-7 of the JAX forces), diamond gth-szv 1x1x2 KRKS-PBE+U card
+   against CPU, npt_kernel on LiH against the JAX record, eos.qha_kernel
+   on the H2 chain of tests/test_eos.py against the JAX record (energies
+   1e-8 Ha, wavenumbers 1e-2 cm^-1, V0(T) 1e-6), and
    examples/relax_vibrations.py's system with --isdf (relaxed below
    5e-4, then its frequencies); (b) NiO AFM gth-szv ke 100 4x4x4 (nip
    1040) with the first O displaced 0.05 bohr along x, built fresh:
@@ -217,14 +222,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    degenerate to 2%), a relaxation and 10 NVE MD steps of 0.5 fs with
    an FFTISDF rebuilt every step (drift below 3e-4 Ha), and phonons on
    the 1x1x2 supercell with the acoustic sum rule.
+13. the tool layer (``utils.profiling``, ``FFTISDF(profile_build=True)``,
+   ``utils.cube``, ``basis.data``'s CP2K registry, ``basis.atom``), with
+   K1's count reset right before and >= 1 after (a): (a) the slice built
+   four times, profiled and plain in turns (mask and w_q bitwise equal
+   to the first build; the stage seconds, the selection and the
+   profiling overhead printed), then the production configuration built
+   once profiled: its stages (factors, sweep, spectral, gram) add up to
+   the metric pass within 5%; (b) a torch.profiler trace of the slice's
+   build and 3 DeviceKUHF cycles: the device's busy share of the window
+   and the ten device operations that took the most time, by name; (c)
+   examples/derive_atomic_basis.py --elem Ni --ke 240 --check with the
+   port's modules: the uncontracted Ni pseudo-atom (nao 54, mesh 90^3,
+   2S = 2) by KUHF on the exact J/K in float64 on the card, converged,
+   its radial naturals registered under gth-dzvp-molopt-sr (restored
+   afterwards), the contracted KUHF no lower than the uncontracted one by
+   more than 1e-6 Ha, and the --radial route (solve_atom and
+   fit_radial_gaussians) on a host thread beside them; (d) phase 6b's
+   converged production KUHF: density_on_grid on the card (seconds, peak
+   memory), its integral against nelec (1e-8 relative), the spin
+   density's against sum_k tr((Da - Db) S)/nk (1e-8), an orbital's
+   |psi|^2 against 1 (1e-8), and write_cube -> read_cube (mesh, voxels,
+   atoms, the integral to 1e-4); (e) diamond gth-szv ke 50 1x1x2: profile_build's
+   w_q bitwise equal to a plain card build, density_on_grid card against
+   CPU (1e-12).
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
-                                     # prints no result lines; 8, 9 and 10
-                                     # run 4 and 6 first for their state;
-                                     # 11 and 12 need no other phase
+                                     # prints no result lines; 8, 9, 10
+                                     # and 13 run 4 and 6 first for their
+                                     # state; 11 and 12 need no other phase
 """
 import json
 import os
@@ -921,6 +950,7 @@ def phase6_device_scf(torch, ctx):
     _, mom = atom_charges_and_moments(cell, host.dm, host.s1e)
     ctx["production"] = dict(cell=cell, kpts=kpts, df=df, chk=chk,
                              e_tot=host.e_tot, e_dev=mf.e_tot, moments=mom)
+    ctx["production_scf"] = host     # phase 13d's cubes read its density
     del host, mf
     _park(df)
     torch.cuda.empty_cache()
@@ -3259,25 +3289,7 @@ def _deriv_fixtures(torch):
         f"density and mask: forces and stress card-cpu {worst['card-cpu']:.1e}"
         f" (gate 1e-10), card-JAX {worst['card-jax']:.1e} (gate 1e-8)")
 
-    pc = fx.he2_probe(Cell, Shell)
-    for km, rec in refs["eri_grad"].items():
-        kp = pc.get_kpts([int(v) for v in km.split("x")])
-        k2c = kpt_mod.get_kconserv2(pc, kp)
-        nao = pc.nao_nr()
-        rng = np.random.default_rng(0)
-        probe = (rng.standard_normal((nao,) * 4)
-                 + 1j * rng.standard_normal((nao,) * 4))
-        outs = [eri_grad_fn(pc, kp, rec["mask"], tuple(rec["kidx"]), k2c,
-                            m0=tuple(rec["m0"]), device=dev)(
-            pc.atom_coords(), probe) for dev in ("cuda", "cpu")]
-        g, gc = (o[1].cpu().numpy() for o in outs)
-        d_cc, d_cj = _relmax(g, gc), _relmax(g, np.asarray(rec["grad"]))
-        # the ERI gradient reads the fit's near-null directions, where
-        # roundoff is amplified by up to eps/rcond: gated at 1e-8 both ways
-        log(f"[12a] eri_grad_fn He2 {km}: card-cpu {d_cc:.1e}, card-JAX "
-            f"{d_cj:.1e} (gate 1e-8)")
-        if d_cc > 1e-8 or d_cj > 1e-8:
-            raise RuntimeError(f"eri_grad_fn {km} disagrees")
+    _eri_grad_blocks(fx, refs, Cell, Shell, eri_grad_fn, kpt_mod)
 
     # the port's own SCF, then its forces, against the JAX records
     mf = KUHF(cell, kpts, verbose=0, conv_tol=1e-11)
@@ -3345,6 +3357,8 @@ def _deriv_fixtures(torch):
     if not (dv <= 1e-9 and dp <= 1e-8 and np.all(np.diff(run.volumes) > 0)):
         raise RuntimeError("npt_kernel misses the JAX record")
 
+    _qha_h2_chain(refs)
+
     # examples/relax_vibrations.py at its defaults with --isdf
     c = fx.h2(Cell, Shell, d=2.0, mesh=20)
     mf = KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-10)
@@ -3366,6 +3380,97 @@ def _deriv_fixtures(torch):
             and np.abs(wav[:3]).max() < 0.05 * np.abs(wav).max()):
         raise RuntimeError("relax_vibrations failed on the card")
     log(f"[12a] {time.perf_counter() - t_a:.1f}s")
+
+
+def _eri_grad_blocks(fx, refs, Cell, Shell, eri_grad_fn, kpt_mod):
+    """eri_grad_fn on He2 1x1x2 and 1x1x3, split by block.  The recorded
+    momentum-conserving block of each mesh is held card against CPU and
+    card against the JAX record at 1e-10; a block off momentum
+    conservation (its ERI reads the fit's near-null directions, where
+    roundoff is amplified by up to eps/rcond) card against CPU at 1e-8.
+    A block over its gate is an open fault (ROADMAP section 3), printed
+    as such with its value: the CPU alone moves the 1x1x3 conserving
+    block by 3e-10 and the off-conservation blocks by 3e-6 (eps/rcond =
+    2.2e-16 / 1e-10) between 1 and 4 threads.  The run stops where a
+    conserving block passes 1e-8 (the gate before the split) or an
+    off-conservation block 1e-4 (a wrong term, not roundoff)."""
+    import numpy as np
+
+    pc = fx.he2_probe(Cell, Shell)
+    nao = pc.nao_nr()
+    worst = {"conserving": 0.0, "non-conserving": 0.0}
+    for km, rec in refs["eri_grad"].items():
+        nz = [int(v) for v in km.split("x")]
+        kp = pc.get_kpts(nz)
+        k2c = kpt_mod.get_kconserv2(pc, kp)
+        k3c = kpt_mod.get_kconserv3(pc, kp)
+        rng = np.random.default_rng(0)
+        probe = (rng.standard_normal((nao,) * 4)
+                 + 1j * rng.standard_normal((nao,) * 4))
+        last = len(kp) - 1
+        off = (0, last, 1 if last > 1 else 0, 0)    # k4 != k3c[k1, k2, k3]
+        for kidx in (tuple(rec["kidx"]), off):
+            kind = ("conserving" if k3c[kidx[0], kidx[1], kidx[2]]
+                    == kidx[3] else "non-conserving")
+            outs = [eri_grad_fn(pc, kp, rec["mask"], kidx, k2c,
+                                m0=tuple(rec["m0"]), device=dev)(
+                pc.atom_coords(), probe) for dev in ("cuda", "cpu")]
+            g, gc = (o[1].cpu().numpy() for o in outs)
+            d = _relmax(g, gc)
+            line = f"[12a] eri_grad_fn He2 {km} block {kidx} ({kind}): " \
+                   f"card-cpu {d:.1e}"
+            if kind == "conserving":
+                d = max(d, _relmax(g, np.asarray(rec["grad"])))
+                line += f", card-JAX {_relmax(g, np.asarray(rec['grad'])):.1e}"
+            worst[kind] = max(worst[kind], d)
+            log(line)
+    def verdict(d, gate):
+        return "pass" if d <= gate else "OPEN FAULT, ROADMAP section 3"
+
+    cons, off = worst["conserving"], worst["non-conserving"]
+    log(f"[12a] eri_grad_fn maxima: conserving blocks {cons:.1e} (gate "
+        f"1e-10: {verdict(cons, 1e-10)}), non-conserving blocks {off:.1e} "
+        f"(gate 1e-8: {verdict(off, 1e-8)})")
+    if cons > 1e-8 or off > 1e-4:
+        raise RuntimeError("eri_grad_fn disagrees beyond roundoff")
+
+
+def _qha_h2_chain(refs):
+    """eos.qha_kernel on tests/test_eos.py's H2 chain (KRHF conv_tol 1e-11,
+    diis_space 1; 5 scales, Gamma phonons) on the card against the JAX
+    package's record (tools/jax_port_refs.py qha): energies 1e-8 Ha,
+    wavenumbers 1e-2 cm^-1, V0(T) 1e-6 relative, the same masked modes."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.scf import KRHF, eos
+
+    ref = json.loads(REFS.read_text())["qha"]
+    axy, az, d = 6.0, 4.5, 0.54
+    cell = structure.to_cell(
+        np.diag([axy, axy, az]),
+        [("H", np.array([axy / 2, axy / 2, az / 2 - d])),
+         ("H", np.array([axy / 2, axy / 2, az / 2 + d]))],
+        basis="gth-szv", pseudo="gth-pade", ke_cutoff=30.0)
+    t0 = time.perf_counter()
+    mf = KRHF(cell, cell.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-11,
+              diis_space=1)
+    mf.kernel()
+    out = eos.qha_kernel(mf, [0.0, 300.0], scales=np.linspace(0.94, 1.06, 5),
+                         nrep=(1, 1, 1), step=2e-3)
+    secs = time.perf_counter() - t0
+    de = max(abs(mf.e_tot - ref["e_tot"]),
+             float(np.abs(out["eos"].energies
+                          - np.asarray(ref["energies"])).max()))
+    dw = float(np.abs(out["freqs_cm"] - np.asarray(ref["freqs_cm"])).max())
+    dv = _relmax(out["v0"], ref["v0"])
+    same = np.array_equal(out["gamma_mask"], np.asarray(ref["gamma_mask"]))
+    log(f"[12a] eos.qha_kernel H2 chain on the card ({secs:.1f}s): V0(T = 0, "
+        f"300 K) " + " ".join(f"{v:.4f}" for v in out["v0"])
+        + f" bohr^3; against the JAX record: energies {de:.1e} Ha (gate "
+        f"1e-8), wavenumbers {dw:.1e} cm^-1 (gate 1e-2), V0 {dv:.1e} "
+        f"(gate 1e-6), masked modes equal {same}")
+    if not (de <= 1e-8 and dw <= 1e-2 and dv <= 1e-6 and same):
+        raise RuntimeError("eos.qha_kernel misses the JAX record")
 
 
 def _deriv_nio(torch):
@@ -3632,6 +3737,374 @@ def _deriv_diamond_sweeps(torch):
     if not (np.abs(w[0][:3]).max() < 1e-3 and np.all(w[0][3:] > 0)):
         raise RuntimeError("the acoustic sum rule misses the Gamma modes")
 
+# ----------------------------------------------------------------- phase 13
+NI_EXPONENTS = [9.6538632696, 3.9744501290, 1.6213478542, 0.6447664764,
+                0.2513317635, 0.0971124480]
+NI_SHELLS = [(0, 2), (1, 2), (2, 2)]  # the DZVP-MOLOPT-SR shell structure
+NI_SPIN = 2                           # 3d8 4s2: S = 1 (Hund)
+NI_BOX, NI_KE = 12.0, 240.0           # the example's cube edge and --ke
+STAGE_SUM_TOL = 0.05                  # stages against metric_s at production
+TRACE_CYCLES = 3
+
+
+def phase13_tools(torch, ctx):
+    from concurrent.futures import ThreadPoolExecutor
+
+    _stage_attribution(torch)
+    _trace(torch)
+    # the radial route runs on the host (LAPACK releases the GIL) beside the
+    # card's Ni KUHFs; beside (a) or (b) it would take the host threads
+    # that feed the card and distort their timings
+    with ThreadPoolExecutor(1) as pool:
+        _ni_basis(torch, pool.submit(_ni_radial))
+    _cubes(torch, ctx)
+    _tools_card_cpu(torch)
+
+
+def _stage_attribution(torch):
+    """(a) profile_build on the slice (profiled and plain builds in turns,
+    w_q bitwise equal) and one profiled production build."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+
+    cell, kpts = _nio(100.0, [4, 4, 4])
+    ref, rows = None, []
+    for profiled in (True, False, True, False):
+        torch.cuda.empty_cache()
+        df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0,
+                     profile_build=profiled).build()
+        if ref is None:
+            ref = (df.mask.copy(), df.wq.cpu())
+        same = (np.array_equal(df.mask, ref[0])
+                and torch.equal(df.wq.cpu(), ref[1]))
+        rows.append((profiled, dict(df._stage_s), df._t_select,
+                     dict(df.timings)))
+        t = df.timings
+        log(f"[13a] slice build {'profiled' if profiled else 'plain   '}: "
+            f"selection {df._t_select:.3f}s, metric {t['metric_s']:.3f}s "
+            f"(sweep_s {t['sweep_s']:.3f}, solve_s {t['solve_s']:.3f}); "
+            "stages " + ", ".join(
+                f"{k} {v:.3f}" for k, v in df._stage_s.items())
+            + f"; mask and w_q bitwise equal to the first build: {same}")
+        if not same or df.nip != SLICE_NIP:
+            raise RuntimeError("profile_build changed the slice's build")
+        del df
+    prof = [r[3]["metric_s"] for r in rows if r[0]]
+    plain = [r[3]["metric_s"] for r in rows if not r[0]]
+    log(f"[13a] slice metric pass, profiled | plain: "
+        + " ".join(f"{v:.3f}" for v in prof) + " | "
+        + " ".join(f"{v:.3f}" for v in plain) + f" s; profiling overhead "
+        f"{(sum(prof) - sum(plain)) / len(prof):+.3f} s a build")
+    torch.cuda.empty_cache()
+    cell, kpts = _production_cell()
+    torch.cuda.reset_peak_memory_stats()
+    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0,
+                 profile_build=True).build()
+    st, metric = df._stage_s, df.timings["metric_s"]
+    total = sum(st.values())
+    log(f"[13a] production build, profiled: nip {df.nip}, selection "
+        f"{df._t_select:.3f}s, metric pass {metric:.3f}s in {df.nchunks} "
+        f"chunk(s), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        "stages " + ", ".join(f"{k} {v:.3f}s ({v / metric:.1%})"
+                              for k, v in st.items())
+        + f"; sum {total:.3f}s = {total / metric:.2%} of the metric pass "
+        f"(gate {1 - STAGE_SUM_TOL:.0%}-100%)")
+    if df.nip != PROD_NIP or abs(total - metric) > STAGE_SUM_TOL * metric:
+        raise RuntimeError("the production stages do not add up to the "
+                           "metric pass")
+    del df
+    torch.cuda.empty_cache()
+    log(f"[13a] K1 launches in (a)'s builds: {pair_gram_sq.launches}")
+    if pair_gram_sq.launches < 1:
+        raise RuntimeError("phase 13a's builds did not launch K1")
+
+
+def _trace(torch):
+    """(b) a torch.profiler trace of the slice's build and three
+    DeviceKUHF cycles: the device's busy share of the window and the ten
+    device operations that took the most time, summed by name."""
+    from collections import defaultdict
+
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import DeviceKUHF
+    from fftisdf_tpu_torch.utils import profiling
+
+    cell, kpts = _nio(100.0, [4, 4, 4])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            with profiling.phase("build"):
+                df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15),
+                             verbose=0).build()
+            with profiling.phase("device-kuhf"):
+                mf = DeviceKUHF(cell, kpts, df, verbose=0,
+                                **dict(SCF_KW, max_cycle=TRACE_CYCLES))
+                mf.kernel()
+            torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+        path = Path(tmp) / profiling.TRACE_FILE
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in spans if e.get("cat") in profiling.DEVICE_CATEGORIES]
+    t_lo = min(e["ts"] for e in spans)
+    t_hi = max(e["ts"] + e["dur"] for e in spans)
+    busy, end = 0.0, -1.0
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        s0, s1 = e["ts"], e["ts"] + e["dur"]
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"[13b] trace of the slice build and {TRACE_CYCLES} DeviceKUHF "
+        f"cycles ({traced:.1f}s traced, {size / 1e6:.1f} MB, {len(dev)} "
+        f"device events): device busy {busy / 1e3:.1f} ms of a "
+        f"{(t_hi - t_lo) / 1e3:.1f} ms window, {busy / (t_hi - t_lo):.1%}")
+    for name, (us, n) in top:
+        log(f"[13b]   {us / 1e3:9.2f} ms {n:6d}x  {name[:90]}")
+    if not dev:
+        raise RuntimeError("the trace holds no device work")
+    del df, mf
+    torch.cuda.empty_cache()
+
+
+def _ni_radial():
+    """The --radial route of examples/derive_atomic_basis.py on the host:
+    the radial Ni pseudo-atom (channel virtuals added) and a Gaussian fit
+    of each column, the unbound virtual falling back to the most diffuse
+    primitive.  Returns (seconds, converged, e_tot, {l: columns},
+    {l: residuals})."""
+    import numpy as np
+    from fftisdf_tpu_torch.basis.atom import (RadialGrid,
+                                              fit_radial_gaussians,
+                                              pseudo_occupations, solve_atom)
+    from fftisdf_tpu_torch.basis.data import load_pseudo
+    from fftisdf_tpu_torch.basis.gto import gaussian_int, gto_norm
+
+    t0 = time.perf_counter()
+    exps = np.asarray(NI_EXPONENTS)
+    ps = load_pseudo("gth-pade", "Ni")
+    occ = pseudo_occupations("Ni", ps)
+    for l, ncol in NI_SHELLS:
+        occ.setdefault(l, [])
+        occ[l] += [0.0] * max(ncol - len(occ[l]), 0)
+    res = solve_atom("Ni", pseudo=ps, occ=occ,
+                     grid=RadialGrid(rmax=40.0, n=1600))
+    tables, resids = {}, {}
+    for l, ncol in NI_SHELLS:
+        norms = gto_norm(l, exps)
+        gram = (norms[:, None] * norms[None, :]
+                * gaussian_int(2 * l + 2, exps[:, None] + exps[None, :]))
+        cols, rs = [], []
+        for i in range(ncol):
+            c, r = fit_radial_gaussians(res.u[l][i], l, exps, res.grid)
+            if r > 0.3:
+                c = np.zeros(len(exps))
+                c[-1] = 1.0
+                for prev in cols:
+                    c -= prev * (prev @ gram @ c) / (prev @ gram @ prev)
+                r = float("nan")
+            cols.append(c)
+            rs.append(r)
+        tables[l], resids[l] = np.stack(cols, axis=1), rs
+    return time.perf_counter() - t0, res.converged, res.e_tot, tables, resids
+
+
+def _radial_naturals(mo_coeff, mo_occ, mo_energy, sel, nexp, nm, nvirt=3,
+                     wvirt=0.05):
+    """Per-l radial natural orbitals (examples/derive_atomic_basis.py):
+    eigenvectors of the m-averaged, occupation-weighted radial density
+    with a small low-virtual admixture, sorted by weight."""
+    import numpy as np
+
+    dens = np.zeros((nexp, nexp))
+    for s in range(mo_coeff.shape[0]):
+        occ = mo_occ[s]
+        virt = np.argsort(np.where(occ < 0.5, mo_energy[s], np.inf))[:nvirt]
+        w = occ.copy()
+        w[virt] = np.maximum(w[virt], wvirt)
+        for p in np.nonzero(w > 1e-6)[0]:
+            r = mo_coeff[s][sel, p].reshape(nexp, nm)
+            dens += w[p] * np.real(r @ r.conj().T)
+    ww, vv = np.linalg.eigh(dens)
+    return vv[:, np.argsort(ww)[::-1]]
+
+
+def _ni_basis(torch, radial):
+    """(c) examples/derive_atomic_basis.py --elem Ni --ke 240 --check with
+    the port's modules: the uncontracted pseudo-atom KUHF in a 12-bohr box
+    on the card (float64), the radial naturals registered under
+    gth-dzvp-molopt-sr, the contracted KUHF and its variational gap; then
+    the --radial route's columns (computed on the host meanwhile)."""
+    import numpy as np
+    from fftisdf_tpu_torch.basis import data as bdata
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+    from fftisdf_tpu_torch.scf import KUHF
+
+    exps = np.asarray(NI_EXPONENTS)
+    lmax = max(l for l, _ in NI_SHELLS)
+    shells = [Shell(l=l, exps=np.array([e]), coeffs=np.array([[1.0]]))
+              for l in range(lmax + 1) for e in exps]
+    cell = Cell(a=np.diag([NI_BOX] * 3), atom=[("Ni", (NI_BOX / 2,) * 3)],
+                basis={"Ni": shells}, pseudo="gth-pade", ke_cutoff=NI_KE,
+                spin=NI_SPIN, unit="bohr").build()
+    kpts = cell.get_kpts([1, 1, 1])
+    kw = dict(verbose=0, conv_tol=1e-7, max_cycle=120, smearing=2e-3)
+    log(f"[13c] Ni pseudo-atom: nao {cell.nao_nr()} (uncontracted), mesh "
+        f"{[int(m) for m in cell.mesh]}, nelec {cell.nelectron}, 2S "
+        f"{NI_SPIN}")
+    t0 = time.perf_counter()
+    mf = KUHF(cell, kpts, **kw)
+    e_unc = mf.kernel()
+    t_unc = time.perf_counter() - t0
+    log(f"[13c] uncontracted KUHF (exact J/K) E {e_unc:.8f} Ha, conv "
+        f"{mf.converged} in {mf.cycles} cycles, {t_unc:.1f}s")
+    if not mf.converged or cell.nao_nr() != 54:
+        raise RuntimeError("the uncontracted Ni KUHF did not converge")
+    ao_l = np.repeat([l for l in range(lmax + 1) for _ in exps],
+                     [2 * l + 1 for l in range(lmax + 1) for _ in exps])
+    mo_c = np.asarray(mf.mo_coeff)[:, 0]
+    mo_o = np.asarray(mf.mo_occ)[:, 0]
+    mo_e = np.asarray(mf.mo_energy)[:, 0]
+    tables = {}
+    for l, ncol in NI_SHELLS:
+        cols = _radial_naturals(mo_c, mo_o, mo_e, ao_l == l, len(exps),
+                                2 * l + 1)[:, :ncol]
+        cols = cols * np.where(cols[np.argmax(np.abs(cols), axis=0),
+                                    np.arange(ncol)] < 0, -1.0, 1.0)
+        tables[l] = cols
+    saved = bdata._BASIS.get("gth-dzvp-molopt-sr", {}).get("Ni")
+    try:
+        bdata.register_basis(
+            "gth-dzvp-molopt-sr", "Ni",
+            [(l, [(float(exps[i]), *[float(v) for v in tables[l][i]])
+                  for i in range(len(exps))]) for l, _ in NI_SHELLS])
+        cell2 = cell.copy(basis="gth-dzvp-molopt-sr").build()
+    finally:
+        bdata._BASIS["gth-dzvp-molopt-sr"]["Ni"] = saved
+    t0 = time.perf_counter()
+    mf2 = KUHF(cell2, kpts, **kw)
+    e_con = mf2.kernel()
+    gap = e_con - e_unc
+    log(f"[13c] contracted ({cell2.nao_nr()} AOs) KUHF E {e_con:.8f} Ha, "
+        f"conv {mf2.converged} in {mf2.cycles} cycles, "
+        f"{time.perf_counter() - t0:.1f}s; variational gap "
+        f"{gap * 1e3:.3f} mHa (gate >= -1e-3 mHa); derived columns "
+        + ", ".join(f"l={l} {tables[l].shape}" for l, _ in NI_SHELLS))
+    if not (mf2.converged and gap >= -1e-6):
+        raise RuntimeError("the contracted Ni basis is not variational")
+    secs, conv, e_rad, rtab, resid = radial.result()
+    log(f"[13c] --radial route on the host ({secs:.1f}s, beside the card's "
+        f"work): radial pseudo-atom conv {conv}, E {e_rad:.6f} Ha; columns "
+        + ", ".join(f"l={l} {rtab[l].shape} residuals "
+                    + "/".join(f"{r:.1e}" for r in resid[l])
+                    for l, _ in NI_SHELLS))
+    if not (conv and all(np.isfinite(rtab[l]).all() for l in rtab)):
+        raise RuntimeError("the radial route failed")
+    del mf, mf2
+    torch.cuda.empty_cache()
+
+
+def _cubes(torch, ctx):
+    """(d) cube export at production from phase 6b's converged host KUHF:
+    the density, the spin density and an orbital on the card, their
+    integrals, and a cube file's round trip."""
+    import numpy as np
+    from fftisdf_tpu_torch.utils import cube
+
+    mf = ctx.pop("production_scf")
+    cell = mf.cell
+    ngrid = int(np.prod(cell.mesh))
+    dv = float(cell.vol) / ngrid
+    rho, secs, peak = _timed_peak(torch, lambda: cube.density_on_grid(mf))
+    n_int = float(rho.sum()) * dv
+    dn = abs(n_int - cell.nelectron) / cell.nelectron
+    rho_d = cube.density_on_grid(mf, spin="diff")
+    nk = len(mf.kpts)
+    dm_d = np.asarray(mf.dm[0] - mf.dm[1])
+    m_ref = float(np.einsum("kmn,knm->", dm_d, mf.s1e).real) / nk
+    dm_spin = abs(float(rho_d.sum()) * dv - m_ref)
+    nocc = int(np.count_nonzero(np.asarray(mf.mo_occ)[0, 0] > 0.5))
+    psi2 = cube.mo_on_grid(mf, k=0, n=nocc - 1, spin=0, part="abs2")
+    d_mo = abs(float(psi2.sum()) * dv - 1.0)
+    log(f"[13d] production density_on_grid: {secs:.2f}s, peak "
+        f"{peak:.2f} GB (mesh {[int(m) for m in cell.mesh]}, nk {nk}, nao "
+        f"{cell.nao_nr()}); integral {n_int:.10f} against nelec "
+        f"{cell.nelectron}: {dn:.1e} relative (gate 1e-8); spin density "
+        f"integral against sum_k tr((Da - Db) S)/nk = {m_ref:+.3e}: "
+        f"{dm_spin:.1e} (gate 1e-8), integral of |n_a - n_b| "
+        f"{float(np.abs(rho_d).sum()) * dv:.4f}; |psi|^2 of the HOMO "
+        f"(k 0, spin a, n {nocc - 1}) integrates to 1 within {d_mo:.1e} "
+        "(gate 1e-8)")
+    if not (dn <= 1e-8 and dm_spin <= 1e-8 and d_mo <= 1e-8
+            and rho.min() > -1e-8):
+        raise RuntimeError("the production density fields miss their "
+                           "integrals")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = cube.write_cube(Path(tmp) / "rho.cube", cell, rho,
+                               comment="NiO production density")
+        meta, field = cube.read_cube(path)
+        rt_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+    vox = np.asarray(cell.a) / np.asarray(cell.mesh)[:, None]
+    atoms_ok = len(meta["atoms"]) == cell.natm and all(
+        np.allclose(xyz, c, atol=1e-6) for (_, _, xyz), c in
+        zip(meta["atoms"], cell.atom_coords()))
+    d_file = abs(float(field.sum()) * abs(np.linalg.det(meta["voxels"]))
+                 - n_int) / n_int
+    log(f"[13d] write_cube -> read_cube ({size / 1e6:.1f} MB, {rt_s:.2f}s): "
+        f"mesh equal {np.array_equal(meta['mesh'], cell.mesh)}, voxels "
+        f"{np.abs(meta['voxels'] - vox).max():.1e} (gate 1e-6), atoms equal "
+        f"{atoms_ok}, integral {d_file:.1e} relative of the in-memory one "
+        "(gate 1e-4)")
+    if not (np.array_equal(meta["mesh"], cell.mesh) and atoms_ok
+            and np.abs(meta["voxels"] - vox).max() <= 1e-6
+            and d_file <= 1e-4 and field.size == ngrid):
+        raise RuntimeError("the cube file does not round-trip")
+
+
+def _tools_card_cpu(torch):
+    """(e) diamond gth-szv ke 50 1x1x2: density_on_grid and profile_build
+    on the card against the CPU."""
+    import numpy as np
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KUHF
+    from fftisdf_tpu_torch.utils import cube
+
+    cell, kpts = _diamond()
+    kw = dict(c0=10.0, m0=(9, 9, 9), verbose=0)
+    plain = FFTISDF(cell, kpts, **kw).build()
+    prof = FFTISDF(cell, kpts, profile_build=True, **kw).build(
+        mask=plain.mask)
+    plain = FFTISDF(cell, kpts, **kw).build(mask=plain.mask)
+    cpu = FFTISDF(cell, kpts, device="cpu", **kw).build(mask=plain.mask)
+    same = torch.equal(prof.wq, plain.wq)
+    dm = np.stack([np.eye(cell.nao_nr(), dtype=complex)] * len(kpts))
+    d_jk = max(_relmax(v.cpu().numpy(), vc.numpy())
+               for v, vc in zip(prof.get_jk(dm), cpu.get_jk(dm)))
+    mf = KUHF(cell, kpts, cpu, verbose=0, conv_tol=1e-9, device="cpu")
+    mf.kernel()
+    card = KUHF(cell, kpts, cpu, verbose=0)
+    card.dm, card.mo_coeff = mf.dm, mf.mo_coeff
+    d_rho = max(_relmax(cube.density_on_grid(card, spin=s),
+                        cube.density_on_grid(mf, spin=s))
+                for s in (None, 0, 1))
+    log(f"[13e] diamond 1x1x2 on the card: profile_build w_q bitwise equal "
+        f"to the plain build {same}, its J/K against the CPU build's "
+        f"{d_jk:.1e} (gate 1e-10); density_on_grid card-cpu {d_rho:.1e} "
+        "(gate 1e-12)")
+    keys = ["factors", "sweep", "spectral", "gram"]
+    if not (same and d_jk <= 1e-10 and d_rho <= 1e-12
+            and list(prof._stage_s) == keys):
+        raise RuntimeError("the tool layer's card results miss the CPU's")
+
+
 
 def main():
     torch = require_cuda()
@@ -3639,7 +4112,7 @@ def main():
     only = None
     if len(sys.argv) > 1:
         only = {int(p) for p in sys.argv[1].split(",")}
-        if only & {8, 9, 10}:       # phases 8-10 serve phases 4/6's state
+        if only & {8, 9, 10, 13}:   # phases 8-10 and 13 read phases 4/6's
             only |= {4, 6}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
@@ -3695,6 +4168,13 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[12] K1 launches in phase 12's builds: {deriv_launches}")
         if deriv_launches < 1:
             raise RuntimeError("phase 12's builds did not launch K1")
+    pair_gram_sq.launches = 0
+    timed(13, phase13_tools, ctx)
+    tool_launches = pair_gram_sq.launches
+    if run(13):
+        log(f"[13] K1 launches in phase 13's builds: {tool_launches}")
+        if tool_launches < 1:
+            raise RuntimeError("phase 13's builds did not launch K1")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -3707,7 +4187,7 @@ def _run(torch, run, only, t_all, ctx):
          "launches": launches, "production_launches": prod_launches,
          "phase8_launches": rest_launches, "ks_launches": prod_launches,
          "corr_launches": corr_launches, "cc_launches": cc_launches,
-         "deriv_launches": deriv_launches,
+         "deriv_launches": deriv_launches, "tool_launches": tool_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

@@ -1,12 +1,15 @@
 """Gaussian basis-set and GTH pseudopotential data (the port's copy).
 
-A copy of the tables and loaders of the JAX package's
-``fftisdf_tpu/basis/data.py`` that the port calls: ``ATOMIC_NUMBER``,
-``element_symbol``, ``load_basis``, ``discard_diffuse``, ``GTHPseudo`` and
-``load_pseudo``.  The numbers are the same, digit for digit; the
-provenance of each entry is documented there.  The CP2K-format parsers and
-the registration of external tables stay in the JAX package: where the
-comments below name ``load_cp2k_data_files``, they mean that package's.
+A copy of the JAX package's ``fftisdf_tpu/basis/data.py``: the tables,
+their loaders, the CP2K-format parsers (:func:`parse_cp2k_basis`,
+:func:`parse_cp2k_pseudo`), the registration of external tables
+(:func:`register_basis`, :func:`register_pseudo`,
+:func:`load_cp2k_data_files`, with the JAX package's environment variables
+``FFTISDF_TPU_CP2K_BASIS`` / ``FFTISDF_TPU_CP2K_POTENTIALS``) and the
+HGH-1998 integrity check :func:`hgh_offdiag_deviation`.  The numbers are
+the same, digit for digit; the provenance of each entry is documented
+there.  Tables registered here reach the port's cells only, and the JAX
+package's registry is a separate one.
 
 - STO-3G entries are the standard published Hehre-Stewart-Pople values.
 - GTH basis entries follow the CP2K ``GTH_BASIS_SETS`` tables; GTH-PADE
@@ -317,6 +320,12 @@ def _norm_name(name: str) -> str:
     return re.sub(r"[-_ ]", "", name.lower())
 
 
+def register_basis(name: str, element: str, shells) -> None:
+    """Register shells [(l, [(exp, c...), ...]), ...] under a basis name."""
+    key = _norm_name(name)
+    _BASIS_ALIASES.setdefault(key, name)
+    _BASIS.setdefault(name, {})[element] = shells
+
 
 def load_basis(name: str, symbol: str) -> list:
     import warnings
@@ -339,8 +348,8 @@ def load_basis(name: str, symbol: str) -> list:
                 _WARNED_FALLBACKS.add((key, sym))
                 warnings.warn(
                     f"no {key!r} entry for {sym!r}: falling back to {fb!r} "
-                    "(the JAX package's load_cp2k_data_files registers "
-                    "real tables for molopt-sr parity)",
+                    "(register real tables via register_basis / "
+                    "load_cp2k_data_files for molopt-sr parity)",
                     stacklevel=2)
             key = fb
         else:
@@ -369,6 +378,46 @@ def discard_diffuse(shells: list, exp_to_discard: float) -> list:
         out.append(Shell(l=sh.l, exps=sh.exps[keep], coeffs=coeffs[:, nonzero]))
     return out
 
+
+def parse_cp2k_basis(text: str) -> dict:
+    """Parse CP2K GTH_BASIS_SETS-format text -> {element: [(l, rows)]}.
+
+    Format per entry::
+
+        Element  Name [aliases...]
+        nset
+        n lmin lmax nexp nshell(lmin) ... nshell(lmax)
+        exp  c(l=lmin,shell1) ... c(l=lmax,shellN)
+        ...
+    """
+    tokens_by_entry = {}
+    lines = [ln for ln in text.splitlines()
+             if ln.strip() and not ln.strip().startswith("#")]
+    i = 0
+    out = {}
+    while i < len(lines):
+        header = lines[i].split()
+        elem = element_symbol(header[0])
+        i += 1
+        nset = int(lines[i].split()[0]); i += 1
+        shells = []
+        for _ in range(nset):
+            spec = [int(x) for x in lines[i].split()]; i += 1
+            _, lmin, lmax, nexp = spec[:4]
+            nshell = spec[4:4 + (lmax - lmin + 1)]
+            rows = []
+            for _ in range(nexp):
+                rows.append([float(x) for x in lines[i].split()]); i += 1
+            rows = np.asarray(rows)
+            col = 1
+            for l in range(lmin, lmax + 1):
+                ns = nshell[l - lmin]
+                block = rows[:, [0] + list(range(col, col + ns))]
+                shells.append((l, block.tolist()))
+                col += ns
+        out[elem] = shells
+    del tokens_by_entry
+    return out
 
 
 # =====================================================================
@@ -405,6 +454,32 @@ def _h(*rows):
             m[i, i + j] = v
             m[i + j, i] = v
     return m
+
+
+# HGH-1998 (PRB 58, 3641, eqs. 20-22) off-diagonal projector relations:
+# the GTH-PADE tables descend from the diagonal GTH-1996 form, whose
+# HGH-form off-diagonals are FIXED multiples of the diagonals.  A genuine
+# transcription therefore satisfies h12 = kappa_l * h22 to the table's
+# print precision — an algebraic integrity check that needs no external
+# data (it caught the in-repo Si h22 digit error; see tests/test_atom.py).
+_HGH_H12_RATIO = {0: -0.5 * np.sqrt(3.0 / 5.0),
+                  1: -0.5 * np.sqrt(5.0 / 7.0),
+                  2: -0.5 * np.sqrt(7.0 / 9.0)}
+
+
+def hgh_offdiag_deviation(ps: GTHPseudo) -> float:
+    """Max relative deviation of 2-projector channels from the HGH-1998
+    h12/h22 relation (0.0 when no channel has >=2 projectors).  Genuine
+    GTH-PADE entries land at ~1e-4 (rounding of the published digits);
+    a corrupted h element lands orders of magnitude higher."""
+    dev = 0.0
+    for l, _, h in ps.projectors:
+        h = np.asarray(h)
+        if h.shape[0] >= 2 and l in _HGH_H12_RATIO:
+            want = _HGH_H12_RATIO[l] * h[1, 1]
+            scale = max(abs(h[1, 1]), abs(h[0, 1]), 1e-30)
+            dev = max(dev, abs(h[0, 1] - want) / scale)
+    return dev
 
 
 _PSEUDO_PADE = {
@@ -452,6 +527,11 @@ _PSEUDO_LIBRARY = {"gth-pade": _PSEUDO_PADE}
 _PSEUDO_ALIASES = {"gthpade": "gth-pade"}
 
 
+def register_pseudo(name: str, element: str, pseudo: GTHPseudo) -> None:
+    key = _norm_name(name)
+    _PSEUDO_ALIASES.setdefault(key, name)
+    _PSEUDO_LIBRARY.setdefault(name, {})[element] = pseudo
+
 
 def load_pseudo(name: str, symbol: str) -> GTHPseudo:
     sym = element_symbol(symbol)
@@ -461,3 +541,64 @@ def load_pseudo(name: str, symbol: str) -> GTHPseudo:
     if sym not in _PSEUDO_LIBRARY[key]:
         raise KeyError(f"no {name!r} entry for element {sym!r}")
     return _PSEUDO_LIBRARY[key][sym]
+
+
+def parse_cp2k_pseudo(text: str) -> dict:
+    """Parse CP2K GTH_POTENTIALS-format text -> {element: GTHPseudo}."""
+    lines = [ln for ln in text.splitlines()
+             if ln.strip() and not ln.strip().startswith("#")]
+    i = 0
+    out = {}
+    while i < len(lines):
+        elem = element_symbol(lines[i].split()[0]); i += 1
+        zshell = [int(x) for x in lines[i].split()]; i += 1
+        zion = float(sum(zshell))
+        loc = lines[i].split(); i += 1
+        rloc, nloc = float(loc[0]), int(loc[1])
+        cloc = np.array([float(x) for x in loc[2:2 + nloc]])
+        nl = int(lines[i].split()[0]); i += 1
+        projs = []
+        for l in range(nl):
+            row = lines[i].split(); i += 1
+            rl, nproj = float(row[0]), int(row[1])
+            hvals = [float(x) for x in row[2:2 + max(nproj - 0, 0)]]
+            rows = [hvals]
+            for k in range(1, nproj):
+                rows.append([float(x) for x in lines[i].split()]); i += 1
+            if nproj > 0:
+                h = np.zeros((nproj, nproj))
+                for a, r in enumerate(rows):
+                    for b, v in enumerate(r):
+                        h[a, a + b] = v
+                        h[a + b, a] = v
+                projs.append((l, rl, h))
+        out[elem] = GTHPseudo(zion, rloc, cloc, projs)
+    return out
+
+
+def load_cp2k_data_files(basis_path=None, potentials_path=None,
+                         basis_name="gth-dzvp-molopt-sr",
+                         pseudo_name="gth-pade") -> None:
+    """Register verified tables from CP2K-format data files.
+
+    ``basis_path``: a BASIS_MOLOPT / GTH_BASIS_SETS-format file; every
+    element entry is registered under ``basis_name`` (overriding the
+    embedded surrogates).  ``potentials_path``: a GTH_POTENTIALS-format
+    file registered under ``pseudo_name``.  Defaults come from the
+    ``FFTISDF_TPU_CP2K_BASIS`` / ``FFTISDF_TPU_CP2K_POTENTIALS`` env vars,
+    so dropping real CP2K files onto the machine and exporting two paths
+    upgrades the whole framework to verified data with no code change.
+    """
+    import os
+
+    basis_path = basis_path or os.environ.get("FFTISDF_TPU_CP2K_BASIS")
+    potentials_path = (potentials_path
+                       or os.environ.get("FFTISDF_TPU_CP2K_POTENTIALS"))
+    if basis_path:
+        with open(basis_path) as f:
+            for elem, shells in parse_cp2k_basis(f.read()).items():
+                register_basis(basis_name, elem, shells)
+    if potentials_path:
+        with open(potentials_path) as f:
+            for elem, ps in parse_cp2k_pseudo(f.read()).items():
+                register_pseudo(pseudo_name, elem, ps)

@@ -370,7 +370,8 @@ def _rhs_block(f_k, x_k, phase, phase_cols):
 
 
 def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
-               rcond=1e-10, refine=0, col_block=128, neg_cols=None):
+               rcond=1e-10, refine=0, col_block=128, neg_cols=None,
+               tick=None):
     """One momentum sector's metric w_q (nip, nip) from its normal matrix
     ``x4_q``, its RHS ``y_q`` (ngrid, nip), the Coulomb kernel and the
     e^{iqr} phases.
@@ -386,10 +387,19 @@ def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
     ``neg_cols``: indices of the grid columns where the kernel is negative
     (the 2D-truncated kernel's q+G = 0 sample, -2 pi rc^2).  The split
     takes |coulG|, so each such column a enters the gram as +a a^H where
-    the metric wants -a a^H: 2 a a^H is taken off again."""
+    the metric wants -a a^H: 2 a a^H is taken off again.
+
+    ``tick``: called with the name of each build stage as it ends
+    ('factors', 'sweep', 'spectral', 'gram'; see
+    ``FFTISDF(profile_build=)``); it changes no arithmetic."""
+    if tick is None:
+        def tick(_):
+            pass
     ngrid, nip = y_q.shape
     data = half_factor_data(x4_q, method=solver, rcond=rcond, refine=refine)
+    tick("factors")
     gt = half_apply_rows(data, y_q)                      # (ngrid, nip) = g^T
+    tick("sweep")
     gt.mul_(eiqr_q.conj()[:, None])
     sq = torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
     mesh = tuple(int(m) for m in mesh)
@@ -397,13 +407,16 @@ def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
         c1 = min(c0 + col_block, nip)
         slab = gt[:, c0:c1].T                            # (cb, ngrid) rows
         gt[:, c0:c1] = (fft3(slab, mesh) * sq[None, :]).T
+    tick("spectral")
     # h h^H = gt^T conj(gt) = conj(gt^H gt)
     m = torch.matmul(gt.mH, gt).conj().resolve_conj()
     if neg_cols is not None and len(neg_cols):
         a = gt[neg_cols]                                 # (nneg, nip)
         m -= 2.0 * (a.T @ a.conj())
     del gt
-    return finish_apply(data, m)
+    wq = finish_apply(data, m)
+    tick("gram")
+    return wq
 
 
 def _sector_wq_reference(x4_q, y_q, coulG_q, eiqr_q, mesh, vol,
@@ -470,7 +483,33 @@ class FFTISDF:
       dtype          torch.float64 (None, the default on every device) or
                      torch.float32
       validate       check the stripe-reality invariant at build time
+      profile_build  per-stage wall-clock attribution of the metric pass:
+                     the device is synchronised at the end of every stage
+                     of every sector, which serialises the queue (use for
+                     attribution runs, not for headline timings)
       device         'cuda' (the default) or 'cpu'
+
+    After :meth:`build`, ``timings`` holds ``select_s``, ``metric_s``,
+    ``build_s`` and the chunk-level ``sweep_s`` / ``solve_s`` (one sync
+    after each chunk's sweep and after its solves, profiled or not), and
+    ``_stage_s`` the JAX package's stage keys, with ``_t_select`` the
+    selection seconds.  Each key counts the work that the JAX package
+    counts under it:
+
+      factors   ``_stripe_quartic`` (the normal matrices; the JAX package
+                forms them per chunk inside its factor stage) and every
+                sector's ``half_factor_data``
+      sweep     ``_rhs_block`` over the grid blocks, and every sector's
+                ``half_apply_rows`` (the JAX package half-applies inside
+                its sweep body)
+      spectral  the e^{-iqr} phase, the FFT slabs and the sqrt-kernel
+                scaling
+      gram      the ``gt^H gt`` product, the ``neg_cols`` term and
+                ``finish_apply``
+
+    Without ``profile_build`` the stage clocks are read with no extra
+    sync, so inside a chunk they measure the host's dispatch (as the JAX
+    package's do); ``wq`` is bitwise the same either way.
     """
 
     def __init__(self, cell, kpts, c0=20.0, m0="auto", k0=None, m0_pool=2.5,
@@ -478,7 +517,7 @@ class FFTISDF:
                  refine=None, select_tol=None, select_keep=None,
                  blksize=16384, max_memory_gb=None, use_trs=True, trunc=None,
                  select_host_f64=None, dtype=None, verbose=3, validate=False,
-                 *, device="cuda"):
+                 profile_build=False, *, device="cuda"):
         if solver not in ("ridge", "lstsq", "pinv", "svd"):
             raise ValueError(f"unknown solver {solver!r}")
         self.device = resolve_device(device)
@@ -508,6 +547,7 @@ class FFTISDF:
                       else trunc)
         self.select_host_f64 = select_host_f64
         self.validate = bool(validate)
+        self.profile_build = bool(profile_build)
         self._log = Logger(verbose)
         self._m0_auto = _is_auto(m0)
         if self._m0_auto:
@@ -526,6 +566,8 @@ class FFTISDF:
         self._kconserv2 = None
         self._kconserv3 = None
         self.timings = {}
+        self._stage_s = {}
+        self._t_select = None
         self.nchunks = 0
 
     @classmethod
@@ -593,7 +635,7 @@ class FFTISDF:
             self.x_k = make_evaluator(self.cell, kpts=self.kpts,
                                       device=dev)(coords0).to(self.cdtype)
         _sync(dev)
-        t_sel = time.perf_counter() - t_all
+        t_sel = self._t_select = time.perf_counter() - t_all
         if self.validate:
             self._validate_stripe()
         self.timings = {}
@@ -713,7 +755,6 @@ class FFTISDF:
                  nip, nao, ngrid, nsec, cdt, omega, qchunk, blk,
                  ngrid * nip * cdt.itemsize / 1e9, budget / 1e9)
 
-        x4_k = _stripe_quartic(x_k, phase)
         qsel_t = torch.as_tensor(qsel, device=dev)
         kq = torch.as_tensor(kpts[qsel], dtype=rdt, device=dev)
         coulG = get_coulG_batched(
@@ -730,8 +771,23 @@ class FFTISDF:
         ph = eiqr(coords_t, kq)
         wq_sel = torch.empty((nsec, nip, nip), dtype=cdt, device=dev)
 
-        # stage times: one device sync after each chunk's sweep and solves
-        t0 = time.perf_counter()
+        # chunk times: one device sync after each chunk's sweep and solves;
+        # stage times (the JAX package's keys): a sync at every stage's
+        # end only under profile_build
+        prof = {"factors": 0.0, "sweep": 0.0, "spectral": 0.0, "gram": 0.0}
+        t_mark = time.perf_counter()
+
+        def tick(name):
+            nonlocal t_mark
+            if self.profile_build:
+                _sync(dev)
+            t = time.perf_counter()
+            prof[name] += t - t_mark
+            t_mark = t
+
+        t0 = t_mark
+        x4_k = _stripe_quartic(x_k, phase)
+        tick("factors")
         stage = {"sweep_s": 0.0, "solve_s": 0.0}
         nchunks = 0
         for q0 in range(0, nsec, qchunk):
@@ -749,6 +805,7 @@ class FFTISDF:
                     y_q[g0:g1] = y[i]
                 del y
             _sync(dev)
+            tick("sweep")
             stage["sweep_s"] += time.perf_counter() - t_c
             t_c = time.perf_counter()
             for i in range(q1 - q0):
@@ -758,12 +815,18 @@ class FFTISDF:
                 wq_sel[iq] = _sector_wq(
                     x4_k[qsel[iq]], y_q, coulG[iq], ph[iq], mesh, vol,
                     solver=self.solver, rcond=self.rcond,
-                    refine=self.refine, neg_cols=neg_cols[iq])
+                    refine=self.refine, neg_cols=neg_cols[iq], tick=tick)
                 del y_q
             _sync(dev)
             stage["solve_s"] += time.perf_counter() - t_c
         self.nchunks = nchunks
         self.timings.update(stage)
+        self._stage_s = prof
+        if self.profile_build:
+            log.info("build: stage attribution %s (+ selection %.2fs)",
+                     {k: round(v, 3) for k, v in prof.items()},
+                     self._t_select if self._t_select is not None
+                     else float("nan"))
         # scatter canonical sectors and their conjugate mirrors.  w_q is
         # not symmetrised: on even FFT meshes the discrete Coulomb operator
         # carries a small skew part that the exact oracle shares.

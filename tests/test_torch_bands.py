@@ -23,6 +23,7 @@ from fftisdf_tpu.isdf import bands as jax_bands
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.lattice.cell import Shell as JaxShell
 from fftisdf_tpu.pw import jk as jax_pw_jk
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.isdf import bands
@@ -99,12 +100,17 @@ def test_pw_band_path_matches_jax(he2):
     vj, vk, ao, aob, thr = _pw_band_jk(cell, kpts, kband, dm)
     assert vj.shape == vk.shape == (3, 4, 4)
     cell_j = JaxCell(**he2_kw(JaxShell)).build()
-    aoj, aobj = jnp.asarray(ao.numpy()), jnp.asarray(aob.numpy()[:2])
-    vj_j = jax_pw_jk.get_j_kpts(cell_j, jnp.asarray(dm), aoj, ao_band=aobj)
-    vk_j = jax_pw_jk.get_k_kpts(cell_j, jnp.asarray(dm), aoj, kpts,
-                                coords=cell.gen_uniform_grids(),
-                                ao_band=aobj, kpts_band=kband[:2],
-                                g0_argmin_thresh=thr)
+
+    def jax_side():
+        aoj, aobj = jnp.asarray(ao.numpy()), jnp.asarray(aob.numpy()[:2])
+        return (jax_pw_jk.get_j_kpts(cell_j, jnp.asarray(dm), aoj,
+                                     ao_band=aobj),
+                jax_pw_jk.get_k_kpts(cell_j, jnp.asarray(dm), aoj, kpts,
+                                     coords=cell.gen_uniform_grids(),
+                                     ao_band=aobj, kpts_band=kband[:2],
+                                     g0_argmin_thresh=thr))
+
+    vj_j, vk_j = recorded("bands/pw_band_path", jax_side)
     vj, vk, vj_band, vk_band = vj[:2], vk[:2], vj, vk
     np.testing.assert_allclose(vj, np.asarray(vj_j), atol=1e-12)
     np.testing.assert_allclose(vk, np.asarray(vk_j), atol=1e-12)

@@ -21,6 +21,7 @@ from fftisdf_tpu.linalg import fft as jax_fft
 from fftisdf_tpu.linalg.pivoted_cholesky import (
     pivoted_cholesky as jax_pivoted_cholesky)
 from fftisdf_tpu.linalg import solvers as jax_solvers
+from jax_records import recorded
 from fftisdf_tpu_torch.basis import eval as t_eval
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.lattice.cell import Cell
@@ -136,15 +137,18 @@ def _fit_matrix(n=24, m=60, seed=5):
 def test_ridge_half_operator_matches_jax(refine):
     a, b = _fit_matrix()
     m_in = b @ b.conj().T
-    half_j, finish_j, _ = jax_solvers.fitting_half_operator(
-        jnp.asarray(a), method="ridge", rcond=1e-10, refine=refine)
+
+    def jax_side():
+        half_j, finish_j, _ = jax_solvers.fitting_half_operator(
+            jnp.asarray(a), method="ridge", rcond=1e-10, refine=refine)
+        return half_j(jnp.asarray(b)), finish_j(jnp.asarray(m_in))
+
+    g_ref, w_ref = recorded(f"basis_linalg/ridge_half/{refine}", jax_side)
     half_t, finish_t, rank = t_solvers.fitting_half_operator(
         torch.from_numpy(a), method="ridge", rcond=1e-10, refine=refine)
     assert rank == a.shape[0]
-    g_ref = np.asarray(half_j(jnp.asarray(b)))
     g = half_t(torch.from_numpy(b)).numpy()
     assert abs(g - g_ref).max() < 1e-10 * abs(g_ref).max()
-    w_ref = np.asarray(finish_j(jnp.asarray(m_in)))
     w = finish_t(torch.from_numpy(m_in)).numpy()
     assert abs(w - w_ref).max() < 1e-10 * abs(w_ref).max()
     # S M S with M = b b^H through the split form, finish((H b)(H b)^H),

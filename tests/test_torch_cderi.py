@@ -15,6 +15,7 @@ import torch
 
 from fftisdf_tpu.isdf import cderi as jax_cd
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
+from jax_records import recorded
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.isdf import cderi as cd_mod
 from fftisdf_tpu_torch.lattice.cell import Cell
@@ -63,7 +64,9 @@ def test_cderi_factors_match_jax(he2_df):
     w_h = 0.5 * (wq + np.conj(np.swapaxes(wq, -1, -2)))
     scale = np.abs(w_h).max()
     cd, sgn = cd_mod.wq_to_cd_signed(df.wq)
-    cd_j, sgn_j = jax_cd.wq_to_cd_signed(jnp.asarray(wq))
+    cd_j, sgn_j, cd_psd_j = recorded("cderi/factors", lambda: (
+        *jax_cd.wq_to_cd_signed(jnp.asarray(wq)),
+        jax_cd.wq_to_cd(jnp.asarray(wq))))
     assert cd.shape == (len(wq), df.nip, df.nip)
     # the sign of an eigenvalue at the roundoff floor is either package's
     big = np.abs(np.linalg.eigvalsh(w_h)) > 1e-10 * scale
@@ -72,8 +75,7 @@ def test_cderi_factors_match_jax(he2_df):
     np.testing.assert_allclose(_gram(cd, sgn), _gram(cd_j, sgn_j),
                                atol=1e-10 * scale)
     psd = _gram(cd_mod.wq_to_cd(df.wq))
-    np.testing.assert_allclose(psd, _gram(jax_cd.wq_to_cd(jnp.asarray(wq))),
-                               atol=1e-10 * scale)
+    np.testing.assert_allclose(psd, _gram(cd_psd_j), atol=1e-10 * scale)
     # the clip moves the near-null (fit-noise) directions only
     np.testing.assert_allclose(psd, w_h, atol=1e-6 * scale)
 
@@ -97,15 +99,18 @@ def test_cderi_eri_pairing(he2_df, signed):
         ref = df.get_eri(kidx).numpy()
         scale = max(1.0, np.abs(ref).max())
         np.testing.assert_allclose(eri, ref, atol=tol * scale)
-        eri_j = jax_cd.assemble_eri_cderi(
-            jnp.asarray(cd[q].numpy()), *(jnp.asarray(x.numpy()) for x in xs),
-            sign_q=None if sq is None else jnp.asarray(sq.numpy()))
-        np.testing.assert_allclose(eri, np.asarray(eri_j),
-                                   atol=1e-12 * scale)
+        eri_j, a_j = recorded(
+            f"cderi/pairing/{signed}/{kidx}", lambda: (
+                jax_cd.assemble_eri_cderi(
+                    jnp.asarray(cd[q].numpy()),
+                    *(jnp.asarray(x.numpy()) for x in xs),
+                    sign_q=None if sq is None else jnp.asarray(sq.numpy())),
+                jax_cd.pair_cderi(jnp.asarray(cd[q].numpy()),
+                                  jnp.asarray(xs[0].numpy()),
+                                  jnp.asarray(xs[1].numpy()))))
+        np.testing.assert_allclose(eri, eri_j, atol=1e-12 * scale)
         a = cd_mod.pair_cderi(cd[q], xs[0], xs[1]).numpy()
-        np.testing.assert_allclose(a, np.asarray(jax_cd.pair_cderi(
-            jnp.asarray(cd[q].numpy()), jnp.asarray(xs[0].numpy()),
-            jnp.asarray(xs[1].numpy()))), atol=1e-12 * np.abs(a).max())
+        np.testing.assert_allclose(a, a_j, atol=1e-12 * np.abs(a).max())
 
 
 @pytest.mark.parametrize("signed,k2_chunk", [(True, 2), (True, None),
@@ -119,10 +124,11 @@ def test_get_jk_cderi_matches_jax_and_serve(he2_df, signed, k2_chunk):
     q_of = cd_mod.q_index_table(cell, kpts)
     vj, vk = cd_mod.get_jk_cderi(df.x_k, cd, q_of, dm, k2_chunk=k2_chunk,
                                  sign=sgn)
-    vj_j, vk_j = jax_cd.get_jk_cderi(
-        jnp.asarray(df.x_k.numpy()), jnp.asarray(cd.numpy()),
-        jnp.asarray(q_of), jnp.asarray(dm), k2_chunk=k2_chunk,
-        sign=None if sgn is None else jnp.asarray(sgn.numpy()))
+    vj_j, vk_j = recorded(
+        f"cderi/get_jk/{signed}/{k2_chunk}", lambda: jax_cd.get_jk_cderi(
+            jnp.asarray(df.x_k.numpy()), jnp.asarray(cd.numpy()),
+            jnp.asarray(q_of), jnp.asarray(dm), k2_chunk=k2_chunk,
+            sign=None if sgn is None else jnp.asarray(sgn.numpy())))
     np.testing.assert_allclose(vj.numpy(), np.asarray(vj_j), atol=1e-12)
     np.testing.assert_allclose(vk.numpy(), np.asarray(vk_j), atol=1e-12)
     vj0, vk0 = df.get_jk(dm)

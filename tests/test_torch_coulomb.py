@@ -15,6 +15,7 @@ import torch
 
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.linalg import coulomb as jax_coulomb
+from jax_records import recorded
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.linalg import coulomb as t_coulomb
 from fftisdf_tpu_torch.linalg.fft import fft3
@@ -64,9 +65,13 @@ def test_coulG_matches_jax(he2, kw):
     cell_j, cell, kpts = he2
     gv = cell.get_Gv()
     omega = kw.get("omega")
-    for q in (None, kpts[1]):
-        ref = np.asarray(jax_coulomb.get_coulG(cell_j, q=q, mesh=cell.mesh,
-                                               **kw))
+    key = "coulomb/" + "/".join(f"{k}={v}" for k, v in kw.items())
+    refs = recorded(key, lambda: [
+        jax_coulomb.get_coulG(cell_j, q=q, mesh=cell.mesh, **kw)
+        for q in (None, kpts[1])]
+        + [jax_coulomb.get_coulG_batched(cell_j, kpts, gv, **kw)])
+    for i, q in enumerate((None, kpts[1])):
+        ref = refs[i]
         out = t_coulomb.get_coulG(cell, q=q, mesh=cell.mesh, device="cpu",
                                   **kw).numpy()
         if omega is not None:
@@ -78,7 +83,7 @@ def test_coulG_matches_jax(he2, kw):
             continue
         np.testing.assert_allclose(out, ref, rtol=1e-12,
                                    atol=1e-12 * abs(ref).max())
-    ref = np.asarray(jax_coulomb.get_coulG_batched(cell_j, kpts, gv, **kw))
+    ref = refs[2]
     out = t_coulomb.get_coulG_batched(cell, torch.from_numpy(kpts),
                                       torch.from_numpy(gv), **kw).numpy()
     if omega is not None:

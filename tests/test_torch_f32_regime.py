@@ -26,6 +26,7 @@ from fftisdf_tpu.isdf import kpoint as jax_kp
 from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.utils.device import to_device
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.isdf import FFTISDF, kpoint as t_kp
 from fftisdf_tpu_torch.lattice import structure
@@ -304,19 +305,29 @@ def test_f32_state_round_trip(tmp_path, diamond):
     serve); the port's float32 state, complex64 on disk, loads into the
     JAX package."""
     cell_j, cell, kpts, dm = diamond
+    path = tmp_path / "jax_f32.npz"
+
+    def jax_side():
+        ctx = _quiet()
+        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(7, 7, 7), verbose=0,
+                       dtype=jnp.float32).build()
+        ctx.__exit__(None, None, None)
+        df_j.save(path)
+        return (np.frombuffer(path.read_bytes(), dtype=np.uint8),
+                df_j.mask) + tuple(df_j.get_jk(
+                    to_device(dm, dtype=jnp.complex64)))
+
+    # the JAX package's file, byte for byte, and its J/K
+    raw, mask_j, vj_j, vk_j = recorded("f32_regime/state_file", jax_side)
+    path.write_bytes(raw.tobytes())
     ctx = _quiet()
-    df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(7, 7, 7), verbose=0,
-                   dtype=jnp.float32).build()
     df_t = FFTISDF(cell, kpts, c0=10.0, m0=(7, 7, 7), verbose=0, dtype=F32,
                    device="cpu").build()
     ctx.__exit__(None, None, None)
-    path = tmp_path / "jax_f32.npz"
-    df_j.save(path)
-    vj_j, vk_j = df_j.get_jk(to_device(dm, dtype=jnp.complex64))
     for dt, cdt in ((None, torch.complex128), (F32, torch.complex64)):
         df_l = FFTISDF.load(path, cell, kpts, dtype=dt, device="cpu")
         assert df_l.wq.dtype == df_l.x_k.dtype == cdt
-        np.testing.assert_array_equal(df_l.mask, np.asarray(df_j.mask))
+        np.testing.assert_array_equal(df_l.mask, mask_j)
         vj_l, vk_l = df_l.get_jk(dm)
         for a, b in ((vj_l, vj_j), (vk_l, vk_j)):
             assert _maxerr(a, b) < 2e-6 * float(np.abs(np.asarray(b)).max())

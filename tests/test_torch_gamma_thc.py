@@ -29,6 +29,7 @@ from fftisdf_tpu.isdf import thc as jax_thc
 from fftisdf_tpu.lattice import becke as jax_becke
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.linalg.solvers import whiten_basis as jax_whiten
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import eval_ao_gamma, eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF, ao2mo, gamma
 from fftisdf_tpu_torch.isdf.kpoint import _stripe_quartic
@@ -135,12 +136,16 @@ def test_fit_gamma_full_rank_and_eri(gamma_setup):
         ref = get_eri_from_ao(cell, [ao[k] for k in (k1, k2, k3, k4)], qv,
                               coords)
         assert float((eri - ref).abs().max()) < 1e-10, (k1, k2, k3)
-    cell_j = JaxCell(**GAMMA_KW).build()
-    xi_j, _, _ = jax_gamma.fit_gamma(jnp.asarray(ao.numpy()), nip=GAMMA_NIP)
     qv = kpts[1] - kpts[0]
-    c_t = gamma.coul_q_from_xi(cell, torch.as_tensor(np.asarray(xi_j)),
-                               coords, qv).numpy()
-    c_j = np.asarray(jax_gamma.coul_q_from_xi(cell_j, xi_j, coords, qv))
+
+    def jax_side():
+        xi_j = jax_gamma.fit_gamma(jnp.asarray(ao.numpy()), nip=GAMMA_NIP)[0]
+        return xi_j, jax_gamma.coul_q_from_xi(JaxCell(**GAMMA_KW).build(),
+                                              xi_j, coords, qv)
+
+    xi_j, c_j = recorded("gamma_thc/fit_gamma", jax_side)
+    c_t = gamma.coul_q_from_xi(cell, torch.as_tensor(xi_j), coords,
+                               qv).numpy()
     np.testing.assert_allclose(c_t, c_j, atol=1e-12 * np.abs(c_j).max())
 
 
@@ -171,8 +176,10 @@ def test_pw_cderi_matches_jax_and_eri(he2):
         ref = get_eri_from_ao(cell, [ao[k] for k in (k1, k2, k3, k4)], q,
                               coords)
         assert float((eri - ref).abs().max()) < 1e-10, (k1, k2, k3)
-        c12_j = jax_thc.pw_cderi(cell_j, jnp.asarray(ao[k1].numpy()),
-                                 jnp.asarray(ao[k2].numpy()), q, coords)
+        c12_j = recorded(f"gamma_thc/pw_cderi/{k1}{k2}{k3}",
+                         lambda: jax_thc.pw_cderi(
+                             cell_j, jnp.asarray(ao[k1].numpy()),
+                             jnp.asarray(ao[k2].numpy()), q, coords))
         np.testing.assert_allclose(c12.numpy(), np.asarray(c12_j),
                                    atol=1e-13)
 
@@ -213,18 +220,26 @@ def test_becke_grids_match_jax():
     kw = he2_kw(**BECKE_BOX)
     cell = Cell(**kw).build()
     g = becke.AtomCenteredGrids(cell, level=0).build()
-    gj = jax_becke.AtomCenteredGrids(JaxCell(**kw).build(), level=0).build()
-    np.testing.assert_array_equal(g.coords, gj.coords)
-    np.testing.assert_allclose(g.weights, gj.weights,
-                               atol=1e-13 * np.abs(gj.weights).max())
-    for fn, args in ((becke.radial_becke, (60, 1.0)),
-                     (becke.angular_product, (8,))):
-        jfn = getattr(jax_becke, fn.__name__)
-        for a, b in zip(fn(*args), jfn(*args)):
-            np.testing.assert_array_equal(a, b)
     mu = np.linspace(-1.0, 1.0, 41)
-    np.testing.assert_allclose(becke._becke_s(mu), jax_becke._becke_s(mu),
-                               atol=1e-15)
+    fns = ((becke.radial_becke, (60, 1.0)), (becke.angular_product, (8,)))
+
+    def jax_side():
+        gj = jax_becke.AtomCenteredGrids(JaxCell(**kw).build(),
+                                         level=0).build()
+        out = [gj.coords, gj.weights, jax_becke._becke_s(mu)]
+        for fn, args in fns:
+            out += list(getattr(jax_becke, fn.__name__)(*args))
+        return out
+
+    ref = recorded("gamma_thc/becke", jax_side)
+    np.testing.assert_array_equal(g.coords, ref[0])
+    np.testing.assert_allclose(g.weights, ref[1],
+                               atol=1e-13 * np.abs(ref[1]).max())
+    got = [a for fn, args in fns for a in fn(*args)]
+    assert len(got) == len(ref) - 3
+    for a, b in zip(got, ref[3:]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(becke._becke_s(mu), ref[2], atol=1e-15)
     dens = np.zeros(len(g.coords))
     a = np.asarray(cell.a)
     for (_, xyz), al in zip(cell.atom, (0.8, 1.6)):
@@ -296,18 +311,22 @@ def test_whiten_basis_matches_jax(he2_full):
     phase = torch.as_tensor(df.phase, dtype=torch.complex128)
     x4 = _stripe_quartic(df.x_k, phase)
     x_rot, scale = whiten_basis(df.x_k, x4)
-    x_rot_j, scale_j = jax_whiten(jnp.asarray(df.x_k.numpy()),
-                                  jnp.asarray(x4.numpy()))
+
+    def jax_side():
+        x_rot_j, scale_j = jax_whiten(jnp.asarray(df.x_k.numpy()),
+                                      jnp.asarray(x4.numpy()))
+        return (scale_j,
+                jnp.conj(jnp.swapaxes(x_rot_j, -1, -2)) @ x_rot_j)
+
+    scale_j, gram_j = recorded("gamma_thc/whiten", jax_side)
     # the kept spectrum: 1/scale is the eigenvalue, to eigh roundoff
     inv = lambda sc: np.where(sc > 0, 1.0 / np.where(sc > 0, sc, 1.0), 0.0)
     w_t, w_j = inv(scale.numpy()), inv(np.asarray(scale_j))
     np.testing.assert_array_equal(w_t > 0, w_j > 0)
     np.testing.assert_allclose(w_t, w_j, atol=1e-12 * np.abs(w_j).max())
     # rows of x_rot carry each eigenvector's free phase: compare grams
-    np.testing.assert_allclose(
-        (x_rot.mH @ x_rot).numpy(),
-        np.asarray(jnp.conj(jnp.swapaxes(x_rot_j, -1, -2)) @ x_rot_j),
-        atol=1e-10 * float(x_rot.abs().max()) ** 2)
+    np.testing.assert_allclose((x_rot.mH @ x_rot).numpy(), gram_j,
+                               atol=1e-10 * float(x_rot.abs().max()) ** 2)
     w, v = torch.linalg.eigh(x4)
     for q in range(x4.shape[0]):
         a_rot = v[q].mH @ x4[q] @ v[q]

@@ -239,3 +239,82 @@ def test_strained_kpoints_deform_with_cell():
     val, _, _ = stress.make_cell_grad_fn(cell, kpts, device="cpu")(cart,
                                                                   eps=eps)
     assert abs(val - cart.e_tot) > 1e-6
+
+
+# --------------- tests/test_eos.py's analytic oracles (numpy, no SCF)
+def _einstein_f(v, t, w0, gamma, v0):
+    """Free energy of one Einstein mode w(V) = w0 (V/v0)^(-gamma)."""
+    w = w0 * (v / v0) ** (-gamma)
+    f = w / 2.0
+    if t > 0:
+        f = f + phonon.KB_HA * t * np.log1p(-np.exp(-w / (phonon.KB_HA * t)))
+    return f
+
+
+def test_qha_grueneisen_oracle():
+    """tests/test_eos.py::test_qha_grueneisen_oracle: QHA on a BM3
+    energy plus one Einstein mode; V0(T) within 2e-3 of a dense direct
+    minimisation of the exact F(V, T), thermal expansion positive; every
+    output equal to the JAX package's qha on the same inputs (1e-12)."""
+    from fftisdf_tpu.scf import eos as jax_eos
+
+    e0, v0, b0, bp = -2.0, 150.0, 5e-3, 4.3
+    w0, gamma = 1.5e-3, 1.8
+    vols = np.linspace(0.92 * v0, 1.12 * v0, 9)
+    e_el = eos.birch_murnaghan(vols, e0, v0, b0, bp)
+    ts = np.array([0.0, 150.0, 300.0, 600.0])
+    f_vib = np.array([[_einstein_f(v, t, w0, gamma, v0) for v in vols]
+                      for t in ts])
+    out = eos.qha(vols, e_el, f_vib, ts)
+    vfine = np.linspace(vols[0], vols[-1], 20001)
+    for i, t in enumerate(ts):
+        f_exact = eos.birch_murnaghan(vfine, e0, v0, b0, bp) \
+            + _einstein_f(vfine, t, w0, gamma, v0)
+        np.testing.assert_allclose(out["v0"][i], vfine[np.argmin(f_exact)],
+                                   rtol=2e-3)
+    assert out["v0"][0] > v0
+    assert np.all(np.diff(out["v0"]) > 0)
+    assert out["b0"][-1] < out["b0"][0]
+    assert np.all(out["alpha_v"][1:] > 0)
+    ref = jax_eos.qha(vols, e_el, f_vib, ts)
+    for key in ("v0", "b0", "alpha_v"):
+        np.testing.assert_allclose(out[key], ref[key], rtol=1e-12, atol=0)
+
+
+def test_gruneisen_einstein_oracle():
+    """tests/test_eos.py::test_gruneisen_einstein_oracle: power-law mode
+    gammas recovered to 1e-12 with the zero acoustic column masked, and
+    the closed-form Grueneisen alpha_V within 5% of the explicit QHA
+    minimisation; equal to the JAX package's gruneisen (1e-12)."""
+    from fftisdf_tpu.scf import eos as jax_eos
+
+    e0, v0, b0, bp = -2.0, 150.0, 5e-3, 4.3
+    w0_cm = np.array([300.0, 700.0, 1100.0])
+    g_true = np.array([1.2, 1.8, 0.9])
+    vols = np.linspace(0.95 * v0, 1.05 * v0, 7)
+    freqs = np.array([
+        np.concatenate([[0.0], w0_cm * (v / v0) ** (-g_true)])[None, :]
+        for v in vols])
+    out = eos.gruneisen(vols, freqs)
+    np.testing.assert_allclose(out["gamma"][0, 1:], g_true, atol=1e-12)
+    assert out["gamma"][0, 0] == 0.0 and not bool(out["mask"][0, 0])
+    t = 300.0
+    w_ha = w0_cm / scf_hess.HARTREE_TO_CM1
+
+    def f_vib(v, ti):
+        return sum(_einstein_f(v, ti, w, g, v0) for w, g in zip(w_ha,
+                                                                g_true))
+
+    e_el = eos.birch_murnaghan(vols, e0, v0, b0, bp)
+    ts = np.array([t - 5.0, t, t + 5.0])
+    fv = np.array([[f_vib(v, ti) for v in vols] for ti in ts])
+    ref = eos.qha(vols, e_el, fv, ts)
+    out = eos.gruneisen(vols, freqs, temperature=t, b0=ref["b0"][1],
+                        v0=ref["v0"][1])
+    assert out["alpha_v"] > 0.0
+    np.testing.assert_allclose(out["alpha_v"], ref["alpha_v"][1], rtol=0.05)
+    assert 0.9 < out["gamma_mean"] < 1.8
+    out_j = jax_eos.gruneisen(vols, freqs, temperature=t, b0=ref["b0"][1],
+                              v0=ref["v0"][1])
+    for key in ("gamma", "alpha_v", "gamma_mean"):
+        np.testing.assert_allclose(out[key], out_j[key], rtol=1e-12, atol=0)

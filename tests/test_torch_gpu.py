@@ -666,3 +666,52 @@ def test_forces_and_stress_on_cuda_match_cpu(cuda, backend):
     assert abs(sval - svalc) <= 1e-10 * abs(svalc)
     assert np.abs(g - gc).max() <= 1e-10 * np.abs(gc).max()
     assert np.abs(geps - gepsc).max() <= 1e-10 * np.abs(gepsc).max()
+
+
+@pytest.mark.gpu
+def test_profile_build_on_cuda_matches_cpu(cuda):
+    """FFTISDF(profile_build=True) on the card: the JAX package's stage
+    keys, w_q bitwise equal to the unprofiled card build, and its J/K
+    equal to the CPU build's on the same mask (1e-10 relative; raw w_q is
+    noise-limited in the fit's near-null directions)."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+
+    cell, kpts = _diamond()
+    kw = dict(c0=10.0, m0=(9, 9, 9), verbose=0)
+    plain = FFTISDF(cell, kpts, device=cuda, **kw).build()
+    prof = FFTISDF(cell, kpts, device=cuda, profile_build=True,
+                   **kw).build(mask=plain.mask)
+    plain = FFTISDF(cell, kpts, device=cuda, **kw).build(mask=plain.mask)
+    assert list(prof._stage_s) == ["factors", "sweep", "spectral", "gram"]
+    assert torch.equal(prof.wq, plain.wq)
+    assert 0 < sum(prof._stage_s.values()) <= prof.timings["metric_s"]
+    cpu = FFTISDF(cell, kpts, device="cpu", **kw).build(mask=plain.mask)
+    dm = np.stack([np.eye(cell.nao_nr(), dtype=complex)] * len(kpts))
+    for v, vc in zip(prof.get_jk(dm), cpu.get_jk(dm)):
+        d = float((v.cpu() - vc).abs().max())
+        assert d <= 1e-10 * float(vc.abs().max())
+
+
+@pytest.mark.gpu
+def test_density_on_grid_on_cuda_matches_cpu(cuda):
+    """utils.cube on the card (grid blocks from its free memory) against
+    the CPU on the same KUHF density: 1e-12 relative."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.scf import KUHF
+    from fftisdf_tpu_torch.utils import cube
+
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
+                 device="cpu").build()
+    mf = KUHF(cell, kpts, df, verbose=0, conv_tol=1e-9, device="cpu")
+    mf.kernel()
+    card = KUHF(cell, kpts, df, verbose=0, device=cuda)
+    card.dm, card.mo_coeff = mf.dm, mf.mo_coeff
+    for spin in (None, "diff", 0):
+        rho = cube.density_on_grid(card, spin=spin)
+        rho_c = cube.density_on_grid(mf, spin=spin)
+        scale = max(np.abs(rho_c).max(), 1e-300)
+        assert np.abs(rho - rho_c).max() <= 1e-12 * max(scale, 1.0)
+    psi = cube.mo_on_grid(card, k=1, n=2, spin=0, part="abs2")
+    psi_c = cube.mo_on_grid(mf, k=1, n=2, spin=0, part="abs2")
+    assert np.abs(psi - psi_c).max() <= 1e-12 * np.abs(psi_c).max()

@@ -24,6 +24,7 @@ from fftisdf_tpu.isdf.kpoint import (
 from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.lattice import kpoints as kpt_mod
 from fftisdf_tpu.pw import get_jk_kpts
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF, jk as t_jk, kpoint as t_kp
 from fftisdf_tpu_torch.lattice.cell import Cell
@@ -72,14 +73,23 @@ def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-@pytest.fixture(scope="module")
-def he2_compressed(he2):
-    cell_j, cell, kpts = he2
-    kw = dict(c0=10.0, m0=(9, 9, 13), verbose=0)
+COMPRESSED = dict(c0=10.0, m0=(9, 9, 13), verbose=0)
+
+
+def _jax_compressed(cell_j, kpts):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return (JaxISDF(cell_j, kpts, **kw).build(),
-                FFTISDF(cell, kpts, device="cpu", **kw).build())
+        return JaxISDF(cell_j, kpts, **COMPRESSED).build()
+
+
+@pytest.fixture(scope="module")
+def he2_compressed(he2):
+    """The port's compressed build (the JAX package's is built where a
+    test needs the object, else its outputs are recorded)."""
+    _, cell, kpts = he2
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return FFTISDF(cell, kpts, device="cpu", **COMPRESSED).build()
 
 
 def _pivot_residuals(cell_j, cell, kpts, m0, max_rank):
@@ -96,9 +106,13 @@ def _pivot_residuals(cell_j, cell, kpts, m0, max_rank):
 
     coords0 = cell.gen_uniform_grids(m0)
     nk = len(kpts)
-    x0 = jax_evaluator(cell_j, kpts=kpts)(jnp.asarray(coords0))
-    x2 = jnp.einsum("kgm,khm->gh", x0.conj(), x0).real
-    hist_j = jax_pivoted_cholesky(x2 * x2 / nk, max_rank=max_rank)[3]
+
+    def jax_side():
+        x0 = jax_evaluator(cell_j, kpts=kpts)(jnp.asarray(coords0))
+        x2 = jnp.einsum("kgm,khm->gh", x0.conj(), x0).real
+        return jax_pivoted_cholesky(x2 * x2 / nk, max_rank=max_rank)[3]
+
+    hist_j = recorded("isdf_kpoint/pivot_residuals", jax_side)
     x0_t = make_evaluator(cell, kpts=kpts, device="cpu")(coords0)
     hist_t = pivoted_cholesky(pair_gram_sq(x0_t, square=False) * nk,
                               max_rank=max_rank)[3]
@@ -111,20 +125,27 @@ def test_selection_matches_jax(he2, he2_compressed):
     and rank, the pivot residual at every pivot, and the fit served from
     each package's own interpolation points."""
     cell_j, cell, kpts = he2
-    df_j, df_t = he2_compressed
-    assert df_t.nip == df_j.nip
+    df_t = he2_compressed
+    dm = trs_dm(cell, kpts, 2, seed=9, nset=2)
+
+    def jax_side():
+        df_j = _jax_compressed(cell_j, kpts)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r_j = jax_select(cell_j, kpts, (9, 9, 13), 10.0)[2]
+        return (df_j.nip, r_j) + tuple(df_j.get_jk(dm))
+
+    nip_j, r_j, vj_j, vk_j = recorded("isdf_kpoint/selection", jax_side)
+    assert df_t.nip == int(nip_j)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        _, _, r_j, _ = jax_select(cell_j, kpts, (9, 9, 13), 10.0)
         _, _, r_t, _ = t_kp.select_interpolation_points(
             cell, kpts, (9, 9, 13), 10.0, device="cpu")
     assert r_t == int(r_j)
     hist_j, hist_t = _pivot_residuals(cell_j, cell, kpts, (9, 9, 13),
-                                      df_j.nip)
+                                      int(nip_j))
     np.testing.assert_allclose(hist_t, hist_j, rtol=0,
                                atol=1e-10 * hist_j[0])
-    dm = trs_dm(cell, kpts, 2, seed=9, nset=2)
-    vj_j, vk_j = df_j.get_jk(dm)
     vj_t, vk_t = df_t.get_jk(dm)
     assert _rel(vj_t, vj_j) < 1e-8
     assert _rel(vk_t, vk_j) < 1e-8
@@ -135,9 +156,15 @@ def test_selection_mask_identical_without_ties():
     the mask is identical to the JAX package's, with x_k to 1e-12."""
     cell_j, cell = he2_cells(asymmetric=True)
     kpts = cell.get_kpts([1, 1, 2])
+
+    def jax_side():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return jax_select(cell_j, kpts, (9, 9, 13), 10.0)[:3]
+
+    x_j, m_j, r_j = recorded("isdf_kpoint/selection_asymmetric", jax_side)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        x_j, m_j, r_j, _ = jax_select(cell_j, kpts, (9, 9, 13), 10.0)
         x_t, m_t, r_t, _ = t_kp.select_interpolation_points(
             cell, kpts, (9, 9, 13), 10.0, device="cpu")
     assert r_t == int(r_j)
@@ -154,10 +181,11 @@ def test_pool_saturation_warning(he2):
 
 
 def test_compressed_jk_matches_jax(he2, he2_compressed):
-    _, cell, kpts = he2
-    df_j, df_t = he2_compressed
+    cell_j, cell, kpts = he2
+    df_t = he2_compressed
     dm = trs_dm(cell, kpts, 2, nset=2)
-    vj_j, vk_j = df_j.get_jk(dm)
+    vj_j, vk_j = recorded("isdf_kpoint/compressed_jk", lambda: (
+        _jax_compressed(cell_j, kpts).get_jk(dm)))
     vj_t, vk_t = df_t.get_jk(dm)
     assert _rel(vj_t, vj_j) < 1e-8
     assert _rel(vk_t, vk_j) < 1e-8
@@ -177,8 +205,9 @@ def test_full_rank_jk_exact(he2):
     ao = eval_ao_kpts(cell, cell.gen_uniform_grids(), kpts,
                       device="cpu").numpy()
     dm = trs_dm(cell, kpts, 2)[0]
-    vj_ref, vk_ref = get_jk_kpts(cell_j, jnp.asarray(dm), jnp.asarray(ao),
-                                 kpts)
+    vj_ref, vk_ref = recorded("isdf_kpoint/full_rank_exact",
+                              lambda: get_jk_kpts(cell_j, jnp.asarray(dm),
+                                                  jnp.asarray(ao), kpts))
     vj, vk = df.get_jk(dm)
     assert np.abs(vj.numpy() - np.asarray(vj_ref)).max() < 1e-9
     assert np.abs(vk.numpy() - np.asarray(vk_ref)).max() < 1e-9
@@ -188,13 +217,21 @@ def test_state_carried_across(tmp_path, he2, he2_compressed):
     """JAX builds and saves; the port loads and serves the same J/K; the
     port's own state round-trips through the same format."""
     cell_j, cell, kpts = he2
-    df_j, df_t = he2_compressed
+    df_t = he2_compressed
     path = tmp_path / "jax_state.npz"
-    df_j.save(path)
-    df_l = load_isdf_state(path, cell, kpts, device="cpu")
-    np.testing.assert_array_equal(df_l.mask, np.asarray(df_j.mask))
     dm = trs_dm(cell, kpts, 2, seed=4)[0]
-    vj_j, vk_j = df_j.get_jk(dm)
+
+    def jax_side():
+        df_j = _jax_compressed(cell_j, kpts)
+        df_j.save(path)
+        return (np.frombuffer(path.read_bytes(), dtype=np.uint8),
+                df_j.mask) + tuple(df_j.get_jk(dm))
+
+    # the JAX package's file, byte for byte, and its J/K
+    raw, mask_j, vj_j, vk_j = recorded("isdf_kpoint/state_file", jax_side)
+    path.write_bytes(raw.tobytes())
+    df_l = load_isdf_state(path, cell, kpts, device="cpu")
+    np.testing.assert_array_equal(df_l.mask, mask_j)
     vj_l, vk_l = df_l.get_jk(dm)
     assert _rel(vj_l, vj_j) < 1e-12
     assert _rel(vk_l, vk_j) < 1e-12
@@ -225,10 +262,11 @@ def test_k_serve_img_matches_phase(he2):
     np.testing.assert_allclose(ws.numpy(), ws_ref, atol=1e-10)
     vk_img = t_jk.get_k_kpts_img(df.x_k, ws, dm, df.kmesh)
     assert _rel(vk_img, vk_phase) < 1e-12
-    vk_jax = jax_jk.get_k_kpts_img(jnp.asarray(df.x_k.numpy()),
-                                   jnp.asarray(ws.numpy()),
-                                   jnp.asarray(dm.numpy()),
-                                   tuple(int(m) for m in df.kmesh))
+    vk_jax = recorded("isdf_kpoint/k_serve_img",
+                      lambda: jax_jk.get_k_kpts_img(
+                          jnp.asarray(df.x_k.numpy()),
+                          jnp.asarray(ws.numpy()), jnp.asarray(dm.numpy()),
+                          tuple(int(m) for m in df.kmesh)))
     assert _rel(vk_img, vk_jax) < 1e-12
 
 
@@ -248,9 +286,10 @@ def test_sector_wq_matches_jax(he2):
     coulG = np.where(g2 > 1e-12, 4 * np.pi / np.where(g2 > 1e-12, g2, 1), 0)
     eiqr = np.exp(1j * cell.gen_uniform_grids() @ q)
     mesh, vol = tuple(int(m) for m in cell.mesh), float(cell.vol)
-    ref, _ = jax_sector_wq(jnp.asarray(x4), jnp.asarray(y),
-                           jnp.asarray(coulG), jnp.asarray(eiqr), mesh, vol,
-                           ngrid, solver="ridge", rcond=1e-10, refine=0)
+    ref = recorded("isdf_kpoint/sector_wq", lambda: jax_sector_wq(
+        jnp.asarray(x4), jnp.asarray(y), jnp.asarray(coulG),
+        jnp.asarray(eiqr), mesh, vol, ngrid, solver="ridge", rcond=1e-10,
+        refine=0)[0])
     t = torch.from_numpy
     out = t_kp._sector_wq(t(x4), t(y.copy()), t(coulG), t(eiqr), mesh, vol,
                           col_block=4)
@@ -288,7 +327,7 @@ def test_unported_options_raise(he2, he2_compressed):
     the eigh-family solvers are accepted; an unknown solver is a
     ValueError."""
     _, cell, kpts = he2
-    df = he2_compressed[1]
+    df = he2_compressed
     dm = trs_dm(cell, kpts, 2)[0]
     with pytest.raises(NotImplementedError):
         df.get_jk(dm, omega=0.5, exxdiv="ewald")

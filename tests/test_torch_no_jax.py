@@ -4,10 +4,13 @@ keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
 module of the port imports (the KS, many-body, correlated and derivative
-modules among them),
-one tiny build, ``get_jk``, an ISDF force and xc evaluation run on a small
-He2 cell on the CPU, and one ``kmp2`` on the H2 chain of tests/test_mp2.py;
-none of the refused modules may reach ``sys.modules``."""
+modules among them, and the tool layer: ``utils.config``,
+``utils.profiling``, ``utils.cube``, ``basis.atom`` and ``basis.fit``),
+one tiny build with ``profile_build``, ``get_jk``, an ISDF force, the
+density on the grid and xc evaluation run on a small He2 cell on the CPU,
+a CP2K basis entry is parsed, and one ``kmp2`` runs on the H2 chain of
+tests/test_mp2.py; none of the refused modules may reach
+``sys.modules``."""
 import os
 import subprocess
 import sys
@@ -44,7 +47,8 @@ SCRIPT = textwrap.dedent("""
                  "scf.tddft", "scf.bse", "scf.fci", "scf.dmet", "scf.cc",
                  "isdf.autodiff", "scf.grad", "scf.stress", "scf.optimize",
                  "scf.hessian", "scf.md", "scf.phonon", "scf.elastic",
-                 "scf.eos"):
+                 "scf.eos", "utils.config", "utils.profiling", "utils.cube",
+                 "basis.atom", "basis.fit"):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np
@@ -57,9 +61,12 @@ SCRIPT = textwrap.dedent("""
                 unit="bohr", precision=1e-10).build()
     kpts = cell.get_kpts([1, 1, 2])
     df = FFTISDF(cell, kpts, c0=8.0, m0=(7, 7, 9), verbose=0,
-                 device="cpu").build()
+                 profile_build=True, device="cpu").build()
     vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
     assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
+    assert list(df._stage_s) == ["factors", "sweep", "spectral", "gram"]
+    from fftisdf_tpu_torch.basis import data
+    assert data.parse_cp2k_basis("He X\\n 1\\n 1 0 0 1 1\\n 1.0 1.0\\n")
 
     # the derivative layer: the ISDF force of one KRHF on that build
     from fftisdf_tpu_torch.scf import KRHF as _KRHF
@@ -69,6 +76,9 @@ SCRIPT = textwrap.dedent("""
     mf.kernel()
     g, val = grad.kernel(mf, two_electron="isdf", df=df)
     assert g.shape == (2, 3) and abs(val - mf.e_tot) < 1e-8
+    from fftisdf_tpu_torch.utils import cube
+    rho = cube.density_on_grid(mf)
+    assert abs(rho.sum() * cell.vol / rho.size - cell.nelectron) < 1e-8
 
     import torch
     from fftisdf_tpu_torch.scf import KRKS, KUKS, DeviceKRKS, DeviceKUKS

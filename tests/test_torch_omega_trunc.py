@@ -24,6 +24,7 @@ from fftisdf_tpu.lattice.cell import Cell as JaxCell
 from fftisdf_tpu.lattice import kpoints as kpt_mod
 from fftisdf_tpu.pw import jk as jax_pw_jk
 from fftisdf_tpu.scf.hf import PWDF as JaxPWDF
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice.cell import Cell
@@ -98,16 +99,18 @@ def test_exact_oracle_kernels_match_jax(he2, kw):
     """pw.get_jk_kpts with a screened or truncated kernel against the JAX
     package's on the same AO values and density: 1e-10 relative."""
     cell_j, cell, kpts, ao, dm = he2
-    vj_j, vk_j = jax_pw_jk.get_jk_kpts(cell_j, jnp.asarray(dm),
-                                       jnp.asarray(ao.numpy()), kpts, **kw)
+    key = "omega_trunc/exact/" + "/".join(f"{k}={v}" for k, v in kw.items())
+    vj_j, vk_j = recorded(key, lambda: jax_pw_jk.get_jk_kpts(
+        cell_j, jnp.asarray(dm), jnp.asarray(ao.numpy()), kpts, **kw))
     vj, vk = pw_jk.get_jk_kpts(cell, dm, ao, kpts, **kw)
     assert _rel(vj, vj_j) < 1e-10 and _rel(vk, vk_j) < 1e-10
     # the provider class passes the kernel through, set axis included
     pw = PWDF(cell, kpts, trunc=kw.get("trunc"), device="cpu")
-    pw_j = JaxPWDF(cell_j, kpts, trunc=kw.get("trunc"))
     dms = np.stack([dm, dm.conj()])
     vj2, vk2 = pw.get_jk(dms, omega=kw.get("omega"))
-    vj2_j, vk2_j = pw_j.get_jk(dms, omega=kw.get("omega"))
+    vj2_j, vk2_j = recorded(key + "/pwdf", lambda: JaxPWDF(
+        cell_j, kpts, trunc=kw.get("trunc")).get_jk(
+            dms, omega=kw.get("omega")))
     assert _rel(vj2, vj2_j) < 1e-10 and _rel(vk2, vk2_j) < 1e-10
 
 
@@ -228,9 +231,11 @@ def test_isdf_trunc_jk_exact(he2_box, kind, kmesh, rc):
     assert df.trunc[0] == kind and abs(df.trunc[1] - rc) < 1e-10
     dm = trs_dm(cell, kpts, 2)
     vj_ref, vk_ref = pw_jk.get_jk_kpts(cell, dm, ao, kpts, trunc=df.trunc)
-    vj_j, vk_j = jax_pw_jk.get_jk_kpts(cell_j, jnp.asarray(dm),
-                                       jnp.asarray(ao.numpy()), kpts,
-                                       trunc=df.trunc)
+    vj_j, vk_j = recorded(f"omega_trunc/isdf_exact/{kind}",
+                          lambda: jax_pw_jk.get_jk_kpts(
+                              cell_j, jnp.asarray(dm),
+                              jnp.asarray(ao.numpy()), kpts,
+                              trunc=df.trunc))
     vj, vk = df.get_jk(dm)
     for ref_j, ref_k in ((vj_ref, vk_ref), (vj_j, vk_j)):
         assert _maxerr(vj, ref_j) < 1e-9 and _maxerr(vk, ref_k) < 1e-9
@@ -248,18 +253,22 @@ def test_compressed_trunc_2d_matches_jax(he2_box):
     points serves its J/K to 1e-8 relative, with ``use_trs=False`` too."""
     cell_j, cell = he2_box
     kpts = cell.get_kpts([2, 1, 1])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
-                       trunc="2d").build()
     dm = trs_dm(cell, kpts, 2)
-    vj_j, vk_j = df_j.get_jk(dm)
+
+    def jax_side():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
+                           trunc="2d").build()
+        return (df_j.mask,) + tuple(df_j.get_jk(dm))
+
+    mask_j, vj_j, vk_j = recorded("omega_trunc/compressed_2d", jax_side)
     for use_trs in (True, False):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
                          trunc="2d", use_trs=use_trs, validate=True,
-                         device="cpu").build(mask=np.asarray(df_j.mask))
+                         device="cpu").build(mask=mask_j)
         vj, vk = df.get_jk(dm)
         assert _rel(vj, vj_j) < 1e-8 and _rel(vk, vk_j) < 1e-8, use_trs
 
@@ -290,11 +299,22 @@ def test_trunc_serialization_roundtrip(tmp_path, he2_box, box_0d):
     and the port's into the JAX package (same J/K to 1e-12 relative)."""
     cell_j, cell = he2_box
     kpts, df = box_0d
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
-                       trunc="0d").build()
     dm = trs_dm(cell, kpts, 2)
+    path_j = tmp_path / "jax_trunc_state.npz"
+
+    def jax_side():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            df_j = JaxISDF(cell_j, kpts, c0=10.0, m0=(9, 9, 11), verbose=0,
+                           trunc="0d").build()
+        df_j.save(str(path_j))
+        return ((np.frombuffer(path_j.read_bytes(), dtype=np.uint8),
+                 np.asarray(df_j.trunc[1])) + tuple(df_j.get_jk(dm))
+                + (df_j.get_jk(dm, exxdiv="ewald")[1],))
+
+    # the JAX package's file, byte for byte, and its J/K
+    raw, rc_j, vj_j, vk_j, vk_je = recorded("omega_trunc/state_file",
+                                            jax_side)
     path = str(tmp_path / "trunc_state.npz")
     df.save(path)
     df2 = FFTISDF.load(path, cell, kpts, device="cpu")
@@ -306,13 +326,10 @@ def test_trunc_serialization_roundtrip(tmp_path, he2_box, box_0d):
     assert df3.trunc == df.trunc
     vj3, vk3 = df3.get_jk(dm)
     assert _rel(vj1, vj3) < 1e-12 and _rel(vk1, vk3) < 1e-12
-    path_j = str(tmp_path / "jax_trunc_state.npz")
-    df_j.save(path_j)
-    df4 = FFTISDF.load(path_j, cell, kpts, device="cpu")
-    assert df4.trunc == tuple(df_j.trunc)
-    vj_j, vk_j = df_j.get_jk(dm)
+    path_j.write_bytes(raw.tobytes())
+    df4 = FFTISDF.load(str(path_j), cell, kpts, device="cpu")
+    assert df4.trunc == ("0d", float(rc_j))
     vj4, vk4 = df4.get_jk(dm)
     assert _rel(vj4, vj_j) < 1e-12 and _rel(vk4, vk_j) < 1e-12
     # the reloaded spec drives the probe-charge constant of the kernel
-    _, vk_je = df_j.get_jk(dm, exxdiv="ewald")
     assert _rel(df4.get_jk(dm, exxdiv="ewald")[1], vk_je) < 1e-12

@@ -21,6 +21,7 @@ import pytest
 from fftisdf_tpu.lattice import structure as jax_structure
 from fftisdf_tpu.pw import eri as jax_pw_eri, jk as jax_pw_jk
 from fftisdf_tpu.scf import integrals as jax_integrals
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
@@ -50,8 +51,8 @@ def diamond():
 
 def test_pw_jk_matches_jax(diamond):
     cell_j, cell, kpts, ao, dm = diamond
-    vj_j, vk_j = jax_pw_jk.get_jk_kpts(cell_j, jnp.asarray(dm),
-                                       jnp.asarray(ao.numpy()), kpts)
+    vj_j, vk_j = recorded("pw/get_jk_kpts", lambda: jax_pw_jk.get_jk_kpts(
+        cell_j, jnp.asarray(dm), jnp.asarray(ao.numpy()), kpts))
     vj, vk = pw_jk.get_jk_kpts(cell, dm, ao, kpts)
     assert _rel(vj.numpy(), vj_j) < 1e-10
     assert _rel(vk.numpy(), vk_j) < 1e-10
@@ -75,8 +76,8 @@ def test_pw_eri_matches_jax(diamond):
     cell_j, cell, kpts, ao, _ = diamond
     q = kpts[1] - kpts[0]
     aos = [ao[i] for i in (0, 1, 1, 0)]
-    ref = jax_pw_eri.get_eri_from_ao(
-        cell_j, [jnp.asarray(a.numpy()) for a in aos], q)
+    ref = recorded("pw/get_eri_from_ao", lambda: jax_pw_eri.get_eri_from_ao(
+        cell_j, [jnp.asarray(a.numpy()) for a in aos], q))
     assert _rel(pw_eri.get_eri_from_ao(cell, aos, q).numpy(), ref) < 1e-10
     coords = cell.gen_uniform_grids()
     for sign in (+1, -1):

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from fftisdf_tpu.scf import core as jax_core
+from jax_records import recorded
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.lattice.cell import Cell, Shell
@@ -192,14 +193,15 @@ def _diis_history(seed, m=6, n_live=4, L=40):
 def test_core_diis_and_adiis_match_jax():
     errs, focks, dms, valid = _diis_history(3)
     t = torch.from_numpy
-    ref = jax_core.diis_extrapolate(jnp.asarray(errs), jnp.asarray(focks),
-                                    jnp.asarray(valid), jnp)
+    ref = recorded("scf_device/diis", lambda: jax_core.diis_extrapolate(
+        jnp.asarray(errs), jnp.asarray(focks), jnp.asarray(valid), jnp))
     out = core.diis_extrapolate(t(errs), t(focks), t(valid))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-11)
     # a masked slot carries garbage that must not leak in
     dms[~valid] = 1e6
-    ref = jax_core.adiis_coeffs(jnp.asarray(dms), jnp.asarray(focks), 2,
-                                jnp.asarray(valid), jnp, jax.lax.fori_loop)
+    ref = recorded("scf_device/adiis", lambda: jax_core.adiis_coeffs(
+        jnp.asarray(dms), jnp.asarray(focks), 2, jnp.asarray(valid), jnp,
+        jax.lax.fori_loop))
     out = core.adiis_coeffs(t(dms), t(focks), 2, t(valid))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12)
     assert abs(float(out.sum()) - 1.0) < 1e-12
@@ -214,14 +216,17 @@ def test_core_occupations_match_jax(method):
     ok[1, -2:] = False
     e[1, -2:] = 1e6                       # penalised slots
     t = torch.from_numpy
-    f_j, s_j, mu_j = jax_core.smeared_occ(jnp.asarray(e), jnp.asarray(ok),
-                                          12.0, 0.05, method, jnp,
-                                          jax.lax.fori_loop)
+    f_j, s_j, mu_j = recorded(
+        f"scf_device/smeared_occ/{method}", lambda: jax_core.smeared_occ(
+            jnp.asarray(e), jnp.asarray(ok), 12.0, 0.05, method, jnp,
+            jax.lax.fori_loop))
     f, s, mu = core.smeared_occ(t(e), t(ok), 12.0, 0.05, method)
     np.testing.assert_allclose(f.numpy(), np.asarray(f_j), atol=1e-12)
     np.testing.assert_allclose(float(s), float(s_j), atol=1e-12)
     np.testing.assert_allclose(float(mu), float(mu_j), atol=1e-12)
     assert abs(float(f.sum()) - 12.0) < 1e-10
-    occ_j = jax_core.aufbau_occ(jnp.asarray(e), jnp.asarray(ok), 5, jnp)
+    occ_j = recorded(f"scf_device/aufbau_occ/{method}",
+                     lambda: jax_core.aufbau_occ(jnp.asarray(e),
+                                                 jnp.asarray(ok), 5, jnp))
     occ = core.aufbau_occ(t(e), t(ok), 5)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fftisdf_tpu.linalg import solvers as jax_solvers
+from jax_records import recorded
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.linalg import pivoted_cholesky as t_pc
@@ -47,8 +48,9 @@ def test_solve_fitting_matches_jax(method):
     rng = np.random.default_rng(2)
     a = random_psd(20, 20)
     b = rng.standard_normal((20, 7)) + 1j * rng.standard_normal((20, 7))
-    z_j, r_j = jax_solvers.solve_fitting(jnp.asarray(a), jnp.asarray(b),
-                                         method=method)
+    z_j, r_j = recorded(f"solvers/full_rank/{method}",
+                        lambda: jax_solvers.solve_fitting(
+                            jnp.asarray(a), jnp.asarray(b), method=method))
     z, r = t_solvers.solve_fitting(t(a), t(b), method=method)
     assert r == int(r_j) == 20
     assert _rel(z.numpy(), z_j) < 1e-10
@@ -67,20 +69,24 @@ def test_solve_fitting_singular_matches_jax():
     for kw in (dict(method="lstsq", precondition=False),
                dict(method="lstsq"), dict(method="svd"),
                dict(method="pinv", rank=4)):
-        z_j, r_j = jax_solvers.solve_fitting(jnp.asarray(a), jnp.asarray(b),
-                                             rcond=1e-10, **kw)
+        z_j, r_j = recorded(
+            "solvers/singular/" + "/".join(f"{k}={v}" for k, v in kw.items()),
+            lambda: jax_solvers.solve_fitting(jnp.asarray(a), jnp.asarray(b),
+                                              rcond=1e-10, **kw))
         z, r = t_solvers.solve_fitting(t(a), t(b), rcond=1e-10, **kw)
         assert r == int(r_j) == (4 if "rank" in kw else 6)
         assert _rel(z.numpy(), z_j) < 1e-8, kw
         if "rank" not in kw:
             np.testing.assert_allclose(a @ z.numpy(), b, atol=1e-8)
     z_h, r_h = t_solvers.hermitian_solve(t(a), t(b), rcond=1e-10)
-    z_hj, _ = jax_solvers.hermitian_solve(jnp.asarray(a), jnp.asarray(b),
-                                          rcond=1e-10)
+    z_hj, _ = recorded("solvers/singular/hermitian",
+                       lambda: jax_solvers.hermitian_solve(
+                           jnp.asarray(a), jnp.asarray(b), rcond=1e-10))
     assert r_h == 6 and _rel(z_h.numpy(), z_hj) < 1e-8
     z_r, _ = t_solvers.ridge_solve(t(a + np.eye(15)), t(b))
-    z_rj, _ = jax_solvers.ridge_solve(jnp.asarray(a + np.eye(15)),
-                                      jnp.asarray(b))
+    z_rj, _ = recorded("solvers/singular/ridge",
+                       lambda: jax_solvers.ridge_solve(
+                           jnp.asarray(a + np.eye(15)), jnp.asarray(b)))
     assert _rel(z_r.numpy(), z_rj) < 1e-10
 
 
@@ -112,12 +118,18 @@ def test_fitting_half_operator_identity(method, refine):
     scale = abs(w_ref).max()
     assert abs(w_new - w_ref).max() < 3e-7 * scale
     assert rk == rk2
-    half_j, finish_j, rk_j = jax_solvers.fitting_half_operator(
-        jnp.asarray(a), method=method, rcond=1e-8, refine=refine)
+
+    def jax_side():
+        half_j, finish_j, rk_j = jax_solvers.fitting_half_operator(
+            jnp.asarray(a), method=method, rcond=1e-8, refine=refine)
+        w_j = np.asarray(finish_j(jnp.asarray(
+            (np.asarray(half_j(jnp.asarray(b))) * kdiag)
+            @ np.asarray(half_j(jnp.asarray(b))).conj().T)))
+        return rk_j, w_j
+
+    rk_j, w_j = recorded(f"solvers/half_operator/{method}/{refine}",
+                         jax_side)
     assert rk2 == int(rk_j)
-    w_j = np.asarray(finish_j(jnp.asarray(
-        (np.asarray(half_j(jnp.asarray(b))) * kdiag)
-        @ np.asarray(half_j(jnp.asarray(b))).conj().T)))
     assert abs(w_new - w_j).max() < 3e-7 * scale
     data = t_solvers.half_factor_data(t(a), method=method, rcond=1e-8,
                                       refine=refine)
@@ -159,8 +171,10 @@ def test_ridge_factor_survives_indefinite_f32_gram():
     res = a32 @ z.numpy() - b
     res_h = (q[:, 1:] @ q[:, 1:].conj().T) @ res
     assert np.abs(res_h).max() < 5e-2
-    z_j, _ = jax_solvers.solve_fitting(jnp.asarray(a32), jnp.asarray(b),
-                                       method="ridge", rcond=1e-5)
+    z_j, _ = recorded("solvers/indefinite_f32",
+                      lambda: jax_solvers.solve_fitting(
+                          jnp.asarray(a32), jnp.asarray(b), method="ridge",
+                          rcond=1e-5))
     assert _rel(z.numpy(), z_j) < 2e-2
 
 
@@ -176,8 +190,10 @@ def test_eigh_family_f32_matches_jax(method):
     a = (z0 @ z0.conj().T).astype(np.complex64)
     b = (rng.standard_normal((n, 5))
          + 1j * rng.standard_normal((n, 5))).astype(np.complex64)
-    z_j, r_j = jax_solvers.solve_fitting(jnp.asarray(a), jnp.asarray(b),
-                                         method=method, rcond=1e-5)
+    z_j, r_j = recorded(f"solvers/eigh_f32/{method}",
+                        lambda: jax_solvers.solve_fitting(
+                            jnp.asarray(a), jnp.asarray(b), method=method,
+                            rcond=1e-5))
     z, r = t_solvers.solve_fitting(t(a), t(b), method=method, rcond=1e-5)
     assert z.dtype == torch.complex64 and r == int(r_j)
     assert _rel(z.numpy(), z_j) < 1e-3
@@ -206,8 +222,10 @@ def test_pivot_selection_matches_jax(dtype):
     floating-point rank (rank 12, 25 pivots asked).  The pivots above the
     rank are the JAX package's; past it both hand out distinct points."""
     a = _separated_psd().astype(dtype)
-    p_j, r_j, h_j = jax_pc.pivot_selection(jnp.asarray(a), max_rank=25,
-                                           tol=1e-6 * a.max())
+    p_j, r_j, h_j = recorded(
+        f"solvers/pivot_selection/{np.dtype(dtype).name}",
+        lambda: jax_pc.pivot_selection(jnp.asarray(a), max_rank=25,
+                                       tol=1e-6 * a.max()))
     p_t, r_t, h_t = t_pc.pivot_selection(t(a), max_rank=25,
                                          tol=1e-6 * a.max())
     p_t = p_t.numpy()

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from fftisdf_tpu.scf import xc as jax_xc
+from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import xc as xc_mod
@@ -72,14 +73,21 @@ def _densities(fmesh):
             "s2=0": (uni, _tau_unif(uni))}
 
 
-def _jax_eval(spec, rho, tau, gv, fmesh, w):
+def _jax_eval(spec, rho, tau, gv, fmesh, w, key):
+    """The JAX package's (exc, vxc, v_tau or None), recorded under ``key``
+    (tests/jax_records.py)."""
+    out = recorded(key, lambda: _jax_live(spec, rho, tau, gv, fmesh, w))
+    return float(out[0]), out[1], (out[2] if spec.is_mgga else None)
+
+
+def _jax_live(spec, rho, tau, gv, fmesh, w):
     if spec.is_mgga:
         e, v, vt = jax_xc.exc_and_vxc_mgga(jnp.asarray(rho), jnp.asarray(tau),
                                            jnp.asarray(gv), spec, fmesh, w)
         return float(e), np.asarray(v), np.asarray(vt)
     e, v = jax_xc.exc_and_vxc(jnp.asarray(rho), jnp.asarray(gv), spec,
                               fmesh, w)
-    return float(e), np.asarray(v), None
+    return float(e), np.asarray(v), np.zeros(0)
 
 
 def _port_eval(spec, rho, tau, gv, fmesh, w):
@@ -110,7 +118,8 @@ def test_exc_and_vxc_match_jax(grid, name):
     assert (port_spec.is_gga, port_spec.is_mgga) == (spec.is_gga,
                                                      spec.is_mgga)
     for case, (rho, tau) in _densities(fmesh).items():
-        e_j, v_j, vt_j = _jax_eval(spec, rho, tau, gv, fmesh, w)
+        e_j, v_j, vt_j = _jax_eval(spec, rho, tau, gv, fmesh, w,
+                                   f"xc/{name}/{case}")
         e_p, v_p, vt_p = _port_eval(port_spec, rho, tau, gv, fmesh, w)
         assert abs(e_p - e_j) <= 1e-12 * max(abs(e_j), 1.0), (case, e_p, e_j)
         assert np.isfinite(v_p).all(), case
@@ -122,8 +131,10 @@ def test_exc_and_vxc_match_jax(grid, name):
             # the JAX package's energies by a central difference
             assert np.isnan(v_j).all()
             drho = np.random.default_rng(2).standard_normal(rho.shape) * 3e-5
-            ep = _jax_eval(spec, rho + drho, tau, gv, fmesh, w)[0]
-            em = _jax_eval(spec, rho - drho, tau, gv, fmesh, w)[0]
+            ep = _jax_eval(spec, rho + drho, tau, gv, fmesh, w,
+                           f"xc/{name}/{case}/+")[0]
+            em = _jax_eval(spec, rho - drho, tau, gv, fmesh, w,
+                           f"xc/{name}/{case}/-")[0]
             fd = (ep - em) / 2.0
             an = float(np.sum(v_p * drho)) * w
             assert abs(fd - an) < 1e-7 * abs(fd), (fd, an)

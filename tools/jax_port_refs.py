@@ -5,6 +5,7 @@
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py bands     # one section
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py correlated  # after many_body
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py derivatives
+    JAX_PLATFORMS=cpu python tools/jax_port_refs.py live_sides  # the npz
 
 Writes ``tests/data/jax_port_refs.json``: energies, interpolation-point
 masks and meshes of the JAX package (``fftisdf_tpu``) on the CPU in float64,
@@ -154,7 +155,9 @@ SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
             "many_body": lambda r: _many_body(r),
             "correlated": lambda r: _correlated(r),
             "jax_sides": lambda r: _jax_sides(r),
-            "derivatives": lambda r: _derivatives(r)}
+            "derivatives": lambda r: _derivatives(r),
+            "tools": lambda r: _tools(r), "qha": lambda r: _qha(r),
+            "live_sides": lambda r: _live_sides(r)}
 
 
 def main():
@@ -171,6 +174,86 @@ def main():
     OUT.write_text("{\n" + ",\n".join(f" {json.dumps(k)}: {json.dumps(v)}"
                                       for k, v in refs.items()) + "\n}\n")
     print(f"wrote {OUT}")
+
+
+def _tools(refs):
+    """The stage keys of the JAX package's profiled build (diamond 1x1x2,
+    c0 10, m0 9^3), which tests/test_torch_tools.py holds the port's
+    ``_stage_s`` to."""
+    from fftisdf_tpu.isdf import FFTISDF
+
+    cell, kpts = _diamond()
+    df = FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
+                 profile_build=True).build()
+    refs["tools"] = {"config": "diamond gth-szv ke 50 1x1x2, c0 10, m0 9^3, "
+                               "profile_build=True",
+                     "stage_keys": list(df._stage_s)}
+
+
+def qha_h2_chain(structure):
+    """The H2 chain of tests/test_eos.py::test_qha_kernel_h2_chain."""
+    axy, az, d = 6.0, 4.5, 0.54
+    return structure.to_cell(
+        np.diag([axy, axy, az]),
+        [("H", np.array([axy / 2, axy / 2, az / 2 - d])),
+         ("H", np.array([axy / 2, axy / 2, az / 2 + d]))],
+        basis="gth-szv", pseudo="gth-pade", ke_cutoff=30.0)
+
+
+QHA_KW = dict(temperatures=[0.0, 300.0], scales=list(np.linspace(0.94, 1.06,
+                                                                 5)),
+              nrep=(1, 1, 1), step=2e-3)
+
+
+def _qha(refs):
+    """eos.qha_kernel on tests/test_eos.py::test_qha_kernel_h2_chain's H2
+    chain (KRHF conv_tol 1e-11, 5 scales, Gamma phonons, step 2e-3), with
+    ``diis_space=1`` as the other driver records: chip_smoke.py phase 12
+    holds the port's qha_kernel on the card to it."""
+    from fftisdf_tpu.lattice import structure
+    from fftisdf_tpu.scf import KRHF, eos
+
+    cell = qha_h2_chain(structure)
+    mf = KRHF(cell, cell.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-11,
+              diis_space=1)
+    mf.kernel()
+    kw = dict(QHA_KW)
+    out = eos.qha_kernel(mf, kw.pop("temperatures"), **kw)
+    refs["qha"] = {
+        "config": "tests/test_eos.py::test_qha_kernel_h2_chain's H2 chain, "
+                  "KRHF conv_tol 1e-11 diis_space 1; qha_kernel T 0 and "
+                  "300 K, 5 scales 0.94-1.06, nrep 1, step 2e-3",
+        "e_tot": float(mf.e_tot),
+        "volumes": np.asarray(out["eos"].volumes).tolist(),
+        "energies": np.asarray(out["eos"].energies).tolist(),
+        "freqs_cm": np.asarray(out["freqs_cm"]).tolist(),
+        "v0": np.asarray(out["v0"]).tolist(),
+        "b0": np.asarray(out["b0"]).tolist(),
+        "gamma_mask": np.asarray(out["gamma_mask"]).tolist()}
+
+
+def _live_sides(refs):
+    """The JAX sides that the test files of tests/jax_records.py's FILES
+    ask for through ``recorded``: those files run once under pytest with
+    the JAX package called (``JAX_PORT_RECORD=1``), every gate checked, and
+    the values go to tests/data/jax_live_sides.npz (``refs`` is left as
+    it is)."""
+    import os
+
+    import pytest
+
+    os.environ["JAX_PORT_RECORD"] = "1"
+    import jax_records
+
+    if not jax_records.RECORDING:
+        raise RuntimeError("jax_records was imported before recording")
+    files = [str(REPO / "tests" / f) for f in jax_records.FILES]
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", "-m", "not slow",
+                      *files])
+    if rc != 0:
+        raise SystemExit(f"the recorded test files failed (pytest rc {rc})")
+    print(f"recorded {jax_records.save()} JAX sides -> "
+          f"{jax_records.PATH}")
 
 
 def _mask(df):
