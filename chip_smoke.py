@@ -234,11 +234,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the ten device operations that took the most time, by name; (c)
    examples/derive_atomic_basis.py --elem Ni --ke 240 --check with the
    port's modules: the uncontracted Ni pseudo-atom (nao 54, mesh 90^3,
-   2S = 2) by KUHF on the exact J/K in float64 on the card, converged,
-   its radial naturals registered under gth-dzvp-molopt-sr (restored
-   afterwards), the contracted KUHF no lower than the uncontracted one by
-   more than 1e-6 Ha, and the --radial route (solve_atom and
-   fit_radial_gaussians) on a host thread beside them; (d) phase 6b's
+   2S = 2) by KUHF on the exact J/K in float64 on the card, started with
+   the spin-down d hole in d_xy, converged and keeping that hole, its
+   radial naturals registered under gth-dzvp-molopt-sr (restored
+   afterwards), the contracted KUHF (same start) no lower than the
+   uncontracted one by more than 1e-6 Ha, and the --radial route
+   (solve_atom and fit_radial_gaussians) on the host, in a process of its
+   own started before phase 12; (d) phase 6b's
    converged production KUHF: density_on_grid on the card (seconds, peak
    memory), its integral against nelec (1e-8 relative), the spin
    density's against sum_k tr((Da - Db) S)/nk (1e-8), an orbital's
@@ -255,6 +257,7 @@ The line before the last holds the kernel table as JSON; the last line is
                                      # and 13 run 4 and 6 first for their
                                      # state; 11 and 12 need no other phase
 """
+import gc
 import json
 import os
 import re
@@ -735,6 +738,9 @@ def phase4_slice(torch, kmesh, ctx):
             and bool(torch.isfinite(vk).all())):
         raise RuntimeError("J/K of the slice are malformed")
     ctx["slice"] = (cell, kpts, df)
+    # phase 14 holds the sharded builds to this one
+    ctx["slice_ref"] = dict(_bench_jk(torch, df), dm=mf.dm, build_s=t[
+        "build_s"], peak_gb=peak / 1e9)
     return launches
 
 
@@ -747,6 +753,19 @@ def _slice(ctx):
         df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), verbose=0).build()
         ctx["slice"] = (cell, kpts, df)
     return ctx["slice"]
+
+
+def _bench_jk(torch, df):
+    """J/K of the bench density on ``df`` (host arrays) and the seconds of
+    a warm call."""
+    dm = _bench_density(df.cell, df.kpts)
+    df.get_jk(dm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vj, vk = df.get_jk(dm)
+    torch.cuda.synchronize()
+    jk_s = time.perf_counter() - t0
+    return dict(vj=vj.cpu().numpy(), vk=vk.cpu().numpy(), jk_s=jk_s)
 
 
 def _bench_density(cell, kpts):
@@ -951,6 +970,8 @@ def phase6_device_scf(torch, ctx):
     ctx["production"] = dict(cell=cell, kpts=kpts, df=df, chk=chk,
                              e_tot=host.e_tot, e_dev=mf.e_tot, moments=mom)
     ctx["production_scf"] = host     # phase 13d's cubes read its density
+    ctx["production_ref"] = dict(_bench_jk(torch, df), build_s=fig[
+        "build_s"], peak_gb=fig["build_peak_gb"])   # phase 14a's reference
     del host, mf
     _park(df)
     torch.cuda.empty_cache()
@@ -2698,7 +2719,7 @@ CC_README_CYCLES = 8  # README.md: KCCSD on diamond gth-szv 2x2x2
 def phase11_correlated(torch, ctx):
     _cc_card_cpu(torch)
     _cc_identities(torch)
-    _cc_diamond_222(torch)
+    _cc_diamond_222(torch, ctx)
     _cc_diamond_333(torch)
 
 
@@ -3057,7 +3078,7 @@ def _autodiff_conventions(torch):
              float((gr - (jac.T @ x).conj()).abs().max()), 1e-12)]
 
 
-def _cc_diamond_222(torch):
+def _cc_diamond_222(torch, ctx):
     """(b) diamond gth-szv ke 50 2x2x2, c0 40 (examples/exciton_
     dispersion.py's system; README.md's KCCSD record): KRHF, CCSD(T),
     EOM-EE Davidson (4 roots), DMET on one carbon (its 4 AOs: an
@@ -3095,6 +3116,8 @@ def _cc_diamond_222(torch):
         f"{sum(per) / len(per):.3f} s/cycle past the first; {s:.2f}s in "
         f"all, peak {p:.2f} GB")
     ok &= bool(info["converged"] and d <= 1e-10 and e_cc < 0 and e_t < 0)
+    ctx["diamond222"] = dict(mask=df.mask, m0=df.m0, e_cc=e_cc,
+                             niter=info["niter"])     # phase 14d's record
     _cycle_parts(torch, cc, info, "[11b]", t3=True)
     (r, s, p) = _timed_peak(torch, lambda: cc.eomee_davidson(df, mf,
                                                              nroots=4))
@@ -3205,7 +3228,7 @@ DIAMOND_OPT_CM1 = 1332.0          # experiment, for the record only
 
 def phase12_derivatives(torch, ctx):
     _deriv_fixtures(torch)
-    _deriv_nio(torch)
+    _deriv_nio(torch, ctx)
     _deriv_diamond_stress(torch)
     _deriv_diamond_sweeps(torch)
 
@@ -3473,7 +3496,7 @@ def _qha_h2_chain(refs):
         raise RuntimeError("eos.qha_kernel misses the JAX record")
 
 
-def _deriv_nio(torch):
+def _deriv_nio(torch, ctx):
     """(b) the Pulay-complete ISDF force at full width: NiO AFM gth-szv ke
     100 4x4x4, c0 40, m0 15^3, the first O displaced along x, KUHF and
     KUKS-PBE+U, against central differences of re-converged energies."""
@@ -3522,12 +3545,21 @@ def _deriv_nio(torch):
         log(f"[12b] {tag}: smeared then unsmeared from its density, "
             f"{mf.cycles} cycles, e_tot {mf.e_tot:.10f} "
             f"({time.perf_counter() - t0:.2f}s)")
+        gc.collect()             # the previous sweep's closures, if cyclic
         torch.cuda.empty_cache()
         budget = 0.75 * free_memory_bytes(df.device) / 1e9
         (g, val), secs, peak = _timed_peak(torch, lambda: grad.kernel(
             mf, two_electron="isdf", df=df, max_memory_gb=budget))
         if tag == "KUHF":
             _force_parts(torch, cell, kpts, df, mf, budget, secs)
+            # phase 14c holds the sharded force to this one (host arrays:
+            # the Lagrangian's inputs, as make_grad_fn forms them)
+            wdm, w_trace = grad.energy_weighted_dm(mf)
+            ctx["nio_force"] = dict(cell=cell, kpts=kpts, mask=df.mask,
+                                    m0=df.m0, solver=df.solver,
+                                    rcond=df.rcond, dm=np.asarray(mf.dm),
+                                    wdm=wdm, w_trace=w_trace, g=g,
+                                    budget=budget, secs=secs)
         es = {}
         for s in (+1, -1):
             m = cls(dfs[s].cell, kpts, dfs[s], **kw, **extra)
@@ -3743,20 +3775,16 @@ NI_EXPONENTS = [9.6538632696, 3.9744501290, 1.6213478542, 0.6447664764,
 NI_SHELLS = [(0, 2), (1, 2), (2, 2)]  # the DZVP-MOLOPT-SR shell structure
 NI_SPIN = 2                           # 3d8 4s2: S = 1 (Hund)
 NI_BOX, NI_KE = 12.0, 240.0           # the example's cube edge and --ke
+NI_HOLE = 0                           # the spin-down d hole starts in d_xy
+NI_KUHF = dict(verbose=0, conv_tol=1e-7, max_cycle=120, smearing=2e-3)
 STAGE_SUM_TOL = 0.05                  # stages against metric_s at production
 TRACE_CYCLES = 3
 
 
 def phase13_tools(torch, ctx):
-    from concurrent.futures import ThreadPoolExecutor
-
     _stage_attribution(torch)
     _trace(torch)
-    # the radial route runs on the host (LAPACK releases the GIL) beside the
-    # card's Ni KUHFs; beside (a) or (b) it would take the host threads
-    # that feed the card and distort their timings
-    with ThreadPoolExecutor(1) as pool:
-        _ni_basis(torch, pool.submit(_ni_radial))
+    _ni_basis(torch, ctx)
     _cubes(torch, ctx)
     _tools_card_cpu(torch)
 
@@ -3935,37 +3963,160 @@ def _radial_naturals(mo_coeff, mo_occ, mo_energy, sel, nexp, nm, nvirt=3,
     return vv[:, np.argsort(ww)[::-1]]
 
 
-def _ni_basis(torch, radial):
+def _ni_start(mf, hole, shift=1e-6):
+    """A start for the Ni pseudo-atom's KUHF that does not depend on the
+    last bits of the core Hamiltonian: the KUHF's own Aufbau start
+    (``get_init_guess``) with the five d components (the real harmonics'
+    order xy, yz, z^2, xz, x^2-y^2) raised by 0, 1, ... 4 ``shift`` S on
+    their AOs, the component ``hole`` highest and the others in their
+    order.  The cubic box leaves the d levels degenerate in pairs and
+    triples, so the plain start occupies an arbitrary rotation within a
+    partly filled degenerate level, which the last bits of h1e choose;
+    the ladder (far above that noise, far below any real splitting)
+    chooses it instead: a level with one hole leaves ``hole`` empty."""
+    import numpy as np
+
+    order = [m for m in range(5) if m != hole] + [hole]
+    h1e = mf.h1e
+    bias, off = np.zeros_like(h1e), 0
+    for _, _, _, sh in mf.cell.shells():
+        if sh.l == 2:            # m-major, contracted-radial-minor
+            for m in range(5):
+                ix = off + m * sh.nctr + np.arange(sh.nctr)
+                bias[:, ix[:, None], ix[None, :]] += (
+                    shift * order.index(m) * mf.s1e[:, ix[:, None],
+                                                    ix[None, :]])
+        off += sh.nfunc
+    try:
+        mf.h1e = h1e + bias
+        return mf.get_init_guess()
+    finally:
+        mf.h1e = h1e
+
+
+def _ni_cell():
+    """The uncontracted Ni pseudo-atom of (c): one primitive a shell, s, p
+    and d on every exponent, in a cube of NI_BOX bohr at NI_KE Ha."""
+    import numpy as np
+    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
+
+    lmax = max(l for l, _ in NI_SHELLS)
+    shells = [Shell(l=l, exps=np.array([e]), coeffs=np.array([[1.0]]))
+              for l in range(lmax + 1) for e in NI_EXPONENTS]
+    return Cell(a=np.diag([NI_BOX] * 3), atom=[("Ni", (NI_BOX / 2,) * 3)],
+                basis={"Ni": shells}, pseudo="gth-pade", ke_cutoff=NI_KE,
+                spin=NI_SPIN, unit="bohr").build()
+
+
+def _d_populations(mf):
+    """Mulliken populations of the five d components (summed over the
+    radial functions and k), per spin: (2, 5)."""
+    import numpy as np
+
+    ps = np.einsum("skmn,knm->skm", np.asarray(mf.dm), mf.s1e).real.sum(1)
+    out, off = np.zeros((2, 5)), 0
+    for _, _, _, sh in mf.cell.shells():
+        if sh.l == 2:
+            out += ps[:, off:off + sh.nfunc].reshape(2, 5, sh.nctr).sum(-1)
+        off += sh.nfunc
+    return out / len(mf.kpts)
+
+
+def _start_ni_radial():
+    """Start phase 13c's --radial route (host only, independent of the
+    card) in a spawned daemon process of its own with 2 BLAS threads, so
+    that it runs beside phase 12: (process, the end of a pipe that
+    brings back ("ok", _ni_radial()) or ("error", traceback))."""
+    import multiprocessing as mp
+
+    keys = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    mpc = mp.get_context("spawn")
+    recv_end, send_end = mpc.Pipe(duplex=False)
+    proc = mpc.Process(target=_ni_radial_child, args=(send_end,),
+                       daemon=True)
+    os.environ.update({k: "2" for k in keys})
+    try:
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    send_end.close()                 # EOF here if the process dies
+    return proc, recv_end
+
+
+def _ni_radial_child(conn):
+    try:
+        conn.send(("ok", _ni_radial()))
+    except BaseException:
+        import traceback
+
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def _ni_radial_result(ctx):
+    """The radial route's result: from the process that
+    :func:`_start_ni_radial` started, or computed here."""
+    job = ctx.pop("ni_radial", None)
+    if job is None:
+        return _ni_radial(), "on the host"
+    proc, conn = job
+    try:
+        status, value = conn.recv()
+    except EOFError:
+        raise RuntimeError("the radial route's process died without a "
+                           "result") from None
+    finally:
+        conn.close()
+        proc.join(timeout=30)
+    if status != "ok":
+        raise RuntimeError(f"the radial route failed:\n{value}")
+    return value, "in its own host process, beside phase 12"
+
+
+def _ni_basis(torch, ctx):
     """(c) examples/derive_atomic_basis.py --elem Ni --ke 240 --check with
     the port's modules: the uncontracted pseudo-atom KUHF in a 12-bohr box
     on the card (float64), the radial naturals registered under
     gth-dzvp-molopt-sr, the contracted KUHF and its variational gap; then
-    the --radial route's columns (computed on the host meanwhile)."""
+    the --radial route's columns, computed on the host in a process of
+    their own since phase 12 began.  Both KUHFs start from
+    :func:`_ni_start` with the spin-down hole in d_xy: the core
+    Hamiltonian's spin-down t2g level is threefold degenerate and holds
+    one hole, so the plain start leaves the hole's orientation to the last
+    bits of h1e, and the KUHF lands in one of several states up to
+    0.76 mHa apart (tools/ni_kuhf_starts.py; ROADMAP section 3)."""
     import numpy as np
     from fftisdf_tpu_torch.basis import data as bdata
-    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
     from fftisdf_tpu_torch.scf import KUHF
 
     exps = np.asarray(NI_EXPONENTS)
     lmax = max(l for l, _ in NI_SHELLS)
-    shells = [Shell(l=l, exps=np.array([e]), coeffs=np.array([[1.0]]))
-              for l in range(lmax + 1) for e in exps]
-    cell = Cell(a=np.diag([NI_BOX] * 3), atom=[("Ni", (NI_BOX / 2,) * 3)],
-                basis={"Ni": shells}, pseudo="gth-pade", ke_cutoff=NI_KE,
-                spin=NI_SPIN, unit="bohr").build()
+    cell = _ni_cell()
     kpts = cell.get_kpts([1, 1, 1])
-    kw = dict(verbose=0, conv_tol=1e-7, max_cycle=120, smearing=2e-3)
+    kw = NI_KUHF
     log(f"[13c] Ni pseudo-atom: nao {cell.nao_nr()} (uncontracted), mesh "
         f"{[int(m) for m in cell.mesh]}, nelec {cell.nelectron}, 2S "
         f"{NI_SPIN}")
     t0 = time.perf_counter()
     mf = KUHF(cell, kpts, **kw)
-    e_unc = mf.kernel()
+    e_unc = mf.kernel(dm0=_ni_start(mf, NI_HOLE))
     t_unc = time.perf_counter() - t0
+    pop = _d_populations(mf)[1]
     log(f"[13c] uncontracted KUHF (exact J/K) E {e_unc:.8f} Ha, conv "
-        f"{mf.converged} in {mf.cycles} cycles, {t_unc:.1f}s")
+        f"{mf.converged} in {mf.cycles} cycles, {t_unc:.1f}s; spin-down d "
+        "populations (xy yz z2 xz x2-y2) "
+        + " ".join(f"{v:.4f}" for v in pop))
     if not mf.converged or cell.nao_nr() != 54:
         raise RuntimeError("the uncontracted Ni KUHF did not converge")
+    if pop[NI_HOLE] > 1e-2:
+        raise RuntimeError("the uncontracted Ni KUHF left the d hole it "
+                           "started from")
     ao_l = np.repeat([l for l in range(lmax + 1) for _ in exps],
                      [2 * l + 1 for l in range(lmax + 1) for _ in exps])
     mo_c = np.asarray(mf.mo_coeff)[:, 0]
@@ -3989,7 +4140,7 @@ def _ni_basis(torch, radial):
         bdata._BASIS["gth-dzvp-molopt-sr"]["Ni"] = saved
     t0 = time.perf_counter()
     mf2 = KUHF(cell2, kpts, **kw)
-    e_con = mf2.kernel()
+    e_con = mf2.kernel(dm0=_ni_start(mf2, NI_HOLE))
     gap = e_con - e_unc
     log(f"[13c] contracted ({cell2.nao_nr()} AOs) KUHF E {e_con:.8f} Ha, "
         f"conv {mf2.converged} in {mf2.cycles} cycles, "
@@ -3998,9 +4149,9 @@ def _ni_basis(torch, radial):
         + ", ".join(f"l={l} {tables[l].shape}" for l, _ in NI_SHELLS))
     if not (mf2.converged and gap >= -1e-6):
         raise RuntimeError("the contracted Ni basis is not variational")
-    secs, conv, e_rad, rtab, resid = radial.result()
-    log(f"[13c] --radial route on the host ({secs:.1f}s, beside the card's "
-        f"work): radial pseudo-atom conv {conv}, E {e_rad:.6f} Ha; columns "
+    (secs, conv, e_rad, rtab, resid), where = _ni_radial_result(ctx)
+    log(f"[13c] --radial route {where} ({secs:.1f}s): "
+        f"radial pseudo-atom conv {conv}, E {e_rad:.6f} Ha; columns "
         + ", ".join(f"l={l} {rtab[l].shape} residuals "
                     + "/".join(f"{r:.1e}" for r in resid[l])
                     for l, _ in NI_SHELLS))
@@ -4106,6 +4257,254 @@ def _tools_card_cpu(torch):
 
 
 
+# ----------------------------------------------------------------- phase 14
+MESH_RANKS = 2          # gloo ranks on the one card (NCCL refuses two)
+MESH_RANK_GB = 14.0     # per-rank budget of 14b's slice build: >= 2 chunks
+MESH_FORCE_REL = 1e-8   # 14c: sharded against unsharded NiO force
+MESH_CC = 1e-10         # 14d: sharded kccsd against phase 11's
+
+
+def _jk_gate(vj, vk, ref):
+    """(max|dJ|, max|dK|, gate): the dry run's form, 1e-6 max(max|vk|, 1)
+    (__graft_entry__.py)."""
+    import numpy as np
+
+    gate = 1e-6 * max(float(np.abs(ref["vk"]).max()), 1.0)
+    return (float(np.abs(vj - ref["vj"]).max()),
+            float(np.abs(vk - ref["vk"]).max()), gate)
+
+
+def phase14_mesh(torch, ctx):
+    """The mesh layer (fftisdf_tpu_torch.parallel): (a) world size 1 over
+    NCCL at full width, (b) 2 gloo ranks on the card, (c) the sharded force
+    state, (d) kccsd(dev_mesh=).  Returns K1's launches in (a)."""
+    import torch.distributed as dist
+    from fftisdf_tpu_torch.parallel.dryrun import free_port
+    from fftisdf_tpu_torch.parallel.mesh import make_device_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(backend="nccl")
+        launches = _mesh_slice(torch, ctx, mesh)
+        _mesh_production(torch, ctx, mesh)
+        _mesh_force(torch, ctx, mesh)
+    finally:
+        dist.destroy_process_group()
+    _mesh_ranks(torch, ctx)
+    return launches
+
+
+def _mesh_slice(torch, ctx, mesh):
+    """(a) the slice: build_sharded + get_jk_sharded on one NCCL rank
+    against phase 4's build, and KUHF.kernel on the sharded state from
+    phase 4's converged density."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+    from fftisdf_tpu_torch.parallel import build_sharded, get_jk_sharded
+    from fftisdf_tpu_torch.scf import KUHF
+
+    ref = ctx["slice_ref"]
+    cell, kpts = _nio(100.0, [4, 4, 4])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pair_gram_sq.launches = 0
+    df = build_sharded(FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15),
+                               verbose=0), mesh)
+    launches = pair_gram_sq.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dm = _bench_density(cell, kpts)
+    get_jk_sharded(df, dm, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vj, vk = get_jk_sharded(df, dm, mesh)
+    torch.cuda.synchronize()
+    jk_s = time.perf_counter() - t0
+    dj, dk, gate = _jk_gate(vj.cpu().numpy(), vk.cpu().numpy(), ref)
+    ctx["mesh_slice_jk"] = dict(vj=vj.cpu().numpy(), vk=vk.cpu().numpy())
+    build_s = df.timings["build_s"]
+    log(f"[14a] slice, world size 1 over NCCL: build_sharded {build_s:.2f}s"
+        f" (phase 4: {ref['build_s']:.2f}s), nip {df.nip}, "
+        f"{df.nchunks} chunk(s), plan {df.plan['qchunk']} sectors a chunk, "
+        f"{df.plan['planes_per_device_gb']:.2f} GB of planes; K1 launches "
+        f"{launches}; peak {peak:.2f} GB (phase 4: {ref['peak_gb']:.2f} GB); "
+        f"warm get_jk_sharded {jk_s * 1e3:.2f} ms (phase 4's get_jk "
+        f"{ref['jk_s'] * 1e3:.2f} ms); max|dJ| {dj:.1e}, max|dK| {dk:.1e} "
+        f"against phase 4 (gate {gate:.1e})")
+    if launches < 1 or df.nip != SLICE_NIP or max(dj, dk) >= gate:
+        raise RuntimeError("the sharded slice build misses phase 4's")
+    t0 = time.perf_counter()
+    mf = KUHF(cell, kpts, df, verbose=0, **SCF_KW)
+    e = mf.kernel(dm0=ref["dm"])
+    log(f"[14a] KUHF.kernel on the sharded state from phase 4's density: "
+        f"e_tot {e:.10f} conv {mf.converged} in {mf.cycles} cycles "
+        f"({time.perf_counter() - t0:.2f}s); e_tot - recorded "
+        f"{e - SLICE_E_TOT:+.2e} Ha (gate 1e-6)")
+    if not (mf.converged and abs(e - SLICE_E_TOT) <= 1e-6):
+        raise RuntimeError("KUHF on the sharded slice missed the recorded "
+                           "energy")
+    del df, mf
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_production(torch, ctx, mesh):
+    """(a) the production configuration: build_sharded on one NCCL rank
+    against phase 6b's build."""
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.parallel import build_sharded
+
+    ref = ctx["production_ref"]
+    cell, kpts = _production_cell()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    df = build_sharded(FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15),
+                               verbose=0), mesh)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _bench_jk(torch, df)
+    dj, dk, gate = _jk_gate(got["vj"], got["vk"], ref)
+    log(f"[14a] production, world size 1 over NCCL: build_sharded "
+        f"{df.timings['build_s']:.2f}s (phase 6b: {ref['build_s']:.2f}s), "
+        f"nip {df.nip}, {df.nchunks} chunk(s) of {df.plan['qchunk']} "
+        f"sectors; peak {peak:.2f} GB (phase 6b: {ref['peak_gb']:.2f} GB); "
+        f"warm get_jk {got['jk_s'] * 1e3:.2f} ms (phase 6b: "
+        f"{ref['jk_s'] * 1e3:.2f} ms); max|dJ| {dj:.1e}, max|dK| {dk:.1e} "
+        f"(gate {gate:.1e})")
+    if df.nip != PROD_NIP or max(dj, dk) >= gate:
+        raise RuntimeError("the sharded production build misses phase 6b's")
+    del df
+    torch.cuda.empty_cache()
+
+
+def _mesh_force(torch, ctx, mesh):
+    """(c) phase 12b's NiO slice force (KUHF, the first O displaced): the
+    same Lagrangian at the same converged density, the ISDF state on the
+    mesh (world size 1 over NCCL)."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import grad
+
+    f = ctx.pop("nio_force")
+    dev = mesh.device
+    e_fn = grad.make_energy_fn(f["cell"], f["kpts"], two_electron="isdf",
+                               mask=f["mask"], m0=f["m0"],
+                               solver=f["solver"], rcond=f["rcond"],
+                               max_memory_gb=f["budget"], dev_mesh=mesh,
+                               device=dev)
+    dm, wdm = (torch.as_tensor(a, dtype=torch.complex128, device=dev)
+               for a in (f["dm"], f["wdm"]))
+    pos = torch.as_tensor(f["cell"].atom_coords(), dtype=torch.float64,
+                          device=dev).requires_grad_(True)
+    torch.cuda.empty_cache()
+
+    def sweep():
+        with torch.enable_grad():
+            return torch.autograd.grad(e_fn(pos, dm, wdm, f["w_trace"]),
+                                       pos)[0]
+
+    g, secs, peak = _timed_peak(torch, sweep)
+    g = g.cpu().numpy()
+    rel = float(np.abs(g - f["g"]).max() / np.abs(f["g"]).max())
+    log(f"[14c] NiO slice force, the ISDF state on one NCCL rank: "
+        f"{secs:.2f}s (phase 12b: {f['secs']:.2f}s), peak {peak:.2f} GB; "
+        f"max|dF| / max|F| {rel:.1e} against phase 12b (gate "
+        f"{MESH_FORCE_REL:g})")
+    if not rel <= MESH_FORCE_REL:
+        raise RuntimeError("the sharded force state misses phase 12b's")
+    del e_fn, dm, wdm, pos
+    torch.cuda.empty_cache()
+
+
+def _mesh_rank(mesh, diamond):
+    """One of phase 14's gloo ranks on the card: (b) the slice under a
+    per-rank budget, (c) the He2 force state, (d) kccsd on diamond szv
+    2x2x2 (phase 11's points)."""
+    import torch
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.lattice import structure
+    from fftisdf_tpu_torch.parallel import build_sharded
+    from fftisdf_tpu_torch.scf import KRHF
+    from fftisdf_tpu_torch.scf.cc import kccsd
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_parallel_cases as cases
+
+    out = {}
+    cell, kpts = _nio(100.0, [4, 4, 4])
+    torch.cuda.reset_peak_memory_stats()
+    df = build_sharded(FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15),
+                               verbose=0, max_memory_gb=MESH_RANK_GB), mesh)
+    vj, vk = df.get_jk(_bench_density(cell, kpts))
+    out["slice"] = dict(vj=vj.cpu().numpy(), vk=vk.cpu().numpy(),
+                        plan=df.plan, nchunks=df.nchunks,
+                        timings=dict(df.timings),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del df, vj, vk
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["force"] = cases.force_case(mesh, device=mesh.device)
+    out["force"]["s"] = time.perf_counter() - t0
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([2, 2, 2])
+    df = FFTISDF(cell, kpts, c0=40.0, m0=diamond["m0"],
+                 verbose=0).build(mask=diamond["mask"])
+    mf = KRHF(cell, kpts, df, verbose=0)
+    mf.kernel()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e, info = kccsd(df, mf, dev_mesh=mesh)
+    out["kccsd"] = dict(e=e, converged=bool(mf.converged
+                                            and info["converged"]),
+                        niter=info["niter"], s=time.perf_counter() - t0,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def _mesh_ranks(torch, ctx):
+    """(b)-(d): MESH_RANKS gloo ranks spawned on the one card."""
+    import numpy as np
+    from fftisdf_tpu_torch.parallel.dryrun import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(_mesh_rank, MESH_RANKS, backend="gloo", device="cuda:0",
+                args=(ctx["diamond222"],), timeout_s=900)
+    log(f"[14] {MESH_RANKS} gloo ranks on the card (spawned, one process "
+        f"group for b-d): {time.perf_counter() - t0:.1f}s; on one card "
+        "these measure the mechanism, not NVLink")
+    ok = True
+    ref = ctx["mesh_slice_jk"]
+    for r, out in enumerate(res):
+        sl = out["slice"]
+        dj, dk, gate = _jk_gate(sl["vj"], sl["vk"], ref)
+        t, plan = sl["timings"], sl["plan"]
+        log(f"[14b] rank {r}: slice build_sharded {t['build_s']:.2f}s, "
+            f"{sl['nchunks']} chunks of {plan['qchunk']} sectors, "
+            f"{plan['planes_per_device_gb']:.2f} GB of planes per device per "
+            f"chunk (budget {plan['budget_gb']:.1f} GB), peak "
+            f"{sl['peak_gb']:.2f} GB; all-to-all {t['a2a_bytes'] / 1e9:.3f} "
+            f"GB sent in {t['a2a_s']:.2f}s; max|dJ| {dj:.1e}, max|dK| {dk:.1e} "
+            f"against 14a (gate {gate:.1e})")
+        ok &= sl["nchunks"] >= 2 and max(dj, dk) < gate
+        f = out["force"]
+        gate_g = 2e-5 * max(1.0, float(np.abs(f["g1"]).max()))
+        dg = float(np.abs(f["g2"] - f["g1"]).max())
+        log(f"[14c] rank {r}: He2 force state over 2 ranks: |dvalue| "
+            f"{abs(f['v2'] - f['v1']):.1e} (gate 1e-10), max|dgrad| {dg:.1e}"
+            f" (gate {gate_g:.1e}), {f['s']:.2f}s")
+        ok &= abs(f["v2"] - f["v1"]) < 1e-10 and dg < gate_g
+        c = out["kccsd"]
+        de = abs(c["e"] - ctx["diamond222"]["e_cc"])
+        log(f"[14d] rank {r}: kccsd(dev_mesh=) diamond szv 2x2x2: e "
+            f"{c['e']:.12f}, {c['niter']} cycles (phase 11: "
+            f"{ctx['diamond222']['niter']}), {c['s']:.2f}s, peak "
+            f"{c['peak_gb']:.2f} GB; |e - phase 11's| {de:.1e} (gate "
+            f"{MESH_CC:g})")
+        ok &= c["converged"] and de <= MESH_CC
+    if not ok:
+        raise RuntimeError("a gate of the gloo ranks on the card failed")
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
@@ -4114,6 +4513,8 @@ def main():
         only = {int(p) for p in sys.argv[1].split(",")}
         if only & {8, 9, 10, 13}:   # phases 8-10 and 13 read phases 4/6's
             only |= {4, 6}
+        if 14 in only:              # phase 14 holds itself to 4, 6, 11, 12
+            only |= {4, 6, 11, 12}
     run = lambda p: only is None or p in only
     t_all = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4161,6 +4562,8 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[11] K1 launches in phase 11's builds: {cc_launches}")
         if cc_launches < 1:
             raise RuntimeError("phase 11's builds did not launch K1")
+    if run(13):
+        ctx["ni_radial"] = _start_ni_radial()
     pair_gram_sq.launches = 0
     timed(12, phase12_derivatives, ctx)
     deriv_launches = pair_gram_sq.launches
@@ -4175,6 +4578,10 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[13] K1 launches in phase 13's builds: {tool_launches}")
         if tool_launches < 1:
             raise RuntimeError("phase 13's builds did not launch K1")
+    mesh_launches = timed(14, phase14_mesh, ctx) or 0
+    if run(14):
+        log(f"[14] K1 launches in phase 14's sharded builds (14a, NCCL "
+            f"rank 0): {mesh_launches}")
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -4188,6 +4595,7 @@ def _run(torch, run, only, t_all, ctx):
          "phase8_launches": rest_launches, "ks_launches": prod_launches,
          "corr_launches": corr_launches, "cc_launches": cc_launches,
          "deriv_launches": deriv_launches, "tool_launches": tool_launches,
+         "mesh_launches": mesh_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

@@ -46,6 +46,8 @@ from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
 from fftisdf_tpu_torch.linalg.coulomb import get_coulG
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
 from fftisdf_tpu_torch.linalg.solvers import solve_fitting
+from fftisdf_tpu_torch.parallel.mesh import (check_mesh, enter, gather_rows,
+                                             grid_to_sector, split)
 from fftisdf_tpu_torch.utils.device import real_complex, resolve_device
 
 # the factorisations of the fitting solve: saved, not recomputed, under
@@ -85,6 +87,43 @@ def _remat(fn, *args, nbytes, policy=False):
     if torch.is_grad_enabled() and nbytes >= REMAT_MIN_BYTES:
         return _ckpt(fn, *args, policy=policy)
     return fn(*args)
+
+
+class _Recompute(torch.autograd.Function):
+    """``fn(*args)`` run without a graph, and again, with one, in its own
+    backward pass: a checkpoint whose recomputation happens when its node
+    runs, on every rank alike.  A collective inside ``fn`` (the chunk's
+    exchange of a sharded state) then meets the other ranks' in the same
+    order, where the lazy recomputation of ``torch.utils.checkpoint``
+    (triggered by the first saved tensor that the backward pass reads)
+    would run it at different points on ranks whose graphs differ."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        ctx.fn = fn
+        ctx.tensor_at = [i for i, a in enumerate(args)
+                         if isinstance(a, torch.Tensor)]
+        ctx.args = [None if i in ctx.tensor_at else a
+                    for i, a in enumerate(args)]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = list(ctx.args)
+        leaves = []
+        for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+            args[i] = t.detach().requires_grad_(t.requires_grad)
+            if t.requires_grad:
+                leaves.append(i)
+        with torch.enable_grad():
+            out = ctx.fn(*args)
+        grads = torch.autograd.grad(out, [args[i] for i in leaves], g,
+                                    allow_unused=True)
+        full = [None] * len(args)
+        for i, gi in zip(leaves, grads):
+            full[i] = gi
+        return (None, *full)
 
 
 def _group_chi_diff(coords, specs, exps, centers):
@@ -263,12 +302,20 @@ def isdf_state_fn(cell, kpts, mask, m0=None, solver="ridge", rcond=1e-10,
     then (1 + len(omegas), nk, nip, nip) with kernel 0 the bare one; every
     kernel reuses the sector's fit and forward FFT.
 
-    ``dev_mesh`` (the JAX package's GSPMD sharding) raises
-    ``NotImplementedError``."""
-    if dev_mesh is not None:
-        raise NotImplementedError(
-            "isdf_state_fn(dev_mesh=): multi-device sharding is not ported")
+    ``dev_mesh`` (``parallel.mesh.make_device_mesh``; ``device`` must be
+    its rank's): the build's layout.  Each rank sweeps its share of the
+    grid for every sector (of a chunk), one exchange hands each rank whole
+    planes of its share of the sectors, which it solves, and the sectors
+    are gathered, so every rank returns the whole state and runs the same
+    loss; the backward pass runs the same layout in reverse (the exchange
+    backwards, and the gradients of the ranks' shares summed where the
+    replicated positions and x_k entered them, ``parallel.mesh.enter``).
+    Every rank must call the state alike.  The remat policy is the same
+    on every rank."""
     device = resolve_device(device)
+    if check_mesh(dev_mesh) is not None and dev_mesh.device != device:
+        raise ValueError(f"device {device} is not the mesh rank's "
+                         f"{dev_mesh.device}")
     rdt, cdt = real_complex(dtype)
     if remat is None:
         remat = rdt != torch.float64
@@ -318,6 +365,29 @@ def isdf_state_fn(cell, kpts, mask, m0=None, solver="ridge", rcond=1e-10,
                                    device=device)
     qs_full = np.arange(nk) if qsel is None else qsel
 
+    # the rank's grid points and its sectors of a range of canonical
+    # sectors (the whole grid and every sector without a mesh)
+    size = 1 if dev_mesh is None else dev_mesh.size
+    rank = 0 if dev_mesh is None else dev_mesh.rank
+    goff = split(ngrid, size)
+    coords_loc = coords_t[int(goff[rank]):int(goff[rank + 1])]
+
+    def local(y, x4_c, pos, sector_fn):
+        """The rank's sectors of the canonical sectors ``pos`` from the
+        grid-split RHS y (len(pos), ngrid_loc, nip) and their normal
+        matrices x4_c: the exchange, then ``sector_fn(x4_q, y_q, q)`` per
+        own sector, stacked.  A rank with no sector of the range keeps y
+        and x4_c in its graph, so that its backward pass meets the others
+        in the same collectives."""
+        qoff = split(len(pos), size)
+        y = grid_to_sector(y, dev_mesh, qoff, goff)
+        own = range(qoff[rank], qoff[rank + 1])
+        if len(own):
+            return torch.stack([sector_fn(x4_c[j], y[i], pos[j])
+                                for i, j in enumerate(own)]), qoff
+        return (y.new_zeros((0, len(kernels), nip, nip))
+                + 0.0 * (y.sum() + x4_c.sum())), qoff
+
     def wq_of_solve(z_q, cg, ph):
         """Sector metrics (nker, nip, nip) from the fitted z_q (nip, ng):
         one forward FFT shared by every kernel."""
@@ -353,15 +423,17 @@ def isdf_state_fn(cell, kpts, mask, m0=None, solver="ridge", rcond=1e-10,
     if budget is None:
         def state(positions):
             positions, x_k, x4_k = prologue(positions)
-            f_k = fn(coords_t, positions)
+            pos_r, x_r, x4_r = (enter(t, dev_mesh)
+                                for t in (positions, x_k, x4_k))
+            f_k = fn(coords_loc, pos_r)
             qs = torch.as_tensor(qs_full, device=device)
-            y = _remat(_rhs_full, f_k, x_k, phase, phase[:, qs],
-                       nbytes=nk * ngrid * nip * cdt.itemsize)
+            y = _remat(_rhs_full, f_k, x_r, phase, phase[:, qs],
+                       nbytes=nk * len(coords_loc) * nip * cdt.itemsize)
             del f_k
-            wq_sel = torch.stack([
-                sector(x4_k[q], y[i], coulG[q], eiqr[q], remat)
-                for i, q in enumerate(qs_full)])
-            return x_k, finish(wq_sel)
+            wq_loc, qoff = local(y, x4_r[qs], qs_full, lambda x4_q, y_q, q:
+                                 sector(x4_q, y_q, coulG[q], eiqr[q], remat))
+            del y
+            return x_k, finish(gather_rows(wq_loc, dev_mesh, np.diff(qoff)))
 
         return state
 
@@ -381,28 +453,51 @@ def isdf_state_fn(cell, kpts, mask, m0=None, solver="ridge", rcond=1e-10,
         return _rhs_full(fn(c, positions, checkpoint=False), x_k, phase,
                          pcols)
 
-    def chunk_wq(positions, x_k, x4_c, cg_c, eiqr_c, qs):
-        pcols = phase[:, qs]
+    def chunk_wq(positions, x_k, x4_c, q0, q1):
+        """The rank's sectors of the canonical positions q0:q1, x4_c their
+        normal matrices (the chunk's exchange runs inside its checkpoint,
+        on every rank alike)."""
+        qs_np = qs_full[q0:q1]
+        pcols = phase[:, torch.as_tensor(qs_np, device=device)]
         parts = []
-        for g0 in range(0, ngrid, blk):
-            c = coords_t[g0:g0 + blk]
+        for g0 in range(0, len(coords_loc), blk):
+            c = coords_loc[g0:g0 + blk]
             parts.append(_ckpt(block_rhs, c, positions, x_k, pcols)
                          if torch.is_grad_enabled()
                          else block_rhs(c, positions, x_k, pcols))
         y_c = torch.cat(parts, dim=1)                  # (nq_c, ng, nip)
         del parts
-        return torch.stack([sector(x4_c[i], y_c[i], cg_c[i], eiqr_c[i], True)
-                            for i in range(len(qs))])
+        return local(y_c, x4_c, qs_np, lambda x4_q, y_q, q: sector(
+            x4_q, y_q, coulG[q], eiqr[q], True))[0]
 
     def state_chunked(positions):
         positions, x_k, x4_k = prologue(positions)
-        parts = []
+        pos_r, x_r, x4_r = (enter(t, dev_mesh)
+                            for t in (positions, x_k, x4_k))
+        parts, order = [], []
         for q0 in range(0, nq_all, qchunk):
-            qs = torch.as_tensor(qs_full[q0:q0 + qchunk], device=device)
-            args = (positions, x_k, x4_k[qs], coulG[qs], eiqr[qs], qs)
-            parts.append(_ckpt(chunk_wq, *args) if torch.is_grad_enabled()
-                         else chunk_wq(*args))
-        return x_k, finish(torch.cat(parts, dim=0))
+            q1 = min(q0 + qchunk, nq_all)
+            # the chunk's x4 rows are taken outside its checkpoint: their
+            # gradient is then (nq_c, nip, nip), not nk x nip^2 a sector
+            qs = torch.as_tensor(qs_full[q0:q1], device=device)
+            args = (pos_r, x_r, x4_r[qs], q0, q1)
+            if not torch.is_grad_enabled():
+                parts.append(chunk_wq(*args))
+            elif size == 1:
+                parts.append(_ckpt(chunk_wq, *args))
+            else:
+                parts.append(_Recompute.apply(chunk_wq, *args))
+            order.append(q0 + split(q1 - q0, size))
+        # the ranks' sectors, rank-major, back into canonical order
+        counts = [sum(int(o[r + 1] - o[r]) for o in order)
+                  for r in range(size)]
+        rank_major = np.concatenate([np.arange(o[r], o[r + 1])
+                                     for r in range(size) for o in order])
+        wq_sel = gather_rows(torch.cat(parts, dim=0), dev_mesh, counts)
+        if size > 1:
+            wq_sel = wq_sel[torch.as_tensor(np.argsort(rank_major),
+                                            device=device)]
+        return x_k, finish(wq_sel)
 
     state_chunked.nsectors = nq_all
     state_chunked.qchunk = qchunk

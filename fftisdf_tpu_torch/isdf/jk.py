@@ -81,24 +81,34 @@ def wq_to_ws(wq, kmesh):
     return out.real * nk
 
 
-def get_k_kpts_img(x_k, ws, dms, kmesh, phase_cs=None):
+def get_k_kpts_img(x_k, ws, dms, kmesh, phase_cs=None, mesh=None):
     """vk from the precomputed image-space metric (:func:`wq_to_ws`); the
     algebra of :func:`get_k_kpts` with the two per-density phase
     contractions as real cos/sin matmuls:
 
         rhos = C Re(rhok) - S Im(rhok),   vk_q = (C + iS) vs.
 
-    ``phase_cs``: (C, S) from :func:`_phase_cs`, made here when None."""
+    ``phase_cs``: (C, S) from :func:`_phase_cs`, made here when None.
+    ``mesh``: a mesh of ranks (``parallel.mesh.DeviceMesh``) that splits
+    the image axis: ``ws`` holds this rank's images ``mesh.owned(nk)``,
+    the sum runs over those rows of C and S (both symmetric, so
+    ``C.T vs`` is the transform back), and the ranks' partial vk are
+    all-reduced."""
     nk, nip, _ = x_k.shape
     c, s = (_phase_cs(kmesh, ws.dtype, ws.device) if phase_cs is None
             else phase_cs)
-    ws_f = ws.reshape(nk, -1)
+    if mesh is not None:
+        i0, i1 = mesh.owned(nk)
+        c, s = c[i0:i1], s[i0:i1]
+    nimg = ws.shape[0]
+    ws_f = ws.reshape(nimg, -1)
     out = []
     for dm in dms:
         rhok = _rho_k(x_k, dm).reshape(nk, -1)
         rhos = c @ rhok.real - s @ rhok.imag
-        vs = (ws_f * rhos.reshape(nk, nip, nip).transpose(1, 2)
-              .reshape(nk, -1))
-        vk_q = torch.complex(c @ vs, s @ vs).reshape(nk, nip, nip)
+        vs = (ws_f * rhos.reshape(nimg, nip, nip).transpose(1, 2)
+              .reshape(nimg, -1))
+        vk_q = torch.complex(c.T @ vs, s.T @ vs).reshape(nk, nip, nip)
         out.append(x_k.mH @ vk_q @ x_k)
-    return torch.stack(out)
+    vk = torch.stack(out)
+    return vk if mesh is None else mesh.all_reduce(vk)

@@ -17,7 +17,10 @@ Coulomb metrics, which determine J and K.
   and every sector then gets :func:`_sector_wq`: the split fitting operator
   (ridge, or the eigh family), the FFT of ``g e^{-iqr}``, the split of the
   Coulomb kernel (bare, range-separated or truncated) and the gram
-  ``h h^H``.  Non-canonical sectors are conjugate mirrors.
+  ``h h^H``.  Non-canonical sectors are conjugate mirrors.  A state built
+  over a mesh of ranks (``parallel.build``) runs the same pieces
+  (:meth:`FFTISDF._pass_inputs`, ``_sweep_rows``, ``_solve_sector``,
+  ``_memory_plan``) on its share, and serves through the mesh.
 - Serve: J/K with ``exxdiv=None`` or ``'ewald'`` (the Madelung probe-charge
   correction, of the truncated kernel when there is one), with ``omega``
   from a screened metric over the same interpolation basis, at band
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -559,6 +563,7 @@ class FFTISDF:
         self.x_k = None
         self.wq = None
         self.mask = None
+        self.dev_mesh = None
         self._ws = None
         self._wq_omega = {}
         self._madelung = None
@@ -623,17 +628,8 @@ class FFTISDF:
         the two packages past selection needs the same mask."""
         dev = self.device
         t_all = time.perf_counter()
-        if mask is None:
-            self.x_k, self.mask, _, self.m0 = select_interpolation_points(
-                self.cell, self.kpts, self.m0, self.c0, dtype=self.rdtype,
-                select_tol=self.select_tol, log=self._log,
-                host_f64=self.select_host_f64, auto_densify=self._m0_auto,
-                use_trs=self.use_trs, keep_tol=self.select_keep, device=dev)
-        else:
-            self.mask = np.asarray(mask, dtype=np.int64)
-            coords0 = self.cell.gen_uniform_grids(self.m0)[self.mask]
-            self.x_k = make_evaluator(self.cell, kpts=self.kpts,
-                                      device=dev)(coords0).to(self.cdtype)
+        self.dev_mesh = None
+        self.x_k, self.mask, self.m0 = self._select(mask)
         _sync(dev)
         t_sel = self._t_select = time.perf_counter() - t_all
         if self.validate:
@@ -648,6 +644,23 @@ class FFTISDF:
                             build_s=total)
         self._log.info("build: total %.2fs", total)
         return self
+
+    def _select(self, mask=None):
+        """(x_k, mask, m0): selection, or x_k evaluated at a given mask (in
+        float64, then cast to the build dtype)."""
+        if mask is None:
+            x_k, mask, _, m0 = select_interpolation_points(
+                self.cell, self.kpts, self.m0, self.c0, dtype=self.rdtype,
+                select_tol=self.select_tol, log=self._log,
+                host_f64=self.select_host_f64, auto_densify=self._m0_auto,
+                use_trs=self.use_trs, keep_tol=self.select_keep,
+                device=self.device)
+            return x_k, mask, m0
+        mask = np.asarray(mask, dtype=np.int64)
+        coords0 = self.cell.gen_uniform_grids(self.m0)[mask]
+        x_k = make_evaluator(self.cell, kpts=self.kpts,
+                             device=self.device)(coords0).to(self.cdtype)
+        return x_k, mask, self.m0
 
     def _validate_stripe(self):
         """The image-space pair products of x_k must be real (they are on a
@@ -664,8 +677,10 @@ class FFTISDF:
                 "inconsistent with lattice?)")
         self._log.debug("validate: x2 stripe imag max %.2e", imag_max)
 
-    def _memory_plan(self, nsec, nk_sw, nip, nao, ngrid):
-        """(qchunk, blk, budget bytes) of one metric pass.
+    def _memory_plan(self, nsec, nk_sw, nip, nao, ngrid, ndev=1):
+        """(qchunk, blk, budget bytes) of one metric pass, per rank of a
+        mesh of ``ndev`` ranks (``parallel.build``; 1: the single-device
+        pass).
 
         The model, in bytes, with r and c = 2 r the sizes of a real and a
         complex number of the build dtype:
@@ -690,7 +705,15 @@ class FFTISDF:
         outside it, and the float64 factor of a selection inside a float32
         build is released before.  Sweep temporaries get at most a quarter
         of it and 4 GB, the grid block at most ``blksize`` points; the
-        sector chunk takes what is left."""
+        sector chunk takes what is left.
+
+        On ``ndev`` > 1 ranks the persistent metrics are x4_k and the
+        rank's share of the sectors with their mirrors; a rank sweeps 1/ndev
+        of the grid for every
+        sector of the chunk and receives its 1/ndev of the chunk's sectors
+        over the whole grid: both buffers live through the exchange, so a
+        chunk sector costs 2 plane / ndev, and the chunk is a multiple of
+        ``ndev`` sectors (at least ``ndev``) where there are that many."""
         nk = self.nkpt
         r = self.rdtype.itemsize
         c = 2 * r
@@ -699,7 +722,9 @@ class FFTISDF:
         else:
             budget = 0.9 * free_memory_bytes(self.device)
         plane = ngrid * nip * c
-        persist = ((3 * nk + nsec + 4) * nip * nip * c + nk * nip * nao * c
+        # a rank of a mesh keeps x4_k, its sectors and their mirrors
+        nw = 3 * nk + nsec if ndev == 1 else nk + 2 * -(-nsec // ndev)
+        persist = ((nw + 4) * nip * nip * c + nk * nip * nao * c
                    + nsec * ngrid * (c + r) + 3 * ngrid * r)
         solve = plane + 3 * 128 * ngrid * c + 6 * nip * nip * c
 
@@ -708,67 +733,107 @@ class FFTISDF:
                           + c * nk_sw * nao)
 
         sweep_cap = min(4e9, 0.25 * budget)
-        blk = int(max(64, min(ngrid, self.blksize,
+        ng_loc = -(-ngrid // ndev)
+        blk = int(max(64, min(ng_loc, self.blksize,
                               sweep_cap // max(sweep_bytes(nsec, 1), 1))))
         room = budget - persist - max(sweep_bytes(nsec, blk), solve)
-        qchunk = int(max(1, min(nsec, room // plane)))
-        return qchunk, blk, budget
+        if ndev == 1:
+            return int(max(1, min(nsec, room // plane))), blk, budget
+        qchunk = int(room // (2 * plane / ndev)) // ndev * ndev
+        return int(max(1, min(nsec, max(ndev, qchunk)))), blk, budget
+
+    def _pass_inputs(self, omega):
+        """What one metric pass reads besides the RHS planes, for the kernel
+        that ``omega`` and ``self.trunc`` select: the time-reversal
+        canonical sectors ``qsel`` (w_{-q} = conj(w_q) for real AOs, so
+        only they are solved) with their ``mirror``s, the sweep's evaluator
+        ``fn`` and projection ``x_sw``/``phase_sw`` on the canonical half
+        of the k axis (conjugate pairs weighted 2 in the stripe phase, see
+        _rhs_block), the canonical sectors' kernels ``coulG``, their
+        ``neg_cols`` and e^{iqr} phases ``ph``, and the grid.  The single
+        pass (:meth:`_metric_pass`) and the sharded one
+        (``parallel.build``) both start here."""
+        cell, kpts, dev = self.cell, self.kpts, self.device
+        rdt, cdt = self.rdtype, self.cdtype
+        p = SimpleNamespace()
+        coords = cell.gen_uniform_grids()
+        p.ngrid = coords.shape[0]
+        p.mesh = tuple(int(m) for m in cell.mesh)
+        p.vol = float(cell.vol)
+        p.phase = torch.as_tensor(self.phase, dtype=cdt, device=dev)
+        p.mirror, p.qsel = _trs_sectors(cell, kpts, self.use_trs)
+        ksel = p.qsel
+        kw = np.where(p.mirror[ksel] == ksel, 1.0, 2.0)
+        ksel_t = torch.as_tensor(ksel, device=dev)
+        p.x_sw = self.x_k[ksel_t]
+        p.phase_sw = p.phase[:, ksel_t] * torch.as_tensor(kw, dtype=rdt,
+                                                          device=dev)
+        p.nk_sw = len(ksel)
+        p.fn = make_evaluator(cell, kpts=kpts[ksel], dtype=rdt, device=dev)
+        p.qsel_t = torch.as_tensor(p.qsel, device=dev)
+        kq = torch.as_tensor(kpts[p.qsel], dtype=rdt, device=dev)
+        p.coulG = get_coulG_batched(
+            cell, kq, torch.as_tensor(cell.get_Gv(p.mesh), dtype=rdt,
+                                      device=dev),
+            omega=omega, trunc=self.trunc)
+        # a truncated 2D kernel carries a finite negative q+G = 0 sample,
+        # whose sign the |coulG| split strips (see _sector_wq)
+        p.neg_cols = [None] * len(p.qsel)
+        if self.trunc is not None:
+            for i in torch.nonzero((p.coulG < 0).any(dim=1))[:, 0].tolist():
+                p.neg_cols[i] = torch.nonzero(p.coulG[i] < 0)[:, 0]
+        p.coords_t = torch.as_tensor(coords, dtype=rdt, device=dev)
+        p.ph = eiqr(p.coords_t, kq)
+        return p
+
+    def _sweep_rows(self, p, q0, q1, g0, g1, blk, out):
+        """RHS rows [g0, g1) of the canonical sectors q0:q1 (positions in
+        ``p.qsel``), swept in grid blocks of ``blk``, into ``out[i]`` (rows
+        from 0) for each sector i of the range."""
+        phase_cols = p.phase[:, p.qsel_t[q0:q1]]
+        for b0 in range(g0, g1, blk):
+            b1 = min(b0 + blk, g1)
+            y = _rhs_block(p.fn(p.coords_t[b0:b1]), p.x_sw, p.phase_sw,
+                           phase_cols)
+            for i, y_q in enumerate(out):
+                y_q[b0 - g0:b1 - g0] = y[i]
+            del y
+
+    def _solve_sector(self, p, x4_k, iq, y_q, tick=None):
+        """w_q of canonical sector ``iq`` (a position in ``p.qsel``) from its
+        RHS plane ``y_q`` (ngrid, nip), which it overwrites."""
+        return _sector_wq(x4_k[p.qsel[iq]], y_q, p.coulG[iq], p.ph[iq],
+                          p.mesh, p.vol, solver=self.solver,
+                          rcond=self.rcond, refine=self.refine,
+                          neg_cols=p.neg_cols[iq], tick=tick)
 
     def _metric_pass(self, omega=0.0):
         """RHS grid sweep + per-sector solve / FFT kernel / gram, chunked
         over canonical momentum sectors, for the Coulomb kernel that
         ``omega`` and ``self.trunc`` select (0: the full kernel).  Returns
-        w_q (nk, nip, nip).
+        w_q (nk, nip, nip), or on a mesh-sharded object (``dev_mesh``,
+        ``parallel.build``) this rank's sectors.
 
         :meth:`build` runs it with the full kernel; :meth:`get_wq_omega`
         runs it again with a screened kernel over the same interpolation
         vectors (w_q is linear in the kernel: only the spectral scale
         differs)."""
-        cell, kpts, dev, log = self.cell, self.kpts, self.device, self._log
-        rdt, cdt = self.rdtype, self.cdtype
-        x_k = self.x_k
-        nk, nip, nao = x_k.shape
-        coords = cell.gen_uniform_grids()
-        ngrid = coords.shape[0]
-        mesh = tuple(int(m) for m in cell.mesh)
-        vol = float(cell.vol)
-        phase = torch.as_tensor(self.phase, dtype=cdt, device=dev)
+        if self.dev_mesh is not None:
+            from fftisdf_tpu_torch.parallel.build import build_wq_sharded
 
-        # w_{-q} = conj(w_q) for real AOs: only canonical sectors are
-        # solved.  The sweep's AO evaluation and projection run on the
-        # canonical half of the k axis too, conjugate pairs weighted 2 in
-        # the stripe phase (see _rhs_block).
-        mirror, qsel = _trs_sectors(cell, kpts, self.use_trs)
+            return build_wq_sharded(self, self.dev_mesh, omega=omega)
+        dev, log = self.device, self._log
+        cdt = self.cdtype
+        nk, nip, nao = self.x_k.shape
+        p = self._pass_inputs(omega)
+        ngrid, qsel = p.ngrid, p.qsel
         nsec = len(qsel)
-        ksel = qsel
-        kw = np.where(mirror[ksel] == ksel, 1.0, 2.0)
-        ksel_t = torch.as_tensor(ksel, device=dev)
-        x_sw = x_k[ksel_t]
-        phase_sw = phase[:, ksel_t] * torch.as_tensor(kw, dtype=rdt,
-                                                      device=dev)
-        fn = make_evaluator(cell, kpts=kpts[ksel], dtype=rdt, device=dev)
-
-        qchunk, blk, budget = self._memory_plan(nsec, len(ksel), nip, nao,
+        qchunk, blk, budget = self._memory_plan(nsec, p.nk_sw, nip, nao,
                                                 ngrid)
         log.info("build: nk=%d nip=%d nao=%d ngrid=%d sectors=%d %s omega=%g"
                  " (qchunk=%d blk=%d, plane %.2f GB, budget %.1f GB)", nk,
                  nip, nao, ngrid, nsec, cdt, omega, qchunk, blk,
                  ngrid * nip * cdt.itemsize / 1e9, budget / 1e9)
-
-        qsel_t = torch.as_tensor(qsel, device=dev)
-        kq = torch.as_tensor(kpts[qsel], dtype=rdt, device=dev)
-        coulG = get_coulG_batched(
-            cell, kq, torch.as_tensor(cell.get_Gv(mesh), dtype=rdt,
-                                      device=dev),
-            omega=omega, trunc=self.trunc)
-        # a truncated 2D kernel carries a finite negative q+G = 0 sample,
-        # whose sign the |coulG| split strips (see _sector_wq)
-        neg_cols = [None] * nsec
-        if self.trunc is not None:
-            for i in torch.nonzero((coulG < 0).any(dim=1))[:, 0].tolist():
-                neg_cols[i] = torch.nonzero(coulG[i] < 0)[:, 0]
-        coords_t = torch.as_tensor(coords, dtype=rdt, device=dev)
-        ph = eiqr(coords_t, kq)
         wq_sel = torch.empty((nsec, nip, nip), dtype=cdt, device=dev)
 
         # chunk times: one device sync after each chunk's sweep and solves;
@@ -786,7 +851,7 @@ class FFTISDF:
             t_mark = t
 
         t0 = t_mark
-        x4_k = _stripe_quartic(x_k, phase)
+        x4_k = _stripe_quartic(self.x_k, p.phase)
         tick("factors")
         stage = {"sweep_s": 0.0, "solve_s": 0.0}
         nchunks = 0
@@ -794,28 +859,18 @@ class FFTISDF:
             q1 = min(q0 + qchunk, nsec)
             nchunks += 1
             t_c = time.perf_counter()
-            phase_cols = phase[:, qsel_t[q0:q1]]
             ys = [torch.empty((ngrid, nip), dtype=cdt, device=dev)
                   for _ in range(q1 - q0)]
-            for g0 in range(0, ngrid, blk):
-                g1 = min(g0 + blk, ngrid)
-                y = _rhs_block(fn(coords_t[g0:g1]), x_sw, phase_sw,
-                               phase_cols)
-                for i, y_q in enumerate(ys):
-                    y_q[g0:g1] = y[i]
-                del y
+            self._sweep_rows(p, q0, q1, 0, ngrid, blk, ys)
             _sync(dev)
             tick("sweep")
             stage["sweep_s"] += time.perf_counter() - t_c
             t_c = time.perf_counter()
             for i in range(q1 - q0):
-                iq = q0 + i
                 y_q = ys[i]
                 ys[i] = None      # the solve overwrites and releases it
-                wq_sel[iq] = _sector_wq(
-                    x4_k[qsel[iq]], y_q, coulG[iq], ph[iq], mesh, vol,
-                    solver=self.solver, rcond=self.rcond,
-                    refine=self.refine, neg_cols=neg_cols[iq], tick=tick)
+                wq_sel[q0 + i] = self._solve_sector(p, x4_k, q0 + i, y_q,
+                                                    tick)
                 del y_q
             _sync(dev)
             stage["solve_s"] += time.perf_counter() - t_c
@@ -830,17 +885,25 @@ class FFTISDF:
         # scatter canonical sectors and their conjugate mirrors.  w_q is
         # not symmetrised: on even FFT meshes the discrete Coulomb operator
         # carries a small skew part that the exact oracle shares.
-        wq = _trs_scatter(wq_sel, qsel, mirror, dev) if nsec < nk else wq_sel
+        wq = (_trs_scatter(wq_sel, qsel, p.mirror, dev) if nsec < nk
+              else wq_sel)
         log.info("build: %d/%d sectors solved in %d chunk(s) (%.2fs)", nsec,
                  nk, nchunks, time.perf_counter() - t0)
         return wq
 
     # ------------------------------------------------------------------
+    def _to_ws(self, wq):
+        """Image-space form of the metric ``wq``: on a mesh-sharded object
+        this rank's block of the image axis (``parallel.build``)."""
+        if self.dev_mesh is not None:
+            return wq.image_block(self.kmesh)
+        return jk_mod.wq_to_ws(wq, self.kmesh)
+
     def get_ws(self):
         """Image-space Coulomb metric ws = Re(phase @ wq) sqrt(nk), cached:
         the density-independent state of the K serve."""
         if self._ws is None:
-            self._ws = jk_mod.wq_to_ws(self.wq, self.kmesh)
+            self._ws = self._to_ws(self.wq)
         return self._ws
 
     def get_wq_omega(self, omega):
@@ -862,7 +925,7 @@ class FFTISDF:
         wq_o = self.get_wq_omega(omega)
         entry = self._wq_omega[float(omega)]
         if entry["ws"] is None:
-            entry["ws"] = jk_mod.wq_to_ws(wq_o, self.kmesh)
+            entry["ws"] = self._to_ws(wq_o)
         return entry["ws"]
 
     def get_jk(self, dm_kpts, with_j=True, with_k=True, exxdiv=None,
@@ -920,7 +983,8 @@ class FFTISDF:
         if single:
             dm = dm[None]
         vj = jk_mod.get_j_kpts(self.x_k, wq[0], dm) if with_j else None
-        vk = (jk_mod.get_k_kpts_img(self.x_k, ws, dm, self.kmesh)
+        vk = (jk_mod.get_k_kpts_img(self.x_k, ws, dm, self.kmesh,
+                                    mesh=self.dev_mesh)
               if with_k else None)
         if single:
             vj = None if vj is None else vj[0]

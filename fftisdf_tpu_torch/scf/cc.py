@@ -49,8 +49,9 @@ straight from the ISDF state (x_k, w_q).
 Normalisation: the assembled ERIs are cell-normalised; supercell spin
 orbitals are Bloch/sqrt(nk), so the supercell integrals are U/nk and the
 correlation energy is divided by nk once more to be per cell.
-``dev_mesh``/``mesh`` (the JAX package's GSPMD sharding) raise
-``NotImplementedError``: the port runs on one device.
+``dev_mesh``/``mesh``: the packed tensors of nk^3 blocks (U, the W
+intermediates, the T2 residual) split over a mesh of ranks by their
+leading k index (:func:`_equations_packed` with ``mesh``).
 """
 from __future__ import annotations
 
@@ -60,13 +61,10 @@ import numpy as np
 import torch
 
 from fftisdf_tpu_torch.isdf.eri import pair_vectors
+from fftisdf_tpu_torch.parallel.mesh import check_mesh, split
 from fftisdf_tpu_torch.scf.core import diis_coefficients
 from fftisdf_tpu_torch.utils.device import (as_tensor, memory_blocks,
                                             resolve_device, to_numpy)
-
-_NO_MESH = ("device meshes are not ported: the PyTorch port runs on one "
-            "device")
-
 
 # ----------------------------------------------------------------------
 # spin-orbital setup
@@ -114,8 +112,9 @@ def _spinorb_mo(mf):
             noccs[0] + noccs[1])
 
 
-def make_eris_dev(df, mf):
-    """Antisymmetrised spin-orbital integral blocks on the device of ``df``.
+def make_eris_dev(df, mf, rows=None):
+    """Antisymmetrised spin-orbital integral blocks on the device of ``df``
+    (``rows``: only k1 in [rows[0], rows[1]), a rank's block).
 
     Returns (U, eo, ev, nocc) with U[k1,k2,k3][p,q,r,s] =
     <p k1, q k2 || r k3, s k4>, k4 = k1 + k2 - k3 (physicists' notation,
@@ -133,8 +132,9 @@ def make_eris_dev(df, mf):
     xm = x @ as_tensor(cs.astype(np.complex128), dev, cdt)   # (nk, nip, nso)
     sp = torch.as_tensor(spins, device=dev)
     k3s = torch.arange(nk, device=dev)
-    U = torch.empty((nk, nk, nk) + (nso,) * 4, dtype=cdt, device=dev)
-    for k1 in range(nk):
+    r0, r1 = (0, nk) if rows is None else (int(rows[0]), int(rows[1]))
+    U = torch.empty((r1 - r0, nk, nk) + (nso,) * 4, dtype=cdt, device=dev)
+    for k1 in range(r0, r1):
         for k2 in range(nk):
             k4s = torch.as_tensor(k3c[k1, :, k2], device=dev)
             wq = df.wq[torch.as_tensor(k2c[k1], device=dev)]  # q(k1, k3)
@@ -150,7 +150,7 @@ def make_eris_dev(df, mf):
                    == sp[k4s][:, None, None, None, :])
                   & (sp[k2][None, None, :, None, None]
                      == sp[k3s][:, None, None, :, None]))
-            U[k1, k2] = d * md - d[k4s].transpose(-1, -2) * mx
+            U[k1 - r0, k2] = d * md - d[k4s].transpose(-1, -2) * mx
     return U, es[:, :nocc], es[:, nocc:], nocc
 
 
@@ -397,61 +397,186 @@ def _by_slabs(fn, n, per_item, dev):
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def _sgather(t_loc, idx_fn, mesh, ranges, off):
+    """``T[A, B, C, ...]`` on this rank's grid, T a packed tensor whose
+    leading k axis is split over the ranks (rank j holds rows [off[j],
+    off[j + 1]) as ``t_loc``), with one exchange; on one device (``mesh``
+    None) the plain gather.
+
+    ``idx_fn(lo, hi)`` gives the integer index arrays (global k labels)
+    that broadcast to the grid of output rows [lo, hi); ``ranges[j]`` is
+    rank j's (lo, hi) in this call, so each rank computes what every other
+    asks of it."""
+    dev = t_loc.device
+    if mesh is None:
+        return t_loc[tuple(torch.as_tensor(np.asarray(a), device=dev)
+                           for a in idx_fn(*ranges[0]))]
+    size, r = mesh.size, mesh.rank
+    m = None
+    pieces, recv_shapes, places = [], [], []
+    for j in range(size):
+        idx = [a.reshape(-1)
+               for a in np.broadcast_arrays(*idx_fn(*ranges[j]))]
+        m = len(idx)
+        sel = (idx[0] >= off[r]) & (idx[0] < off[r + 1])
+        key = (torch.as_tensor(idx[0][sel] - off[r], device=dev),
+               *(torch.as_tensor(a[sel], device=dev) for a in idx[1:]))
+        pieces.append(t_loc[key])
+    tail = tuple(t_loc.shape[m:])
+    mine = np.broadcast_arrays(*idx_fn(*ranges[r]))
+    grid, lead = mine[0].shape, mine[0].reshape(-1)
+    for j in range(size):
+        pos = np.flatnonzero((lead >= off[j]) & (lead < off[j + 1]))
+        places.append(torch.as_tensor(pos, device=dev))
+        recv_shapes.append((len(pos),) + tail)
+    recv = mesh.exchange(pieces, recv_shapes)
+    out = t_loc.new_empty((lead.size,) + tail)
+    for pos, got in zip(places, recv):
+        out[pos] = got
+    return out.reshape(grid + tail)
+
+
+def _by_slabs_mesh(fn, mesh, off, per_item, dev):
+    """``fn(sl, ranges)`` over slabs of this rank's rows, the same number
+    of slabs on every rank (the most any rank's memory needs), so that the
+    exchanges inside ``fn`` meet: ``sl`` is the slab's local rows and
+    ``ranges[j]`` rank j's global rows of the same slab (on one device,
+    ``mesh`` None, the slab's rows themselves)."""
+    if mesh is None:
+        return _by_slabs(lambda sl: fn(sl, [(sl.start, sl.stop)]),
+                         int(off[1]), per_item, dev)
+    size, r = mesh.size, mesh.rank
+    nl = int(off[r + 1] - off[r])
+    mine = torch.as_tensor([len(memory_blocks(max(nl, 1), per_item, dev))],
+                           device=dev)
+    n_s = int(mesh.all_gather(mine, [1] * size).max())
+    cuts = [off[j] + split(int(off[j + 1] - off[j]), n_s)
+            for j in range(size)]
+    outs = []
+    for s in range(n_s):
+        ranges = [(int(c[s]), int(c[s + 1])) for c in cuts]
+        lo, hi = ranges[r]
+        outs.append(fn(slice(lo - off[r], hi - off[r]), ranges))
+    return outs[0] if n_s == 1 else torch.cat(outs)
+
+
 def _equations_packed(nk, nocc, nvir, kp3, mesh=None,
                       include_drive=True):
     """Batched-gather formulation of ``_equations``: identical math, one
-    einsum over packed (nk, nk, nk, ...) tensors per term.  Aligned blocks
-    contract directly; blocks whose k-labels are derived (via kp3) are
-    gathered through index tensors.  Four contractions gather an
-    (nk^4, o^2 v^2)-sized operand (34.8 GB complex128 at nk 27, 16 spin
-    orbitals): they run over memory blocks of the leading k axis
+    einsum over packed (nk, nk, nk, ...) tensors per term,
+    ``resid(t1, t2, f, U) -> (r1, r2, e)``.  Aligned blocks contract
+    directly; blocks whose k-labels are derived (via kp3) are gathered
+    through index arrays.  Four contractions gather an (nk^4, o^2
+    v^2)-sized operand (34.8 GB complex128 at nk 27, 16 spin orbitals):
+    they run over memory blocks of the leading k axis
     (``utils.device.memory_blocks``), as do the two nk^4-gathered T2
     updates.
 
     ``include_drive=False`` drops the T2 driving term conj(<ij||ab>), the
     ONE conj(U) in the residual, so the returned function is holomorphic
     in U; ``lambda_rdm2`` adds the driving's density contribution
-    analytically.  ``mesh`` (GSPMD sharding in the JAX package) raises.
+    analytically.
+
+    ``mesh`` (``parallel.mesh.make_device_mesh``): the same function over
+    a mesh of ranks.  Rank r owns rows [off[r], off[r + 1])
+    (``mesh.owned(nk)``) of the leading k index of every packed tensor of
+    nk^3 blocks: it is given those rows of U, and computes those rows of
+    the W intermediates and of the T2 residual (``r2`` is the rank's
+    rows).  t1, t2 (and tau) and the one-body blocks are whole on every
+    rank.  A term whose integral or intermediate is read at a leading
+    index other than the output row (a kconserv gather with a permuted
+    leading label) fetches exactly those blocks with one exchange
+    (:func:`_sgather`); the k-diagonal F intermediates, the T1 residual
+    and the energy sum the ranks' partial sums (all-reduces).  U and the
+    W intermediates take 1/ndev of the single-device memory on each rank,
+    beside the exchanged blocks of one term at a time.  On one device
+    (``mesh`` None) the rank owns every row, a gather is plain indexing
+    and a sum over the ranks is the identity.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    mesh = check_mesh(mesh)
     o, v = slice(0, nocc), slice(nocc, nocc + nvir)
     KP = np.asarray(kp3)
-    cache = {}
+    size, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if nk < size:
+        raise ValueError(f"{size} ranks for {nk} k-points: a rank would own "
+                         "no rows")
+    off = split(nk, size)
+    x0, x1 = int(off[r]), int(off[r + 1])
+    nl = x1 - x0
+    ar = np.arange(nk)
+    whole = [(int(off[j]), int(off[j + 1])) for j in range(size)]
+    reduce = (lambda t: t) if mesh is None else mesh.all_reduce
 
-    def indices(dev):
-        if dev not in cache:
-            ar = torch.arange(nk, device=dev)
-            kpt = torch.as_tensor(KP, dtype=torch.int64, device=dev)
-            X2, Y2 = ar[:, None], ar[None, :]
-            X3, Y3, Z3 = ar[:, None, None], ar[None, :, None], ar[None, None, :]
-            X4 = ar[:, None, None, None]
-            Y4 = ar[None, :, None, None]
-            Z4 = ar[None, None, :, None]
-            W4 = ar[None, None, None, :]
-            kpxyz = kpt[X3, Y3, Z3]               # kp(axis0, axis1, axis2)
-            cache[dev] = dict(
-                X2=X2, Y2=Y2, X3=X3, Y3=Y3, Z3=Z3, Z4=Z4, W4=W4,
-                KPxyz=kpxyz, KPxyw4=kpt[X4, Y4, W4],   # kp(x, y, w)
-                KPxwz4=kpt[X4, W4, Z4],                # kp(x, w, z)
-                kj4=kpxyz[:, :, :, None],
-                kf_g=kpt[kpxyz[:, :, :, None], W4, Y4])
-        return cache[dev]
+    def g3(lo, hi):
+        return np.arange(lo, hi)[:, None, None], ar[None, :, None], \
+            ar[None, None, :]
+
+    def g4(lo, hi):
+        return (np.arange(lo, hi)[:, None, None, None],
+                ar[None, :, None, None], ar[None, None, :, None],
+                ar[None, None, None, :])
+
+    def swap01(lo, hi):                       # T[y, x, z]
+        X, Y, Z = g3(lo, hi)
+        return Y, X, Z
+
+    def zkx(lo, hi):                          # T[z, kp(x, y, z), x]
+        X, Y, Z = g3(lo, hi)
+        return Z, KP[X, Y, Z], X
+
+    def yx_kp(lo, hi):                        # T[y, x, kp(y, x, z)]
+        X, Y, Z = g3(lo, hi)
+        return Y, X, KP[Y, X, Z]
+
+    def w_kpxyw_z(lo, hi):                    # T[w, kp(x, y, w), z]
+        X, Y, Z, W = g4(lo, hi)
+        return W, KP[X, Y, W], Z
+
+    def w_kpxyz_kpxwz(lo, hi):            # T[w, kp(x, y, z), kp(x, w, z)]
+        X, Y, Z, W = g4(lo, hi)
+        return W, KP[X, Y, Z], KP[X, W, Z]
+
+    def z_kpxyz_w(lo, hi):                    # T[z, kp(x, y, z), w]
+        X, Y, Z, W = g4(lo, hi)
+        return Z, KP[X, Y, Z], W
+
+    def sg(t_loc, idx_fn, ranges=whole):
+        return _sgather(t_loc, idx_fn, mesh, ranges, off)
+
+    def swap(t_loc):
+        """T[y, x, ...] on this rank's rows (a view on one device)."""
+        return t_loc.transpose(0, 1) if mesh is None else sg(t_loc, swap01)
+
+    def rows_of_whole(t_loc):
+        """This rank's rows of a k-diagonal (nk, ...) tensor, zero
+        elsewhere: its share of a sum over the ranks."""
+        if mesh is None:
+            return t_loc
+        z = t_loc.new_zeros
+        return torch.cat([z((x0,) + t_loc.shape[1:]), t_loc,
+                          z((nk - x1,) + t_loc.shape[1:])])
 
     def resid(t1, t2, f, U):
         foo, fov, fvo, fvv = _blocks(f)
         T2 = t2
         dev = U.device
-        ix = indices(dev)
-        X2, Y2, X3, Y3, Z3 = (ix[k] for k in ("X2", "Y2", "X3", "Y3", "Z3"))
-        Z4, W4, KPxyz = ix["Z4"], ix["W4"], ix["KPxyz"]
-        KPxyw4, KPxwz4, kj4, kf_g = (ix[k] for k in ("KPxyw4", "KPxwz4",
-                                                     "kj4", "kf_g"))
+        ti = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                       device=dev)
         ein = torch.einsum
         item = U.element_size()
         # bytes of one leading-axis slab of an (nk^4, o^2 v^2 or v^4)
         # gathered operand, with room for einsum's permuted copies
         slab = 4 * nk ** 3 * max(nocc, nvir) ** 2 * nvir ** 2 * item
+        L = slice(x0, x1)
+        X2, Y2 = ti(ar[:, None]), ti(ar[None, :])
+        X2l, X2g = ti(np.arange(nl)[:, None]), ti(np.arange(x0, x1)[:, None])
+        X3l = ti(np.arange(nl)[:, None, None])
+        Y3, Z3 = ti(ar[None, :, None]), ti(ar[None, None, :])
+        Y4 = ti(ar[None, :, None, None])
+        Z4, W4 = ti(ar[None, None, :, None]), ti(ar[None, None, None, :])
+        KPt = ti(KP)
+        KPl = KPt[x0:x1]                          # kp(x, y, z), local x
+        kj4 = KPl[:, :, :, None]
 
         # integral slabs: views of U
         Uoooo = U[..., o, o, o, o]
@@ -466,7 +591,8 @@ def _equations_packed(nk, nocc, nvir, kp3, mesh=None,
         Uvvvo = U[..., v, v, v, o]
         Uvvvv = U[..., v, v, v, v]
 
-        # ---- tau (t1 parts are momentum-diagonal: scatter-add) ----
+        # ---- tau (t1 parts are momentum-diagonal: scatter-add; whole on
+        # every rank) ----
         t1t1 = ein("kia,ljb->klijab", t1, t1)
         t1t1x = ein("kib,lja->klijab", t1, t1)
         tadd = torch.zeros_like(T2).index_put((X2, Y2, X2), t1t1,
@@ -478,92 +604,108 @@ def _equations_packed(nk, nocc, nvir, kp3, mesh=None,
                                     # as they are spent: nk 27 runs near
                                     # the device's capacity)
 
-        # ---- F intermediates (k-diagonal, shape (nk, ...)) ----
-        f_ae = (fvv - 0.5 * ein("kma,kme->kae", t1, fov)
-                + ein("xmf,xkmafe->kae", t1, Uovvv[X2, Y2, X2])
-                - 0.5 * ein("xykmnaf,xykmnef->kae", tau_t, Uoovv))
-        f_mi = (foo + 0.5 * ein("kie,kme->kmi", t1, fov)
-                + ein("yne,kymnie->kmi", t1, Uooov[X2, Y2, X2])
-                + 0.5 * ein("kxyinef,kxymnef->kmi", tau_t, Uoovv))
-        f_me = fov + ein("ynf,kymnef->kme", t1, Uoovv[X2, Y2, X2])
+        # ---- F intermediates (k-diagonal, shape (nk, ...)): the ranks'
+        # partial sums, reduced ----
+        fae = (ein("xmf,xkmafe->kae", t1[L], Uovvv[X2l, Y2, X2g])
+               - 0.5 * ein("xykmnaf,xykmnef->kae", tau_t[L], Uoovv))
+        fmi = rows_of_whole(
+            ein("yne,kymnie->kmi", t1, Uooov[X2l, Y2, X2g])
+            + 0.5 * ein("kxyinef,kxymnef->kmi", tau_t[L], Uoovv))
+        fme = rows_of_whole(ein("ynf,kymnef->kme", t1, Uoovv[X2l, Y2, X2g]))
         del tau_t
+        n_ae, n_mi = fae.numel(), fmi.numel()
+        red = reduce(torch.cat([fae.reshape(-1), fmi.reshape(-1),
+                                fme.reshape(-1)]))
+        f_ae = fvv - 0.5 * ein("kma,kme->kae", t1, fov) \
+            + red[:n_ae].reshape(fae.shape)
+        f_mi = foo + 0.5 * ein("kie,kme->kmi", t1, fov) \
+            + red[n_ae:n_ae + n_mi].reshape(fmi.shape)
+        f_me = fov + red[n_ae + n_mi:].reshape(fme.shape)
 
-        # ---- T1 residual ----
+        # ---- T1 residual and the energy: whole parts + partial sums ----
+        r1_p = (-ein("ynf,yknaif->kia", t1[L], Uovov[X2l, Y2, Y2])
+                - 0.5 * ein("kxyimef,kxymaef->kia", T2[:, L],
+                            Uovvv.transpose(0, 1))
+                - 0.5 * ein("xykmnae,xyknmei->kia", T2[:, L],
+                            Uoovo[ti(np.arange(nl)[None, :, None]),
+                                  ti(ar[:, None, None]),
+                                  KPt[ti(ar[:, None, None]),
+                                      ti(np.arange(x0, x1)[None, :, None]),
+                                      Z3]]))
+        e_p = (0.5 * ein("xyijab,xia,yjb->", Uoovv[X2l, Y2, X2g], t1[L], t1)
+               + 0.25 * ein("xyzijab,xyzijab->", Uoovv, T2[L]))
+        red = reduce(torch.cat([r1_p.reshape(-1), e_p.reshape(1)]))
         r1 = (fvo.transpose(1, 2)
               + ein("kie,kae->kia", t1, f_ae)
               - ein("kma,kmi->kia", t1, f_mi)
               + ein("kximae,xme->kia", T2[X2, Y2, X2], f_me)
-              - ein("ynf,yknaif->kia", t1, Uovov[X2, Y2, Y2])
-              - 0.5 * ein("kxyimef,kxymaef->kia", T2, Uovvv[Y3, X3, Z3])
-              - 0.5 * ein("xykmnae,xyknmei->kia", T2,
-                          Uoovo[Y3, X3, KPxyz]))
+              + red[:-1].reshape(r1_p.shape))
+        e = ein("kia,kia->", fov, t1) + red[-1]
 
-        # ---- W_mnij, blocks [x=km, y=kn, z=ki] (kj = kp(x,y,z)) ----
-        t1_g = t1[KPxyz]
+        # ---- W_mnij, rows x = km, blocks [x, y=kn, z=ki]
+        # (kj = kp(x, y, z)) ----
+        t1_g = t1[KPl]
         raw_o = ein("xyzje,xyzmnie->xyzmnij", t1_g, Uooov)
         w_oooo = (Uoooo + raw_o
-                  - raw_o[X3, Y3, KPxyz].transpose(-1, -2)
+                  - raw_o[X3l, Y3, KPl].transpose(-1, -2)
                   + _by_slabs(lambda sl: 0.25 * ein(
                       "xyzwijef,xywmnef->xyzmnij",
-                      tau[Z4, kj4[sl], W4], Uoovv[sl]), nk, slab, dev))
+                      tau[Z4, kj4[sl], W4], Uoovv[sl]), nl, slab, dev))
         del raw_o
 
-        # ---- W_abef, blocks [x=ka, y=kb, z=ke] ----
+        # ---- W_abef, rows x = ka, blocks [x, y=kb, z=ke] ----
         raw_v = ein("ymb,xyzamef->xyzabef", t1, Uvovv)
-        w_vvvv = (Uvvvv - raw_v
-                  + raw_v.transpose(0, 1).transpose(3, 4)
-                  + _by_slabs(lambda sl: 0.25 * ein(
+        w_vvvv = (Uvvvv - raw_v + swap(raw_v).transpose(3, 4)
+                  + _by_slabs_mesh(lambda sl, rg: 0.25 * ein(
                       "xywmnab,xyzwmnef->xyzabef",
-                      tau[Z3, KPxyz[sl], X3[sl]],
-                      Uoovv[W4, KPxyw4[sl], Z4]), nk, slab, dev))
+                      tau[Z3, KPl[sl], X2g[sl][:, :, None]],
+                      sg(Uoovv, w_kpxyw_z, rg)), mesh, off, slab, dev))
         del raw_v
 
-        # ---- W_mbej, blocks [x=km, y=kb, z=ke] (kj = kp(x,y,z)) ----
+        # ---- W_mbej, rows x = km, blocks [x, y=kb, z=ke]
+        # (kj = kp(x, y, z)) ----
+        kf_g = KPt[kj4, W4, Y4]
         w_ovvo = (Uovvo
                   + ein("xyzjf,xyzmbef->xyzmbej", t1_g, Uovvv)
                   - ein("ynb,xyzmnej->xyzmbej", t1, Uoovo)
                   - ein("xyzjf,ynb,xyzmnef->xyzmbej", t1_g, t1, Uoovv)
                   - _by_slabs(lambda sl: 0.5 * ein(
                       "xyzwjnfb,xwzmnef->xyzmbej",
-                      T2[kj4[sl], W4, kf_g[sl]], Uoovv[sl]), nk, slab, dev))
+                      T2[kj4[sl], W4, kf_g[sl]], Uoovv[sl]), nl, slab, dev))
 
-        # ---- T2 residual, blocks [x=ki, y=kj, z=ka] (kb = kp(x,y,z)) --
-        kb_b = KPxyz
+        # ---- T2 residual, rows x = ki, blocks [x, y=kj, z=ka]
+        # (kb = kp(x, y, z)) ----
         f_be_t = f_ae - 0.5 * ein("kmb,kme->kbe", t1, f_me)
         f_mj_t = f_mi + 0.5 * ein("kje,kme->kmj", t1, f_me)
-        raw_ab = (ein("xyzijae,xyzbe->xyzijab", T2, f_be_t[kb_b])
-                  - ein("zma,xyzmbij->xyzijab", t1, Uovoo[Z3, kb_b, X3]))
-        raw_ij = (-ein("xyzimab,ymj->xyzijab", T2, f_mj_t)
-                  + ein("xie,xyzabej->xyzijab", t1, Uvvvo[Z3, kb_b, X3]))
-        raw_z = (-ein("xie,zma,xyzmbej->xyzijab", t1, t1,
-                      Uovvo[Z3, kb_b, X3])
-                 + _by_slabs(lambda sl: ein(
-                     "xwzimae,xyzwmbej->xyzijab", T2[sl],
-                     w_ovvo[W4, kj4[sl], KPxwz4[sl]]), nk, slab, dev))
-
+        T2l = T2[L]
+        raw_ab = (ein("xyzijae,xyzbe->xyzijab", T2l, f_be_t[KPl])
+                  - ein("zma,xyzmbij->xyzijab", t1, sg(Uovoo, zkx)))
+        raw_ij = (-ein("xyzimab,ymj->xyzijab", T2l, f_mj_t)
+                  + ein("xie,xyzabej->xyzijab", t1[L], sg(Uvvvo, zkx)))
+        raw_z = (-ein("xie,zma,xyzmbej->xyzijab", t1[L], t1,
+                      sg(Uovvo, zkx))
+                 + _by_slabs_mesh(lambda sl, rg: ein(
+                     "xwzimae,xyzwmbej->xyzijab", T2l[sl],
+                     sg(w_ovvo, w_kpxyz_kpxwz, rg)), mesh, off, slab, dev))
         del w_ovvo
-        r2 = Uoovv.conj() if include_drive else torch.zeros_like(T2)
-        r2 = r2 + (raw_ab - raw_ab[X3, Y3, kb_b].transpose(-1, -2))
+        r2 = Uoovv.conj() if include_drive else torch.zeros_like(T2l)
+        r2 = r2 + (raw_ab - raw_ab[X3l, Y3, KPl].transpose(-1, -2))
         del raw_ab
-        r2 = r2 + (raw_ij - raw_ij.transpose(0, 1).transpose(3, 4))
+        r2 = r2 + (raw_ij - swap(raw_ij).transpose(3, 4))
         del raw_ij
-        z_ab = raw_z[X3, Y3, kb_b]
+        z_ab = raw_z[X3l, Y3, KPl]
         r2 = r2 + (raw_z
-                   - raw_z.transpose(0, 1).transpose(3, 4)
+                   - swap(raw_z).transpose(3, 4)
                    - z_ab.transpose(-1, -2)
-                   + z_ab.transpose(0, 1).transpose(3, 4).transpose(-1, -2))
+                   + sg(raw_z, yx_kp).transpose(3, 4).transpose(-1, -2))
         del raw_z, z_ab
-        r2 = r2 + _by_slabs(lambda sl: 0.5 * ein(
-            "xyzwmnab,xywmnij->xyzijab", tau[W4, KPxyw4[sl], Z4],
-            w_oooo[Z3, KPxyz[sl], X3[sl]]), nk, slab, dev)
-        r2 = r2 + _by_slabs(lambda sl: 0.5 * ein(
-            "xywijef,xyzwabef->xyzijab", tau[sl],
-            w_vvvv[Z4, kj4[sl], W4]), nk, slab, dev)
-
-        # ---- energy at the input amplitudes ----
-        e = (ein("kia,kia->", fov, t1)
-             + 0.5 * ein("xyijab,xia,yjb->", Uoovv[X2, Y2, X2], t1, t1)
-             + 0.25 * ein("xyzijab,xyzijab->", Uoovv, T2))
+        r2 = r2 + _by_slabs_mesh(lambda sl, rg: 0.5 * ein(
+            "xyzwmnab,xywmnij->xyzijab",
+            tau[W4, KPt[X2g[sl][:, :, None, None], Y4, W4], Z4],
+            sg(w_oooo, zkx, rg)), mesh, off, slab, dev)
+        r2 = r2 + _by_slabs_mesh(lambda sl, rg: 0.5 * ein(
+            "xywijef,xyzwabef->xyzijab", tau[L][sl],
+            sg(w_vvvv, z_kpxyz_w, rg)), mesh, off, slab, dev)
         return r1, r2, e
 
     return resid
@@ -633,8 +775,16 @@ def make_step(nk, nocc, nvir, kp3, eo, ev, f_so=None, mesh=None):
     non-HF references: its off-diagonals enter the residual while eo/ev
     (its real diagonal) stay in the denominators.  The update is t + R/D
     (Jacobi on the full residual of ``_equations_packed``).
+
+    ``mesh``: U is this rank's rows ``mesh.owned(nk)`` of the leading k
+    index (the residual over the mesh, ``_equations_packed(mesh=)``); t1
+    and t2 go in and come out whole on every rank (the new t2's rows are
+    all-gathered), as does e.
     """
     resid = _equations_packed(nk, nocc, nvir, kp3, mesh=mesh)
+    if mesh is not None:
+        off = split(nk, mesh.size)
+        rows = slice(int(off[mesh.rank]), int(off[mesh.rank + 1]))
     cache = {}
 
     def step(t1, t2, U):
@@ -650,7 +800,10 @@ def make_step(nk, nocc, nvir, kp3, eo, ev, f_so=None, mesh=None):
             cache[dev] = (d1, d2, f)
         d1, d2, f = cache[dev]
         r1, r2, e = resid(t1, t2, f, U)
-        return t1 + r1 / d1, t2 + r2 / d2, e
+        if mesh is None:
+            return t1 + r1 / d1, t2 + r2 / d2, e
+        t2_loc = t2[rows] + r2 / d2[rows]
+        return t1 + r1 / d1, mesh.all_gather(t2_loc, np.diff(off)), e
 
     return step
 
@@ -761,11 +914,17 @@ def _kp3(df):
     return np.ascontiguousarray(k3c.transpose(0, 2, 1)).astype(np.int64)
 
 
-def _mp2_guess(U, nocc, eo, ev, kp3):
-    """t2 = conj(<ij||ab>) / D on U's device (t1 = 0)."""
-    nk = U.shape[0]
+def _mp2_guess(U, nocc, eo, ev, kp3, mesh=None):
+    """t2 = conj(<ij||ab>) / D on U's device (t1 = 0); with ``mesh`` from
+    the rank's rows of U, the rows all-gathered."""
+    nk = len(kp3)
     _, d2 = _denominators(nk, kp3, eo, ev, U.device)
-    return U[..., :nocc, :nocc, nocc:, nocc:].conj() / d2
+    if mesh is None:
+        return U[..., :nocc, :nocc, nocc:, nocc:].conj() / d2
+    off = split(nk, mesh.size)
+    t2 = (U[..., :nocc, :nocc, nocc:, nocc:].conj()
+          / d2[int(off[mesh.rank]):int(off[mesh.rank + 1])])
+    return mesh.all_gather(t2, np.diff(off))
 
 
 def kccsd(df, mf, conv_tol=1e-7, max_cycle=60, diis_space=8, verbose=0,
@@ -782,19 +941,26 @@ def kccsd(df, mf, conv_tol=1e-7, max_cycle=60, diis_space=8, verbose=0,
     ``mf.xc`` exists and is not 'hf'.  The correlation energy is then
     relative to the HF energy *functional at the reference determinant*;
     for a 2-electron system E_det(ref) + E_corr is reference-independent
-    (= FCI).  ``dev_mesh`` raises ``NotImplementedError``.  Beside the JAX
+    (= FCI).  ``dev_mesh`` (``parallel.mesh.make_device_mesh``, its rank
+    on ``df``'s device; ``df`` a single-device build, whole on every rank):
+    each rank assembles and keeps its rows of the leading k index of U and
+    runs the residual over the mesh (``_equations_packed(mesh=)``); the
+    amplitudes, DIIS and the energy are whole on every rank.  Beside the JAX
     package's keys, ``info`` holds the per-cycle ``energies`` (per cell,
     at each cycle's input amplitudes: the first is the MP2 energy), their
     wall seconds ``cycle_s``, and ``eris_s``, the integral assembly's.
     """
-    if dev_mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    mesh = check_mesh(dev_mesh)
+    if mesh is not None and mesh.device != df.device:
+        raise ValueError(f"the mesh rank's device {mesh.device} is not "
+                         f"df's {df.device}")
     if reference == "auto":
         reference = ("fock" if getattr(mf, "xc", "hf")
                      not in (None, "hf") else "canonical")
     nk = df.nkpt
     t0 = time.perf_counter()
-    U, eo, ev, nocc = make_eris_dev(df, mf)
+    U, eo, ev, nocc = make_eris_dev(
+        df, mf, rows=None if mesh is None else mesh.owned(nk))
     eris_s = _synced_seconds(U, t0)
     f_so = None
     if reference == "fock":
@@ -806,10 +972,10 @@ def kccsd(df, mf, conv_tol=1e-7, max_cycle=60, diis_space=8, verbose=0,
         return 0.0, {"converged": True, "niter": 0, "imag": 0.0,
                      "nocc": nocc}
     kp3 = _kp3(df)
-    step = make_step(nk, nocc, nvir, kp3, eo, ev, f_so=f_so)
+    step = make_step(nk, nocc, nvir, kp3, eo, ev, f_so=f_so, mesh=mesh)
     U /= nk                                   # supercell normalisation
     t1 = torch.zeros((nk, nocc, nvir), dtype=U.dtype, device=U.device)
-    t2 = _mp2_guess(U, nocc, eo, ev, kp3)
+    t2 = _mp2_guess(U, nocc, eo, ev, kp3, mesh=mesh)
     t1, t2, conv, niter, dt_max, trace = _cc_iterate(
         step, t1, t2, U, nk, conv_tol, max_cycle, diis_space, True,
         verbose)

@@ -132,13 +132,15 @@ class DeviceKUHF(KUHF):
         """(fock (2, nk, nao, nao), e_elec) of the UHF functional on the
         device.  J and K are served in the provider's precision from w0 =
         wq[0] and the image-space metric ``ws`` (the full wq is never
-        read), then cast to the loop's."""
+        read; on a mesh-sharded provider ``ws`` is the rank's image block
+        and vk is summed over the ranks), then cast to the loop's."""
         nk = h1e.shape[0]
         cdt = h1e.dtype
         dm_s = dm.to(x_k.dtype)       # the provider's precision
         vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
-        vk = jk_mod.get_k_kpts_img(x_k, ws, dm_s, self._kmesh,
-                                   phase_cs=self._phase_cs).to(cdt)
+        vk = jk_mod.get_k_kpts_img(
+            x_k, ws, dm_s, self._kmesh, phase_cs=self._phase_cs,
+            mesh=getattr(self.with_df, "dev_mesh", None)).to(cdt)
         vj_tot = vj[0] + vj[1]
         fock = torch.stack([h1e + vj_tot - vk[0], h1e + vj_tot - vk[1]])
         dm_t = dm.transpose(-1, -2)

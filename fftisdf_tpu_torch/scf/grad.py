@@ -111,12 +111,13 @@ def make_energy_fn(cell, kpts, dtype=None, two_electron="pw", mask=None,
     the functional.  ``xc`` switches to KS-DFT (exchange scaled by the
     hybrid fraction, grid Exc of the traced density added); ``hubbard``
     adds the Dudarev +U energy with occupations from the traced S(R)^1/2
-    (``hubbard.sqrtm_traced``)."""
+    (``hubbard.sqrtm_traced``).  ``dev_mesh``: the ISDF state is built
+    sharded over the mesh (``isdf_state_fn(dev_mesh=)``; ``device`` is the
+    rank's); the rest of the Lagrangian runs on every rank alike, so each
+    rank returns the same energy, and every rank must evaluate it (and its
+    gradient) together."""
     if exxdiv not in (None, "ewald"):
         raise NotImplementedError(f"exxdiv={exxdiv!r} gradients")
-    if dev_mesh is not None:
-        raise NotImplementedError(
-            "make_energy_fn(dev_mesh=): multi-device sharding is not ported")
     device = resolve_device(device)
     rdt, cdt = real_complex(dtype)
     spec, hyb, hyb_sr, omega = xc_setup(xc)
@@ -159,7 +160,7 @@ def make_energy_fn(cell, kpts, dtype=None, two_electron="pw", mask=None,
                               rcond=rcond, dtype=rdt,
                               max_memory_gb=max_memory_gb,
                               omegas=(omg_sr,) if hyb_sr else None,
-                              device=device)
+                              dev_mesh=dev_mesh, device=device)
         ph = kpt_mod.get_phase(cell, kpts, kmesh)
         phase = torch.complex(t(ph.real), t(ph.imag))
     elif two_electron != "pw":

@@ -334,14 +334,15 @@ class _DeviceKSVeff:
         e_elec = e1 + ecoul + exc.to(e1.dtype)
         if spec.hyb or spec.hyb_sr:
             vk_eff = 0.0
+            mesh = getattr(self.with_df, "dev_mesh", None)
             if spec.hyb:
                 vk_eff = spec.hyb * jk_mod.get_k_kpts_img(
-                    x_k, ws, dm_s, self._kmesh,
-                    phase_cs=self._phase_cs).to(cdt)
+                    x_k, ws, dm_s, self._kmesh, phase_cs=self._phase_cs,
+                    mesh=mesh).to(cdt)
             if spec.hyb_sr:
                 vk_eff = vk_eff + spec.hyb_sr * jk_mod.get_k_kpts_img(
-                    x_k, ws_sr, dm_s, self._kmesh,
-                    phase_cs=self._phase_cs).to(cdt)
+                    x_k, ws_sr, dm_s, self._kmesh, phase_cs=self._phase_cs,
+                    mesh=mesh).to(cdt)
             fock = fock - vk_eff
             e_elec = e_elec - 0.5 * (dm_t * vk_eff).sum().real / nk
         if shalf is not None:

@@ -18,10 +18,16 @@ from fftisdf_tpu_torch.utils.device import to_numpy
 
 
 def save_isdf_state(path, df):
+    """Write ``df``'s state.  A mesh-sharded state is gathered first (a
+    collective: every rank calls this) and rank 0 writes it."""
+    mesh = getattr(df, "dev_mesh", None)
+    wq = df.wq if mesh is None else df.wq.full()
+    if mesh is not None and mesh.rank != 0:
+        return
     np.savez_compressed(
         path,
         x_k=to_numpy(df.x_k),
-        wq=to_numpy(df.wq),
+        wq=to_numpy(wq),
         mask=np.asarray(df.mask),
         kpts=np.asarray(df.kpts),
         kmesh=np.asarray(df.kmesh),

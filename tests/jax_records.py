@@ -29,7 +29,8 @@ FILES = ("test_torch_xc.py", "test_torch_omega_trunc.py",
          "test_torch_gamma_thc.py", "test_torch_scf_device.py",
          "test_torch_basis_linalg.py", "test_torch_coulomb.py",
          "test_torch_f32_regime.py", "test_torch_pw.py",
-         "test_torch_bands.py", "test_torch_cderi.py")
+         "test_torch_bands.py", "test_torch_cderi.py",
+         "test_torch_parallel.py")
 RECORDING = os.environ.get("JAX_PORT_RECORD") == "1"
 _new = {}
 _store = None

@@ -202,7 +202,7 @@ def test_grad_guards(he2):
         scf_grad.make_grad_fn(cell, kpts, device="cpu")(mf)
     with pytest.raises(NotImplementedError):
         scf_grad.make_energy_fn(cell, kpts, exxdiv="vcut_sph", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         isdf_state_fn(cell, kpts, REFS["isdf_mask"], m0=(11, 11, 11),
                       dev_mesh=object(), device="cpu")
     mf.trunc = ("0d", 3.0)

@@ -301,10 +301,12 @@ def test_amp_basis_and_diis():
 
 
 def test_dev_mesh_raises():
+    """The mesh is the port's DeviceMesh (tests/test_torch_parallel.py
+    runs it); anything else is refused."""
     df, mf = state("h2_gamma")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cc.kccsd(df, mf, dev_mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cc._equations_packed(1, 1, 1, np.zeros((1, 1, 1), int), mesh=object())
 
 

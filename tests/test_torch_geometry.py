@@ -26,7 +26,8 @@ import pytest
 import torch_deriv_fixtures as fx
 from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice.cell import Cell, Shell
-from fftisdf_tpu_torch.scf import KRHF, KUHF, KUKS, DeviceKUHF, DeviceKUKS
+from fftisdf_tpu_torch.scf import (KRHF, KUHF, KUKS, DeviceKRHF, DeviceKUHF,
+                                   DeviceKUKS)
 from fftisdf_tpu_torch.scf import elastic, eos, md, phonon
 from fftisdf_tpu_torch.scf import hessian as scf_hess
 from fftisdf_tpu_torch.scf import optimize as scf_opt
@@ -69,10 +70,22 @@ def test_relax_cell_matches_jax():
     assert abs(res.energy - res.mf.e_tot) < 1e-10
 
 
-@pytest.mark.parametrize("backend", ["pw", "isdf"])
+@pytest.mark.parametrize("backend", ["pw", "isdf", "isdf-device"])
 def test_hessian_matches_jax(backend):
+    """``isdf-device``: a device-resident reference (DeviceKRHF on the ISDF
+    state), whose displaced SCFs serve K from the frozen-point provider's
+    image-space metric."""
     cell = fx.h2(Cell, Shell, d=1.30, mesh=14)
-    mf = _krhf(cell, conv_tol=1e-11)
+    df = None
+    if backend != "pw":
+        ref = DRV["hessian_h2_isdf"]
+        df = FFTISDF(cell, cell.get_kpts([1, 1, 1]), c0=40.0,
+                     m0=tuple(ref["m0"]), **CPU).build(
+                         mask=np.asarray(ref["mask"]))
+    if backend == "isdf-device":
+        mf = _krhf(cell, conv_tol=1e-11, cls=DeviceKRHF, with_df=df)
+    else:
+        mf = _krhf(cell, conv_tol=1e-11)
     mf.kernel()
     if backend == "pw":
         ref = DRV["hessian_h2"]
@@ -86,9 +99,6 @@ def test_hessian_matches_jax(backend):
     else:
         # the rows of the stretch coordinates (the row-restricted entry
         # point of scf.phonon), each displaced SCF on a frozen-point re-fit
-        ref = DRV["hessian_h2_isdf"]
-        df = FFTISDF(cell, mf.kpts, c0=40.0, m0=tuple(ref["m0"]),
-                     **CPU).build(mask=np.asarray(ref["mask"]))
         h, _ = scf_hess.kernel(mf, step=1.5e-3, two_electron="isdf", df=df,
                                rows=[2, 5])
         np.testing.assert_allclose(h, np.asarray(ref["hess"])[[2, 5]],

@@ -126,3 +126,78 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
+
+
+PARALLEL_SCRIPT = textwrap.dedent("""
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "fftisdf_tpu")
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"blocked: {name}")
+            return None
+
+    for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+        del sys.modules[mod]
+    sys.meta_path.insert(0, BlockJax())
+
+    import fftisdf_tpu_torch.parallel
+    import fftisdf_tpu_torch.parallel.dryrun
+    from fftisdf_tpu_torch.parallel import (build_sharded, get_jk_sharded,
+                                            make_device_mesh)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not bad, bad
+    print("OK")
+""")
+
+
+def test_parallel_imports_without_jax():
+    """The mesh layer and its dry run import in a fresh interpreter in
+    which JAX and the JAX package cannot be imported."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+def test_device_mesh_needs_a_card(monkeypatch):
+    """make_device_mesh() defaults to CUDA with NCCL: without a card and
+    without device= it raises, and it makes no process group on the CPU
+    in its place."""
+    import pytest
+    import torch
+    import torch.distributed as dist
+
+    from fftisdf_tpu_torch.parallel import make_device_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_device_mesh()
+    with pytest.raises(ValueError, match="nccl"):
+        make_device_mesh(backend="nccl", device="cpu")
+    assert not dist.is_initialized()
+
+
+def test_rank_launcher_needs_a_card(monkeypatch):
+    """The rank launcher (parallel.dryrun.spawn) has make_device_mesh's
+    defaults: without a card and without device= it raises before it
+    starts a rank."""
+    import pytest
+    import torch
+
+    from fftisdf_tpu_torch.parallel import dryrun
+
+    def no_ranks(*a, **k):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.multiprocessing, "get_context", no_ranks)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.spawn(lambda mesh: None, 2)
+    with pytest.raises(ValueError, match="nccl"):
+        dryrun.spawn(lambda mesh: None, 2, backend="nccl", device="cpu")
