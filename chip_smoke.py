@@ -35,8 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. device against host: diamond gth-szv ke 50, kmesh 1x1x2, c0 10, built and
    solved by KUHF on the GPU and on the CPU (J/K to 1e-10 relative, e_tot to
    1e-9 Ha);
-3. the JAX anchor: NiO AFM, the defaults of examples/nio_afm_kuhf.py, on the
-   GPU against the JAX package's energy recorded in
+3. the JAX anchor: NiO AFM, the defaults of examples/nio_afm_kuhf.py, run
+   by the port's entry point (fftisdf_tpu_torch.examples.nio_afm_kuhf,
+   DeviceKUHF on the card) against the JAX package's energy recorded in
    tests/data/nio_afm_kuhf_anchor.json (1e-6 Ha).  The port is given the JAX
    package's interpolation points: on this symmetric cell selection meets
    exact ties that two implementations break differently.  The port's own
@@ -247,7 +248,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    |psi|^2 against 1 (1e-8), and write_cube -> read_cube (mesh, voxels,
    atoms, the integral to 1e-4); (e) diamond gth-szv ke 50 1x1x2: profile_build's
    w_q bitwise equal to a plain card build, density_on_grid card against
-   CPU (1e-12).
+   CPU (1e-12);
+14. the mesh layer (``parallel``): world size 1 over NCCL against phases
+   4 and 6b and phase 12b's force, and 2 gloo ranks on the card (the
+   slice under a 14 GB budget, the He2 force state, kccsd);
+15. the entry points, ``python -m fftisdf_tpu_torch.examples.<name>``,
+   in-process through ``main(argv)`` with K1's count reset right before
+   and >= 1 after: every example the earlier phases do not run (3 and 6b
+   run nio_afm_kuhf at its defaults and with --production, 7b with
+   --production --dtype float32, 10a exciton_dispersion --eels, 12a
+   relax_vibrations --isdf, 13c derive_atomic_basis --elem Ni --ke 240
+   --check), at its JAX defaults and at the arguments of the JAX
+   package's recorded run where they differ
+   (tests/data/jax_example_outputs.json): each held to the JAX script's
+   own checks and to the record at the module's GATES on the record's
+   interpolation points (nio_northstar's in the host loop, the record's),
+   with its seconds, peak memory and K1 launches.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -255,7 +271,8 @@ The line before the last holds the kernel table as JSON; the last line is
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
                                      # prints no result lines; 8, 9, 10
                                      # and 13 run 4 and 6 first for their
-                                     # state; 11 and 12 need no other phase
+                                     # state; 11, 12 and 15 need no other
+                                     # phase
 """
 import gc
 import json
@@ -272,6 +289,7 @@ ANCHOR = REPO / "tests" / "data" / "nio_afm_kuhf_anchor.json"
 EXACT = REPO / "tests" / "data" / "nio_afm_kuhf_exact.json"
 REFS = REPO / "tests" / "data" / "jax_port_refs.json"
 KS_ANCHOR = REPO / "tests" / "data" / "nio_afm_kuks_anchor.json"
+EXAMPLE_RECORD = REPO / "tests" / "data" / "jax_example_outputs.json"
 K1_TOL = {"complex64": 2e-5, "complex128": 1e-12}
 # the complex64 kernel's error against the complex128 gram: at most this
 # many times the plain complex64 version's, or K1_C64_FLOOR of the scale
@@ -651,29 +669,42 @@ def _nio(ke, kmesh):
     return cell, cell.get_kpts(kmesh)
 
 
+def _example_out(tag):
+    """``out`` for an example driver run inside a phase: its lines go to
+    the log under the phase's tag."""
+    return lambda *parts: log(f"{tag}   " + " ".join(map(str, parts)))
+
+
+def _example_args(mod, argv):
+    return mod.build_parser().parse_args(argv)
+
+
 def phase3_anchor(torch):
     import numpy as np
-    from fftisdf_tpu_torch.isdf import FFTISDF
-    from fftisdf_tpu_torch.scf import KUHF
-    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
+    from fftisdf_tpu_torch.examples import nio_afm_kuhf
 
     anchor = json.loads(ANCHOR.read_text())
     cfg = anchor["config"]
-    cell, kpts = _nio(cfg["ke_cutoff"], cfg["kmesh"])
-    kw = dict(verbose=0, conv_tol=cfg["conv_tol"],
-              max_cycle=cfg["max_cycle"], init_spin=AFM,
-              smearing=cfg["smearing"])
+    # the anchor is examples/nio_afm_kuhf.py at its defaults: the port's
+    # entry point runs them (DeviceKUHF on the card)
+    args = _example_args(nio_afm_kuhf, [])
+    if ([args.ke, args.kmesh, args.c0, args.smearing]
+            != [cfg["ke_cutoff"], cfg["kmesh"], cfg["c0"], cfg["smearing"]]):
+        raise RuntimeError("the example's defaults are not the anchor's")
     out = {}
     for label, mask in (("jax-mask", anchor["mask"]), ("own", None)):
-        df = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]),
-                     verbose=0, device="cuda").build(mask=mask)
-        mf = KUHF(cell, kpts, df, device="cuda", **kw)
-        e = mf.kernel()
-        _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
+        res = nio_afm_kuhf.run(
+            _example_args(nio_afm_kuhf, []),
+            masks=None if mask is None else [{"m0": cfg["m0"],
+                                              "mask": mask}],
+            out=_example_out("[3]"))
+        mf, e, mom = res["mf"], res["e_tot"], res["moments"]
         out[label] = (e, mf.converged, mom)
         log(f"[3] NiO ke {cfg['ke_cutoff']:g} {cfg['kmesh']} c0 {cfg['c0']:g}"
-            f" ({label} selection): e_tot {e:.10f} conv {mf.converged} "
-            f"cycles {mf.cycles} Ni moments {mom[0]:+.4f} {mom[1]:+.4f}")
+            f" ({label} selection, {type(mf).__name__}): e_tot {e:.10f} "
+            f"conv {mf.converged} cycles {mf.cycles} Ni moments "
+            f"{mom[0]:+.4f} {mom[1]:+.4f}")
+        del res, mf
     e, conv, mom = out["jax-mask"]
     de = abs(e - anchor["e_tot"])
     dm = np.abs(np.asarray(mom[:2]) - np.asarray(anchor["moments"][:2]))
@@ -988,26 +1019,28 @@ def _production_cell():
 
 
 def _production_run(torch, tag, dtype=None):
-    """Build the production configuration in ``dtype`` through the
-    default-device entry points, with K1's count reset right before, and
-    converge DeviceKUHF on it.  Returns (cell, kpts, df, mf, figures)."""
-    from fftisdf_tpu_torch.isdf import FFTISDF
+    """The production configuration through the port's entry point,
+    ``python -m fftisdf_tpu_torch.examples.nio_afm_kuhf --production``
+    (``--dtype float32`` for ``dtype``): built with K1's count reset right
+    before, DeviceKUHF converged on it.  Returns (cell, kpts, df, mf,
+    figures)."""
+    from fftisdf_tpu_torch.examples import nio_afm_kuhf
     from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
-    from fftisdf_tpu_torch.scf import DeviceKUHF
-    from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
 
-    cell, kpts = _production_cell()
-    log(f"{tag} production NiO AFM gth-dzvp-molopt-sr ke 200 kmesh 4x4x4 "
-        f"({dtype or 'torch.float64'}): nao {cell.nao_nr()} nelec "
-        f"{cell.nelectron} mesh {[int(m) for m in cell.mesh]} nk {len(kpts)}")
+    argv = ["--production"] + ([] if dtype is None
+                               else ["--dtype", "float32"])
+    log(f"{tag} production: python -m fftisdf_tpu_torch.examples."
+        f"nio_afm_kuhf {' '.join(argv)} (NiO AFM gth-dzvp-molopt-sr ke 200 "
+        f"kmesh 4x4x4 c0 40 m0 15^3)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pair_gram_sq.launches = 0
-    df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15), dtype=dtype,
-                 verbose=3).build()
+    res = nio_afm_kuhf.run(_example_args(nio_afm_kuhf, argv),
+                           out=_example_out(tag))
+    cell, kpts, df, mf = res["cell"], res["kpts"], res["df"], res["mf"]
     fig = dict(df.timings, launches=pair_gram_sq.launches,
-               nchunks=df.nchunks,
-               build_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+               nchunks=df.nchunks, build_peak_gb=res["build_peak_gb"],
+               setup_s=res["setup_s"])
     log(f"{tag} production build: nip {df.nip}, selection "
         f"{fig['select_s']:.3f}s, metric pass {fig['metric_s']:.3f}s (sweep "
         f"{fig['sweep_s']:.3f}s, solve/FFT/gram {fig['solve_s']:.3f}s), "
@@ -1018,11 +1051,20 @@ def _production_run(torch, tag, dtype=None):
                            f"{df.nip} (expected {PROD_NIP})")
     if dtype is None and fig["launches"] < 1:
         raise RuntimeError("the production selection did not launch K1")
-    t0 = time.perf_counter()
-    mf = DeviceKUHF(cell, kpts, df, dtype=dtype, verbose=3,
-                    **(SCF_KW if dtype is None else SCF_KW_F32))
-    fig["setup_s"] = time.perf_counter() - t0
     log(f"{tag} production one-electron setup {fig['setup_s']:.2f}s")
+    mom = res["moments"]
+    per = mf.cycle_times[1:] or mf.cycle_times
+    fig.update(e_tot=mf.e_tot, cycles=mf.cycles,
+               cycle_s=sum(per) / len(per),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{tag} production " + _scf_line(type(mf).__name__, mf,
+                                         mf.cycle_times)
+        + f"; Ni moments {mom[0]:+.4f} {mom[1]:+.4f}; peak memory "
+        f"{fig['peak_gb']:.2f} GB")
+    if not (type(mf).__name__ == "DeviceKUHF" and mf.converged
+            and mom[0] * mom[1] < 0):
+        raise RuntimeError("the production DeviceKUHF did not converge to "
+                           "an AFM state")
     dm0 = mf.get_init_guess()
     df.get_jk(dm0)
     torch.cuda.synchronize()
@@ -1031,18 +1073,6 @@ def _production_run(torch, tag, dtype=None):
     torch.cuda.synchronize()
     fig["jk_s"] = time.perf_counter() - t0
     log(f"{tag} production warm get_jk (2 spins) {fig['jk_s']:.4f}s")
-    mf.kernel()
-    _, mom = atom_charges_and_moments(cell, mf.dm, mf.s1e)
-    per = mf.cycle_times[1:] or mf.cycle_times
-    fig.update(e_tot=mf.e_tot, cycles=mf.cycles,
-               cycle_s=sum(per) / len(per),
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"{tag} production " + _scf_line("DeviceKUHF", mf, mf.cycle_times)
-        + f"; Ni moments {mom[0]:+.4f} {mom[1]:+.4f}; peak memory "
-        f"{fig['peak_gb']:.2f} GB")
-    if not (mf.converged and mom[0] * mom[1] < 0):
-        raise RuntimeError("the production DeviceKUHF did not converge to "
-                           "an AFM state")
     return cell, kpts, df, mf, fig
 
 
@@ -2412,49 +2442,32 @@ def _mb_identities(torch):
 
 def _exciton_dispersion(torch):
     """(a) examples/exciton_dispersion.py at its defaults (diamond gth-szv
-    ke 50, 2x2x2, c0 40, KRHF CIS, 3 roots; --eels) on the card."""
+    ke 50, 2x2x2, c0 40, KRHF CIS, 3 roots; --eels) on the card, through
+    the port's entry point."""
     import numpy as np
-    from fftisdf_tpu_torch.isdf import FFTISDF
-    from fftisdf_tpu_torch.lattice import structure
-    from fftisdf_tpu_torch.scf import KRHF
-    from fftisdf_tpu_torch.scf.tddft import (dielectric_tda,
-                                             oscillator_strengths, tda)
+    from fftisdf_tpu_torch.examples import exciton_dispersion
 
     t0 = time.perf_counter()
-    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
-                             pseudo="gth-pade", ke_cutoff=50.0)
-    kpts = cell.get_kpts([2, 2, 2])
-    df = FFTISDF(cell, kpts, c0=40.0, verbose=0).build()
-    mf = KRHF(cell, kpts, df, verbose=0)
-    mf.kernel()
+    res = exciton_dispersion.run(
+        _example_args(exciton_dispersion, ["--eels"]),
+        out=_example_out("[10a]"))
+    df, mf = res["df"], res["mf"]
     ok = mf.converged
     log(f"[10a] exciton dispersion: diamond gth-szv ke 50 2x2x2 c0 40 "
         f"(m0 {df.m0}, nip {df.nip}); KRHF e_tot {mf.e_tot:.10f} conv "
         f"{mf.converged} cycles {mf.cycles}")
-    for q in range(len(kpts)):
-        ws, info = tda(mf, df, q=q, nroots=3)
-        wt, _ = tda(mf, df, q=q, nroots=3, singlet=False)
-        qn = float(np.linalg.norm(kpts[q]))
-        line = (f"[10a]   q {q} |q| {qn:.6f}: S " + " ".join(
-            f"{w:.5f}" for w in ws) + " | T " + " ".join(
-                f"{w:.5f}" for w in wt))
+    for ws, wt in res["roots"]:
         ok &= bool(np.all(ws > 0) and np.all(wt > 0) and wt[0] <= ws[0])
-        if q == 0:
-            f = oscillator_strengths(mf, ws, info["x"])
-            line += "; f " + " ".join(f"{v:.4f}" for v in f)
-            ok &= bool(np.all(f >= 0))
-        elif qn > 1e-10:
-            om = np.linspace(0.0, float(ws[-1]) + 0.3, 13)
-            eps, d = dielectric_tda(mf, df, q=q, omegas=om)
-            peak = om[np.argmax(d["loss"])]
-            line += (f"; eps_M(0) {eps[0].real:.4f}, loss peak "
-                     f"{d['loss'].max():.4f} at w {peak:.3f}")
-            ok &= bool(eps[0].real > 1.0 and np.all(d["loss"] > -1e-12))
-        log(line)
-    log(f"[10a] exciton dispersion {time.perf_counter() - t0:.1f}s")
+    ok &= bool(np.all(np.asarray(res["strengths"]) >= 0))
+    for eps, loss in res["eels"].values():
+        ok &= bool(eps[0].real > 1.0 and np.all(loss > -1e-12))
+    log(f"[10a] exciton dispersion {time.perf_counter() - t0:.1f}s; every "
+        "root positive, the triplet below the singlet, oscillator "
+        f"strengths >= 0, eps_M(0) > 1 and loss >= 0 at {len(res['eels'])}"
+        f" finite q: {bool(ok)}")
     if not ok:
         raise RuntimeError("the exciton dispersion is unphysical")
-    del df, mf
+    del res, df, mf
     torch.cuda.empty_cache()
 
 
@@ -3266,8 +3279,7 @@ def _deriv_fixtures(torch):
     from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
     from fftisdf_tpu_torch.lattice.cell import Cell, Shell
     from fftisdf_tpu_torch.scf import KRHF, KRKS, KUHF
-    from fftisdf_tpu_torch.scf import grad, hessian, md, stress
-    from fftisdf_tpu_torch.scf import optimize as scf_opt
+    from fftisdf_tpu_torch.scf import grad, md, stress
 
     t_a = time.perf_counter()
     fx, refs = _deriv_mod()
@@ -3382,25 +3394,30 @@ def _deriv_fixtures(torch):
 
     _qha_h2_chain(refs)
 
-    # examples/relax_vibrations.py at its defaults with --isdf
-    c = fx.h2(Cell, Shell, d=2.0, mesh=20)
-    mf = KRHF(c, c.get_kpts([1, 1, 1]), verbose=0, conv_tol=1e-10)
+    # examples/relax_vibrations.py at its defaults with --isdf, through
+    # the port's entry point, against the JAX script's recorded run (each
+    # geometry selects its own points, so at the relaxation's gates)
+    from fftisdf_tpu_torch.examples import _common, relax_vibrations
+
     t0 = time.perf_counter()
-    res = scf_opt.kernel(mf, fmax=5e-4, max_steps=20, two_electron="isdf",
-                         isdf_kwargs={"c0": 40.0, "m0": (9, 9, 9)})
-    t_opt = time.perf_counter() - t0
-    bond = np.linalg.norm(res.positions[1] - res.positions[0])
-    t0 = time.perf_counter()
-    h, _ = hessian.kernel(res.mf, step=1.5e-3)
-    wav, _ = hessian.frequencies(res.mf.cell, h)
+    lines = _common.Lines()
+    rv = relax_vibrations.run(_example_args(relax_vibrations, ["--isdf"]),
+                              out=lines)
+    res, wav = rv["result"], rv["freqs"]
+    rec = json.loads(EXAMPLE_RECORD.read_text())["examples"][
+        "relax_vibrations_isdf"]
+    rows = _common.compare(
+        _common.numbers(relax_vibrations, lines.text()),
+        _common.numbers(relax_vibrations, rec["stdout"]),
+        _common.gates(relax_vibrations, rec["args"]))
     log(f"[12a] examples/relax_vibrations.py --isdf: converged "
-        f"{res.converged} in {res.nsteps} steps ({t_opt:.1f}s), E "
-        f"{res.energy:.8f} Ha, bond {bond:.4f} bohr, max|F| "
-        f"{res.trajectory[-1][2]:.2e}; frequencies (cm^-1) "
-        + " ".join(f"{w:.1f}" for w in wav)
-        + f" ({time.perf_counter() - t0:.1f}s)")
+        f"{res.converged} in {res.nsteps} steps, max|F| "
+        f"{res.trajectory[-1][2]:.2e} ({time.perf_counter() - t0:.1f}s "
+        "with the frequencies); against the JAX record: " + ", ".join(
+            f"{k} {e:.1e} (gate {lim:.1e})" for k, e, lim, _ in rows))
     if not (res.converged and res.trajectory[-1][2] < 5e-4
-            and np.abs(wav[:3]).max() < 0.05 * np.abs(wav).max()):
+            and np.abs(wav[:3]).max() < 0.05 * np.abs(wav).max()
+            and rows and all(ok for *_, ok in rows)):
         raise RuntimeError("relax_vibrations failed on the card")
     log(f"[12a] {time.perf_counter() - t_a:.1f}s")
 
@@ -3770,13 +3787,8 @@ def _deriv_diamond_sweeps(torch):
         raise RuntimeError("the acoustic sum rule misses the Gamma modes")
 
 # ----------------------------------------------------------------- phase 13
-NI_EXPONENTS = [9.6538632696, 3.9744501290, 1.6213478542, 0.6447664764,
-                0.2513317635, 0.0971124480]
-NI_SHELLS = [(0, 2), (1, 2), (2, 2)]  # the DZVP-MOLOPT-SR shell structure
-NI_SPIN = 2                           # 3d8 4s2: S = 1 (Hund)
-NI_BOX, NI_KE = 12.0, 240.0           # the example's cube edge and --ke
+NI_ARGV = ["--elem", "Ni", "--ke", "240"]   # examples/derive_atomic_basis
 NI_HOLE = 0                           # the spin-down d hole starts in d_xy
-NI_KUHF = dict(verbose=0, conv_tol=1e-7, max_cycle=120, smearing=2e-3)
 STAGE_SUM_TOL = 0.05                  # stages against metric_s at production
 TRACE_CYCLES = 3
 
@@ -3902,65 +3914,17 @@ def _trace(torch):
 
 
 def _ni_radial():
-    """The --radial route of examples/derive_atomic_basis.py on the host:
-    the radial Ni pseudo-atom (channel virtuals added) and a Gaussian fit
-    of each column, the unbound virtual falling back to the most diffuse
-    primitive.  Returns (seconds, converged, e_tot, {l: columns},
-    {l: residuals})."""
-    import numpy as np
-    from fftisdf_tpu_torch.basis.atom import (RadialGrid,
-                                              fit_radial_gaussians,
-                                              pseudo_occupations, solve_atom)
-    from fftisdf_tpu_torch.basis.data import load_pseudo
-    from fftisdf_tpu_torch.basis.gto import gaussian_int, gto_norm
+    """examples/derive_atomic_basis.py --elem Ni --radial on the host,
+    through the port's entry point (its lines unprinted): (seconds,
+    converged, e_tot, {l: columns}, {l: residuals})."""
+    from fftisdf_tpu_torch.examples import derive_atomic_basis
 
     t0 = time.perf_counter()
-    exps = np.asarray(NI_EXPONENTS)
-    ps = load_pseudo("gth-pade", "Ni")
-    occ = pseudo_occupations("Ni", ps)
-    for l, ncol in NI_SHELLS:
-        occ.setdefault(l, [])
-        occ[l] += [0.0] * max(ncol - len(occ[l]), 0)
-    res = solve_atom("Ni", pseudo=ps, occ=occ,
-                     grid=RadialGrid(rmax=40.0, n=1600))
-    tables, resids = {}, {}
-    for l, ncol in NI_SHELLS:
-        norms = gto_norm(l, exps)
-        gram = (norms[:, None] * norms[None, :]
-                * gaussian_int(2 * l + 2, exps[:, None] + exps[None, :]))
-        cols, rs = [], []
-        for i in range(ncol):
-            c, r = fit_radial_gaussians(res.u[l][i], l, exps, res.grid)
-            if r > 0.3:
-                c = np.zeros(len(exps))
-                c[-1] = 1.0
-                for prev in cols:
-                    c -= prev * (prev @ gram @ c) / (prev @ gram @ prev)
-                r = float("nan")
-            cols.append(c)
-            rs.append(r)
-        tables[l], resids[l] = np.stack(cols, axis=1), rs
-    return time.perf_counter() - t0, res.converged, res.e_tot, tables, resids
-
-
-def _radial_naturals(mo_coeff, mo_occ, mo_energy, sel, nexp, nm, nvirt=3,
-                     wvirt=0.05):
-    """Per-l radial natural orbitals (examples/derive_atomic_basis.py):
-    eigenvectors of the m-averaged, occupation-weighted radial density
-    with a small low-virtual admixture, sorted by weight."""
-    import numpy as np
-
-    dens = np.zeros((nexp, nexp))
-    for s in range(mo_coeff.shape[0]):
-        occ = mo_occ[s]
-        virt = np.argsort(np.where(occ < 0.5, mo_energy[s], np.inf))[:nvirt]
-        w = occ.copy()
-        w[virt] = np.maximum(w[virt], wvirt)
-        for p in np.nonzero(w > 1e-6)[0]:
-            r = mo_coeff[s][sel, p].reshape(nexp, nm)
-            dens += w[p] * np.real(r @ r.conj().T)
-    ww, vv = np.linalg.eigh(dens)
-    return vv[:, np.argsort(ww)[::-1]]
+    res = derive_atomic_basis.derive_radial(
+        _example_args(derive_atomic_basis, NI_ARGV + ["--radial"]),
+        out=lambda *parts: None)
+    return (time.perf_counter() - t0, res["converged"], res["e_tot"],
+            res["tables"], res["resid"])
 
 
 def _ni_start(mf, hole, shift=1e-6):
@@ -3992,20 +3956,6 @@ def _ni_start(mf, hole, shift=1e-6):
         return mf.get_init_guess()
     finally:
         mf.h1e = h1e
-
-
-def _ni_cell():
-    """The uncontracted Ni pseudo-atom of (c): one primitive a shell, s, p
-    and d on every exponent, in a cube of NI_BOX bohr at NI_KE Ha."""
-    import numpy as np
-    from fftisdf_tpu_torch.lattice.cell import Cell, Shell
-
-    lmax = max(l for l, _ in NI_SHELLS)
-    shells = [Shell(l=l, exps=np.array([e]), coeffs=np.array([[1.0]]))
-              for l in range(lmax + 1) for e in NI_EXPONENTS]
-    return Cell(a=np.diag([NI_BOX] * 3), atom=[("Ni", (NI_BOX / 2,) * 3)],
-                basis={"Ni": shells}, pseudo="gth-pade", ke_cutoff=NI_KE,
-                spin=NI_SPIN, unit="bohr").build()
 
 
 def _d_populations(mf):
@@ -4080,36 +4030,37 @@ def _ni_radial_result(ctx):
 
 
 def _ni_basis(torch, ctx):
-    """(c) examples/derive_atomic_basis.py --elem Ni --ke 240 --check with
-    the port's modules: the uncontracted pseudo-atom KUHF in a 12-bohr box
-    on the card (float64), the radial naturals registered under
-    gth-dzvp-molopt-sr, the contracted KUHF and its variational gap; then
-    the --radial route's columns, computed on the host in a process of
-    their own since phase 12 began.  Both KUHFs start from
-    :func:`_ni_start` with the spin-down hole in d_xy: the core
-    Hamiltonian's spin-down t2g level is threefold degenerate and holds
-    one hole, so the plain start leaves the hole's orientation to the last
-    bits of h1e, and the KUHF lands in one of several states up to
-    0.76 mHa apart (tools/ni_kuhf_starts.py; ROADMAP section 3)."""
+    """(c) examples/derive_atomic_basis.py --elem Ni --ke 240 --check
+    through the port's entry point: the uncontracted pseudo-atom KUHF in a
+    12-bohr box on the card (float64), the radial naturals registered
+    under gth-dzvp-molopt-sr (restored afterwards), the contracted KUHF and
+    its variational gap; then the --radial route's columns, computed on
+    the host in a process of their own since phase 12 began.  Both KUHFs
+    start from :func:`_ni_start` with the spin-down hole in d_xy (``run``'s
+    ``start``): the core Hamiltonian's spin-down t2g level is threefold
+    degenerate and holds one hole, so the plain start leaves the hole's
+    orientation to the last bits of h1e, and the KUHF lands in one of
+    several states up to 0.76 mHa apart (tools/ni_kuhf_starts.py; ROADMAP
+    section 3)."""
     import numpy as np
     from fftisdf_tpu_torch.basis import data as bdata
-    from fftisdf_tpu_torch.scf import KUHF
+    from fftisdf_tpu_torch.examples import derive_atomic_basis as dab
 
-    exps = np.asarray(NI_EXPONENTS)
-    lmax = max(l for l, _ in NI_SHELLS)
-    cell = _ni_cell()
-    kpts = cell.get_kpts([1, 1, 1])
-    kw = NI_KUHF
+    saved = bdata._BASIS.get("gth-dzvp-molopt-sr", {}).get("Ni")
+    t0 = time.perf_counter()
+    try:
+        res = dab.run(_example_args(dab, NI_ARGV + ["--check"]),
+                      out=_example_out("[13c]"),
+                      start=lambda mf: _ni_start(mf, NI_HOLE))
+    finally:
+        bdata._BASIS["gth-dzvp-molopt-sr"]["Ni"] = saved
+    cell, mf, mf2 = res["cell"], res["mf"], res["mf2"]
+    e_unc, e_con, tables = res["e_unc"], res["e_con"], res["tables"]
+    pop = _d_populations(mf)[1]
     log(f"[13c] Ni pseudo-atom: nao {cell.nao_nr()} (uncontracted), mesh "
         f"{[int(m) for m in cell.mesh]}, nelec {cell.nelectron}, 2S "
-        f"{NI_SPIN}")
-    t0 = time.perf_counter()
-    mf = KUHF(cell, kpts, **kw)
-    e_unc = mf.kernel(dm0=_ni_start(mf, NI_HOLE))
-    t_unc = time.perf_counter() - t0
-    pop = _d_populations(mf)[1]
-    log(f"[13c] uncontracted KUHF (exact J/K) E {e_unc:.8f} Ha, conv "
-        f"{mf.converged} in {mf.cycles} cycles, {t_unc:.1f}s; spin-down d "
+        f"{dab.SPIN['Ni']}; uncontracted KUHF (exact J/K) E {e_unc:.8f} Ha,"
+        f" conv {mf.converged} in {mf.cycles} cycles; spin-down d "
         "populations (xy yz z2 xz x2-y2) "
         + " ".join(f"{v:.4f}" for v in pop))
     if not mf.converged or cell.nao_nr() != 54:
@@ -4117,36 +4068,12 @@ def _ni_basis(torch, ctx):
     if pop[NI_HOLE] > 1e-2:
         raise RuntimeError("the uncontracted Ni KUHF left the d hole it "
                            "started from")
-    ao_l = np.repeat([l for l in range(lmax + 1) for _ in exps],
-                     [2 * l + 1 for l in range(lmax + 1) for _ in exps])
-    mo_c = np.asarray(mf.mo_coeff)[:, 0]
-    mo_o = np.asarray(mf.mo_occ)[:, 0]
-    mo_e = np.asarray(mf.mo_energy)[:, 0]
-    tables = {}
-    for l, ncol in NI_SHELLS:
-        cols = _radial_naturals(mo_c, mo_o, mo_e, ao_l == l, len(exps),
-                                2 * l + 1)[:, :ncol]
-        cols = cols * np.where(cols[np.argmax(np.abs(cols), axis=0),
-                                    np.arange(ncol)] < 0, -1.0, 1.0)
-        tables[l] = cols
-    saved = bdata._BASIS.get("gth-dzvp-molopt-sr", {}).get("Ni")
-    try:
-        bdata.register_basis(
-            "gth-dzvp-molopt-sr", "Ni",
-            [(l, [(float(exps[i]), *[float(v) for v in tables[l][i]])
-                  for i in range(len(exps))]) for l, _ in NI_SHELLS])
-        cell2 = cell.copy(basis="gth-dzvp-molopt-sr").build()
-    finally:
-        bdata._BASIS["gth-dzvp-molopt-sr"]["Ni"] = saved
-    t0 = time.perf_counter()
-    mf2 = KUHF(cell2, kpts, **kw)
-    e_con = mf2.kernel(dm0=_ni_start(mf2, NI_HOLE))
     gap = e_con - e_unc
-    log(f"[13c] contracted ({cell2.nao_nr()} AOs) KUHF E {e_con:.8f} Ha, "
-        f"conv {mf2.converged} in {mf2.cycles} cycles, "
-        f"{time.perf_counter() - t0:.1f}s; variational gap "
-        f"{gap * 1e3:.3f} mHa (gate >= -1e-3 mHa); derived columns "
-        + ", ".join(f"l={l} {tables[l].shape}" for l, _ in NI_SHELLS))
+    log(f"[13c] contracted KUHF E {e_con:.8f} Ha, conv {mf2.converged} in "
+        f"{mf2.cycles} cycles; both KUHFs {time.perf_counter() - t0:.1f}s;"
+        f" variational gap {gap * 1e3:.3f} mHa (gate >= -1e-3 mHa); derived"
+        " columns " + ", ".join(f"l={l} {t.shape}" for l, t in
+                               tables.items()))
     if not (mf2.converged and gap >= -1e-6):
         raise RuntimeError("the contracted Ni basis is not variational")
     (secs, conv, e_rad, rtab, resid), where = _ni_radial_result(ctx)
@@ -4154,10 +4081,10 @@ def _ni_basis(torch, ctx):
         f"radial pseudo-atom conv {conv}, E {e_rad:.6f} Ha; columns "
         + ", ".join(f"l={l} {rtab[l].shape} residuals "
                     + "/".join(f"{r:.1e}" for r in resid[l])
-                    for l, _ in NI_SHELLS))
+                    for l in rtab))
     if not (conv and all(np.isfinite(rtab[l]).all() for l in rtab)):
         raise RuntimeError("the radial route failed")
-    del mf, mf2
+    del res, mf, mf2
     torch.cuda.empty_cache()
 
 
@@ -4505,6 +4432,117 @@ def _mesh_ranks(torch, ctx):
         raise RuntimeError("a gate of the gloo ranks on the card failed")
 
 
+# ----------------------------------------------------------------- phase 15
+# (module, arguments, key of the JAX record of these arguments or None):
+# every example at its JAX defaults where no earlier phase runs them
+# (nio_afm_kuhf: phases 3 and 6b; exciton_dispersion --eels: 10a;
+# relax_vibrations --isdf: 12a; derive_atomic_basis --elem Ni: 13c), then
+# the recorded arguments where they differ from the defaults
+EXAMPLES = [
+    ("nio_northstar", ["--skip-b"], None),
+    ("nio_northstar", ["--skip-b", "--ke-a", "50", "--kmesh-a", "1", "1",
+                       "2", "--max-cycle", "200"], "nio_northstar"),
+    ("diamond_isdf", [], "diamond_isdf"),
+    ("diamond_ks", [], "diamond_ks"),
+    ("diamond_bands", [], None),
+    ("diamond_bands", ["--kmesh", "1", "1", "2", "--npoints", "2"],
+     "diamond_bands"),
+    ("molecule_in_a_box", [], "molecule_in_a_box"),
+    ("thc_demo", [], "thc_demo"),
+    ("thc_demo", ["--becke"], "thc_demo_becke"),
+    ("exciton_dispersion", ["--kmesh", "1", "1", "2", "--c0", "20"],
+     "exciton_dispersion"),
+    ("cc_spectroscopy", [], "cc_spectroscopy"),
+    ("dmet_demo", [], "dmet_demo"),
+    ("relax_vibrations", [], "relax_vibrations"),
+    ("lih_variable_cell", [], "lih_variable_cell"),
+    ("phonon_elastic", [], "phonon_elastic"),
+    ("derive_atomic_basis", ["--check"], "derive_atomic_basis"),
+    ("derive_atomic_basis", ["--radial", "--check"],
+     "derive_atomic_basis_radial"),
+]
+# records replayed in the host loop, the loop the JAX script took on the
+# CPU: nio_northstar's ISDF arms start from the exact arm's density, and
+# from there the device loop's stop (|ddm| < 30 sqrt(conv_tol), the JAX
+# package's too) comes after 8 cycles 4.7e-6 Ha below the fixed point
+# that the host loop, and the device loop from its own start or at
+# conv_tol 1e-10, reach within 3e-7 Ha of the record (ROADMAP §3); its
+# defaults run above keeps the device loop
+HOST_LOOP_RECORDS = {"nio_northstar"}
+
+
+def phase15_examples(torch, ctx):
+    """The port's entry points, python -m fftisdf_tpu_torch.examples.<name>,
+    run in-process through ``main(argv)`` on the card: each held to the
+    JAX script's own checks (``check``) and, where the JAX package's run
+    of the same arguments is recorded (tests/data/jax_example_outputs.json),
+    to it at the module's GATES, on the recorded interpolation points.
+    Returns K1's launches in the phase."""
+    import importlib
+
+    from fftisdf_tpu_torch.basis import data as bdata
+    from fftisdf_tpu_torch.examples import _common
+    from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
+
+    records = json.loads(EXAMPLE_RECORD.read_text())["examples"]
+    pair_gram_sq.launches = 0
+    failed = []
+    for name, argv, key in EXAMPLES:
+        mod = importlib.import_module(f"fftisdf_tpu_torch.examples.{name}")
+        rec = records.get(key) if key else None
+        if rec is not None and rec["args"] != argv:
+            raise RuntimeError(f"{key}: recorded with {rec['args']}")
+        extra = (["--out", str(Path(ctx["tmp"]) / "ns" / "nio.json")]
+                 if name == "nio_northstar" else [])
+        masks = [dict(m) for m in rec["masks"]] if rec else None
+        saved = bdata._BASIS.get("gth-dzvp-molopt-sr", {}).get("H")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches = pair_gram_sq.launches
+        device_loop = _common.device_loop
+        if key in HOST_LOOP_RECORDS:
+            _common.device_loop = lambda device, level_shift=0.0: False
+        t0 = time.perf_counter()
+        try:
+            nums = mod.main(argv + extra, masks=masks)
+        finally:    # --check registers derived columns, in memory
+            bdata._BASIS["gth-dzvp-molopt-sr"]["H"] = saved
+            _common.device_loop = device_loop
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        mode = ("becke" if "--becke" in argv else "uniform")
+        bad = (mod.check(nums, mode) if name == "thc_demo"
+               else mod.check(nums))
+        line = (f"[15] {name} {' '.join(argv) or '(defaults)'}"
+                + (" (host loop)" if key in HOST_LOOP_RECORDS else "")
+                + f": {secs:.1f}s, peak {peak:.2f} GB, K1 launches "
+                f"{pair_gram_sq.launches - launches}; own checks "
+                + ("passed" if not bad else "FAILED " + ", ".join(bad)))
+        if rec is not None:
+            ref = _common.numbers(mod, rec["stdout"] + rec.get("stderr", ""))
+            rows = _common.compare(nums, ref, _common.gates(mod, argv))
+            worst = [r for r in rows if not r[3]]
+            if not rows:
+                bad.append("no gated key against the JAX record")
+            line += (f"; JAX record ({len(rows)} gated keys): "
+                     + ("all within" if not worst else "MISSED " + "; ".join(
+                         f"{k} {e:.2e} > {lim:.1e}" for k, e, lim, _ in
+                         worst)))
+            if name == "thc_demo":
+                bad += [f"JAX record: {b}" for b in mod.check(ref, mode)]
+            bad += [r[0] for r in worst]
+        log(line)
+        if bad:
+            failed.append(f"{name} {' '.join(argv)}: {bad}")
+    launches = pair_gram_sq.launches
+    log(f"[15] K1 launches in phase 15: {launches}")
+    if failed:
+        raise RuntimeError("examples failed: " + " | ".join(failed))
+    if launches < 1:
+        raise RuntimeError("phase 15's builds did not launch K1")
+    return launches
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
@@ -4582,6 +4620,7 @@ def _run(torch, run, only, t_all, ctx):
     if run(14):
         log(f"[14] K1 launches in phase 14's sharded builds (14a, NCCL "
             f"rank 0): {mesh_launches}")
+    example_launches = timed(15, phase15_examples, ctx) or 0
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -4596,6 +4635,7 @@ def _run(torch, run, only, t_all, ctx):
          "corr_launches": corr_launches, "cc_launches": cc_launches,
          "deriv_launches": deriv_launches, "tool_launches": tool_launches,
          "mesh_launches": mesh_launches,
+         "example_launches": example_launches,
          **k1["complex128"]},
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},

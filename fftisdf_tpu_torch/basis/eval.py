@@ -34,6 +34,19 @@ from fftisdf_tpu_torch.utils.device import real_complex, resolve_device
 
 # per-block budget of the chi / distance temporaries
 _CHI_BLOCK_BYTES = 256 * 2**20
+# A grid point on a face of the home cell has an integer fractional
+# coordinate in exact arithmetic; computed, it lands a few ulps to either
+# side, and the side depends on the device's summation order.  The two wraps
+# differ by the image lists' truncation (1.5e-12 on diamond gth-szv ke 50),
+# so two devices could disagree there: coordinates within WRAP_EPS below
+# an integer wrap as that integer on every device.
+WRAP_EPS = 1e-9
+
+
+def home_translation(coords, ainv, a):
+    """Lattice translation T with ``coords - T`` in the home cell (up to
+    WRAP_EPS): ``floor(coords @ ainv + WRAP_EPS) @ a``."""
+    return torch.floor(coords @ ainv + WRAP_EPS) @ a
 
 
 def _cell_geometry(cell):
@@ -207,7 +220,7 @@ class Evaluator:
 
     def _block(self, coords):
         # wrap into the home cell: r = r0 + T, phi_k(r) = e^{ik.T} phi_k(r0)
-        tvec = torch.floor(coords @ self.ainv) @ self.a
+        tvec = home_translation(coords, self.ainv, self.a)
         coords0 = coords - tvec
         blocks = []
         for specs, exps, centers, ph in self.groups:

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from fftisdf_tpu_torch.basis.eval import (_S00, _CHI_BLOCK_BYTES,
                                           _group_by_center, build_shell_table,
-                                          group_specs)
+                                          group_specs, home_translation)
 from fftisdf_tpu_torch.basis.gto import real_solid_harmonics
 from fftisdf_tpu_torch.isdf.eri import assemble_eri
 from fftisdf_tpu_torch.isdf.kpoint import _stripe_quartic
@@ -232,7 +232,7 @@ def make_evaluator_diff(cell, kpts=None, precision=None, dtype=None,
 
     def block(coords, positions):
         # wrap into the home cell: r = r0 + T, phi_k(r) = e^{ik.T} phi_k(r0)
-        tvec = torch.floor(coords @ ainv) @ amat
+        tvec = home_translation(coords, ainv, amat)
         coords0 = coords - tvec
         out = []
         for specs, exps, images, ia, ph in groups:

@@ -133,6 +133,12 @@ def _is_auto(m0):
     return m0 is None or (isinstance(m0, str) and m0 == "auto")
 
 
+def densify_mesh(m0):
+    """The next parent mesh of a saturated 'auto' pool: each axis times
+    2^(1/3), rounded up."""
+    return tuple(int(np.ceil(v * 2.0 ** (1.0 / 3.0))) for v in m0)
+
+
 def _trs_mirror(cell, kpts):
     """Index of -k in the k list (mod G) per k; -1 where unpaired."""
     s = cell.get_scaled_kpts(np.asarray(kpts))
@@ -205,7 +211,7 @@ def select_interpolation_points(cell, kpts, m0, c0, dtype=None,
             break
         prev_rank = rank
         if auto_densify and attempt < max_densify:
-            m0_new = tuple(int(np.ceil(v * 2.0 ** (1.0 / 3.0))) for v in m0)
+            m0_new = densify_mesh(m0)
             ng0_cap = select_f64_max_ng0(cell, kpts, c0, use_trs=use_trs,
                                          device=device)
             if (not f64_build and host_f64 is not True

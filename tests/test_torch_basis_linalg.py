@@ -79,6 +79,27 @@ def test_evaluator_blocks_and_off_cell_points():
     np.testing.assert_allclose(gam.numpy(), ref, atol=1e-12, rtol=0)
 
 
+def test_face_points_wrap_alike_on_either_side(monkeypatch):
+    """A point on a face or corner of the home cell, computed an ulp to
+    either side of it, wraps to the same home-cell point: the two sides'
+    AO values agree to roundoff (1.1e-14 here).  The floor of the raw
+    fractional coordinate (WRAP_EPS 0) moves one of them by a lattice
+    vector and changes its image sum by 1.5e-12 at the corner, above the
+    card tests' 1e-12 (the card and the CPU round such points to
+    different sides)."""
+    _, cell = diamond_cells()
+    kpts = cell.get_kpts([1, 1, 2])
+    on = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 4 / 9], [0.0, 0.5, 0.0]])
+    below = np.where(on == 0.0, -1e-15, on)
+    fn = t_eval.make_evaluator(cell, kpts=kpts, device="cpu")
+    a = np.asarray(cell.a)
+    np.testing.assert_allclose(fn(below @ a).numpy(), fn(on @ a).numpy(),
+                               atol=1e-13, rtol=0)
+    monkeypatch.setattr(t_eval, "WRAP_EPS", 0.0)
+    raw = np.abs(fn(below @ a).numpy() - fn(on @ a).numpy()).max()
+    assert raw > 1e-12, raw
+
+
 def test_fft3_matches_jax():
     rng = np.random.default_rng(1)
     mesh = (6, 5, 7)

@@ -70,6 +70,24 @@ def test_relax_cell_matches_jax():
     assert abs(res.energy - res.mf.e_tot) < 1e-10
 
 
+def test_relax_cell_re_anchor_is_off_roundoff():
+    """Capped strain steps (0.02 each) put LiH's accumulated strain on the
+    re-anchoring threshold 0.04 in exact arithmetic: 0.039999999999999959
+    at step 5 on the CPU, above 0.04 on the H100, which re-anchored a step
+    earlier and stopped 1.9e-3 bohr away (examples/lih_variable_cell.py
+    at its defaults).  The decision carries a 1e-9 margin, so a threshold 1e-15
+    below 0.04 does not re-anchor there either (without the margin it
+    does, and step 5 starts from a strain of 0)."""
+    cell = fx.lih(Cell, Shell, 6.8)
+    seen = []
+    scf_opt.relax_cell(
+        _krhf(cell), smax=1e-9, max_steps=5, relax_atoms=False,
+        re_anchor=0.039999999999999,
+        callback=lambda step, eps, dfrac, e, s, g: seen.append(
+            float(np.abs(eps).max())))
+    assert seen[3] == 0.0 and abs(seen[5] - 0.04) < 1e-12, seen
+
+
 @pytest.mark.parametrize("backend", ["pw", "isdf", "isdf-device"])
 def test_hessian_matches_jax(backend):
     """``isdf-device``: a device-resident reference (DeviceKRHF on the ISDF

@@ -15,6 +15,8 @@ complex128 gram too, on the cases its loader and epilogue branch on: its
 error at most 4x the plain complex64 version's (cuBLAS in full FP32), or
 4 x 2^-21 of the scale (3xTF32's error for a single product) where that
 is larger.
+Two Bloch-AO evaluators on the card give the same values to the bit, and
+the CPU's to 1e-12.
 The exact plane-wave J/K and the device-resident SCF loop on the card are
 held against the same calls on the CPU.  The float32 regime on the card:
 the build-dtype selection route launches K1 in complex64, the float64
@@ -127,6 +129,28 @@ def test_k1_selection_on_cuda_matches_cpu(cuda):
     assert r_g == r_c
     np.testing.assert_array_equal(m_g, m_c)
     np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_ao_values_repeat_bitwise_on_cuda(cuda):
+    """Two evaluators on the card give the same Bloch-AO values to the bit
+    at the selection pool and the FFT grid of that cell, and those values
+    are the CPU's to 1e-12: a card that computes differently from run to
+    run, or a wrap decided by roundoff, shows here first."""
+    from fftisdf_tpu_torch.basis.eval import make_evaluator
+    from fftisdf_tpu_torch.lattice import structure
+
+    cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
+                             pseudo="gth-pade", ke_cutoff=50.0)
+    kpts = cell.get_kpts([1, 1, 2])
+    for mesh in ((9, 9, 9), tuple(int(m) for m in cell.mesh)):
+        coords = cell.gen_uniform_grids(mesh)
+        first = make_evaluator(cell, kpts=kpts, device=cuda)(coords)
+        second = make_evaluator(cell, kpts=kpts, device=cuda)(coords)
+        assert torch.equal(first, second)
+        cpu = make_evaluator(cell, kpts=kpts, device="cpu")(coords)
+        np.testing.assert_allclose(first.cpu().numpy(), cpu.numpy(),
+                                   atol=1e-12, rtol=0)
 
 
 def _diamond():

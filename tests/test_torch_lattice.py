@@ -161,3 +161,18 @@ def test_port_structures_equal_jax(maker):
     assert [s for s, _ in atoms_p] == [s for s, _ in atoms_pj]
     np.testing.assert_array_equal([x for _, x in atoms_p],
                                   [x for _, x in atoms_pj])
+
+
+@pytest.mark.parametrize("kmesh", [[2, 2, 2], [3, 1, 2]])
+def test_kconserv_tables_equal_jax_native(kmesh):
+    """The port's numpy get_kconserv2/3 equal the JAX package's tables,
+    which its native engine builds (``native.build_kconserv``, shipped
+    without source, so not ported)."""
+    cell_j, cell = _from_maker("bulk_diamond", basis="gth-szv",
+                               pseudo="gth-pade", ke_cutoff=30.0)
+    kpts = cell.get_kpts(kmesh)
+    k2, k3 = jax_native.build_kconserv(cell_j.get_scaled_kpts(kpts))
+    np.testing.assert_array_equal(kpoints.get_kconserv2(cell, kpts), k2)
+    np.testing.assert_array_equal(kpoints.get_kconserv3(cell, kpts), k3)
+    np.testing.assert_array_equal(jax_kpoints.get_kconserv3(cell_j, kpts),
+                                  k3)

@@ -4,8 +4,9 @@ keeps its own copy of every host module it needs): with a
 ``sys.meta_path`` finder that refuses ``jax``, ``jaxlib`` and
 ``fftisdf_tpu`` (exactly that package, not ``fftisdf_tpu_torch``), every
 module of the port imports (the KS, many-body, correlated and derivative
-modules among them, and the tool layer: ``utils.config``,
-``utils.profiling``, ``utils.cube``, ``basis.atom`` and ``basis.fit``),
+modules among them, the tool layer: ``utils.config``,
+``utils.profiling``, ``utils.cube``, ``basis.atom`` and ``basis.fit``, and
+the entry points of ``examples``),
 one tiny build with ``profile_build``, ``get_jk``, an ISDF force, the
 density on the grid and xc evaluation run on a small He2 cell on the CPU,
 a CP2K basis entry is parsed, and one ``kmp2`` runs on the H2 chain of
@@ -36,6 +37,13 @@ SCRIPT = textwrap.dedent("""
         del sys.modules[mod]
     sys.meta_path.insert(0, BlockJax())
 
+    # the entry points: every JAX example script but multichip_aot
+    EXAMPLES = ("nio_afm_kuhf", "nio_northstar", "diamond_isdf",
+                "diamond_ks", "diamond_bands", "molecule_in_a_box",
+                "thc_demo", "exciton_dispersion", "cc_spectroscopy",
+                "dmet_demo", "relax_vibrations", "lih_variable_cell",
+                "phonon_elastic", "derive_atomic_basis")
+
     import fftisdf_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         fftisdf_tpu_torch.__path__, "fftisdf_tpu_torch.")]
@@ -48,7 +56,8 @@ SCRIPT = textwrap.dedent("""
                  "isdf.autodiff", "scf.grad", "scf.stress", "scf.optimize",
                  "scf.hessian", "scf.md", "scf.phonon", "scf.elastic",
                  "scf.eos", "utils.config", "utils.profiling", "utils.cube",
-                 "basis.atom", "basis.fit"):
+                 "basis.atom", "basis.fit", "examples._common",
+                 *("examples." + ex for ex in EXAMPLES)):
         assert "fftisdf_tpu_torch." + name in names, name
 
     import numpy as np

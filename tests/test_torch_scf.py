@@ -5,9 +5,10 @@
 - the host SCF numerics (DIIS, ADIIS, smearing) on seeded inputs;
 - ISDF-KUHF on diamond (c0 10, AFM bias, smearing), e_tot to 1e-8 Ha;
 - the slice as a whole on the NiO AFM example's defaults
-  (examples/nio_afm_kuhf.py): e_tot to 1e-6 Ha and the Ni moments to
-  1e-3.  That cell's selection meets exact symmetry ties, which the two
-  packages break differently (a different but equally valid compressed
+  (examples/nio_afm_kuhf.py), through the port's entry point: e_tot to
+  1e-6 Ha and the Ni moments to 1e-3, and the printed lines against the
+  JAX script's at the module's gates.  That cell's selection meets exact
+  symmetry ties, which the two packages break differently (a different but equally valid compressed
   basis, ~5e-5 Ha apart), so the port is handed the JAX package's mask
   and compared from the metric pass on.  The looser energy tolerance is
   the level at which the ADIIS/CDIIS trajectory wanders before it
@@ -121,28 +122,36 @@ def test_isdf_kuhf_diamond_matches_jax(diamond):
 
 def test_nio_example_slice_matches_jax():
     """NiO AFM, gth-szv ke 50, 1x1x2, c0 20, m0 15^3, smearing 5e-3 — the
-    defaults of examples/nio_afm_kuhf.py — through the port, against the
+    defaults of examples/nio_afm_kuhf.py — through the port's entry point
+    (fftisdf_tpu_torch.examples.nio_afm_kuhf, on the CPU), against the
     JAX package's run of the same configuration recorded in
-    tests/data/nio_afm_kuhf_anchor.json (e_tot, moments, mask)."""
+    tests/data/nio_afm_kuhf_anchor.json (e_tot, moments, mask), and its
+    printed lines against the JAX script's own (tests/data/
+    jax_example_outputs.json, at the module's GATES)."""
+    from fftisdf_tpu_torch.examples import _common, nio_afm_kuhf
+
     anchor = json.loads((DATA / "nio_afm_kuhf_anchor.json").read_text())
     cfg = anchor["config"]
-    cell = structure.to_cell(*structure.nio_afm(), basis=cfg["basis"],
-                             pseudo=cfg["pseudo"],
-                             ke_cutoff=cfg["ke_cutoff"],
-                             exp_to_discard=cfg["exp_to_discard"])
-    kpts = cell.get_kpts(cfg["kmesh"])
-    kw = dict(verbose=0, conv_tol=cfg["conv_tol"],
-              max_cycle=cfg["max_cycle"], init_spin=AFM,
-              smearing=cfg["smearing"])
-    assert (cfg["structure"], cfg["c0"], tuple(cfg["m0"])) == (
-        "nio_afm", 20.0, (15, 15, 15))
+    args = nio_afm_kuhf.build_parser().parse_args(["--device", "cpu"])
+    assert (cfg["structure"], cfg["basis"], cfg["ke_cutoff"], cfg["kmesh"],
+            cfg["c0"], tuple(cfg["m0"]), cfg["smearing"], cfg["conv_tol"],
+            cfg["max_cycle"]) == (
+        "nio_afm", args.basis, args.ke, args.kmesh, args.c0,
+        (15, 15, 15), args.smearing, 1e-8, 80)
     assert {int(k): v for k, v in cfg["init_spin"].items()} == AFM
-    df_t = FFTISDF(cell, kpts, c0=cfg["c0"], m0=tuple(cfg["m0"]), verbose=0,
-                   device="cpu").build(mask=np.asarray(anchor["mask"]))
-    mf_t = KUHF(cell, kpts, df_t, device="cpu", **kw)
-    e_t = mf_t.kernel()
-    _, mom_t = atom_charges_and_moments(cell, mf_t.dm, mf_t.s1e)
+    lines = _common.Lines()
+    res = nio_afm_kuhf.run(args, masks=[{"m0": cfg["m0"],
+                                         "mask": anchor["mask"]}],
+                           out=lines)
+    mf_t, e_t, mom_t = res["mf"], res["e_tot"], res["moments"]
     assert anchor["converged"] and mf_t.converged
     assert abs(e_t - anchor["e_tot"]) < 1e-6, (e_t, anchor["e_tot"])
     np.testing.assert_allclose(mom_t[:2], anchor["moments"][:2], atol=1e-3)
     assert mom_t[0] > 1.0 > -1.0 > mom_t[1]
+    rec = json.loads((DATA / "jax_example_outputs.json").read_text())[
+        "examples"]["nio_afm_kuhf"]
+    assert rec["args"] == [] and rec["masks"][0]["mask"] == anchor["mask"]
+    rows = _common.compare(_common.parse(lines.text(), nio_afm_kuhf.RESULTS),
+                           _common.parse(rec["stdout"], nio_afm_kuhf.RESULTS),
+                           _common.gates(nio_afm_kuhf, rec["args"]))
+    assert rows and all(ok for *_, ok in rows), rows

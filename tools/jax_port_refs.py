@@ -6,6 +6,7 @@
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py correlated  # after many_body
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py derivatives
     JAX_PLATFORMS=cpu python tools/jax_port_refs.py live_sides  # the npz
+    python tools/jax_port_refs.py examples [name ...]   # the example scripts
 
 Writes ``tests/data/jax_port_refs.json``: energies, interpolation-point
 masks and meshes of the JAX package (``fftisdf_tpu``) on the CPU in float64,
@@ -162,7 +163,9 @@ SECTIONS = {"scf": lambda r: _scf(r), "f32": lambda r: _f32_kuhf(r),
 
 def main():
     """Every section, or those named on the command line (the others keep
-    their recorded values)."""
+    their recorded values); ``examples`` writes its own file."""
+    if sys.argv[1:2] == ["examples"]:
+        return _examples(sys.argv[2:])
     _jax()
     names = sys.argv[1:] or list(SECTIONS)
     refs = {"source": "JAX package (fftisdf_tpu) on the CPU in float64, "
@@ -1230,6 +1233,117 @@ def _derivatives(refs):
         "(conv_tol 1e-10; ISDF c0 20 m0 11^3), eri_grad on he2_probe "
         "(c0 12 m0 7x7x9), and the drivers of the JAX derivative tests")
     refs["derivatives"] = out
+
+
+EXAMPLES_OUT = REPO / "tests" / "data" / "jax_example_outputs.json"
+# the arguments each JAX example script is recorded with: its defaults
+# where the CPU run takes a few minutes, reduced ones (written into the
+# record) where it would take much longer
+EXAMPLE_ARGS = {
+    "nio_afm_kuhf": ("nio_afm_kuhf", []),
+    # part A at nio_afm_kuhf's cell; its exact KUHF needs 106 cycles
+    # (tests/data/nio_afm_kuhf_exact.json), past the default 80
+    "nio_northstar": ("nio_northstar", ["--skip-b", "--ke-a", "50",
+                                        "--kmesh-a", "1", "1", "2",
+                                        "--max-cycle", "200"]),
+    "diamond_isdf": ("diamond_isdf", []),
+    "diamond_ks": ("diamond_ks", []),
+    "diamond_bands": ("diamond_bands", ["--kmesh", "1", "1", "2",
+                                        "--npoints", "2"]),
+    "molecule_in_a_box": ("molecule_in_a_box", []),
+    "molecule_in_a_box_one": ("molecule_in_a_box", ["--boxes", "9"]),
+    "thc_demo": ("thc_demo", []),
+    "thc_demo_becke": ("thc_demo", ["--becke"]),
+    "exciton_dispersion": ("exciton_dispersion", ["--kmesh", "1", "1", "2",
+                                                  "--c0", "20"]),
+    "cc_spectroscopy": ("cc_spectroscopy", []),
+    "dmet_demo": ("dmet_demo", []),
+    "relax_vibrations": ("relax_vibrations", []),
+    "relax_vibrations_isdf": ("relax_vibrations", ["--isdf"]),
+    "lih_variable_cell": ("lih_variable_cell", []),
+    "phonon_elastic": ("phonon_elastic", []),
+    "derive_atomic_basis": ("derive_atomic_basis", ["--check"]),
+    "derive_atomic_basis_radial": ("derive_atomic_basis",
+                                   ["--radial", "--check"]),
+}
+# runs a JAX example script as ``__main__`` with every FFTISDF build's
+# interpolation points and their parent mesh appended to the JSON list at
+# $JAX_EXAMPLE_MASKS, so
+# that the port can be held to the same points (selection meets exact ties
+# on symmetric cells, which two implementations break differently)
+_EXAMPLE_RUNNER = """
+import json, os, runpy, sys
+import numpy as np
+sys.path.insert(0, os.getcwd())
+from fftisdf_tpu.isdf import kpoint
+masks = []
+build = kpoint.FFTISDF.build
+def recording_build(self, *a, **k):
+    out = build(self, *a, **k)
+    masks.append({"m0": [int(v) for v in self.m0],
+                  "mask": [int(i) for i in np.asarray(self.mask)]})
+    with open(os.environ["JAX_EXAMPLE_MASKS"], "w") as f:
+        json.dump(masks, f)
+    return out
+kpoint.FFTISDF.build = recording_build
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(script, run_name="__main__")
+"""
+
+
+def _examples(names):
+    """Run each JAX example script (``examples/<name>.py``) in a process of
+    its own on the CPU in float64 with the arguments of EXAMPLE_ARGS, and
+    record its standard output (and thc_demo's standard error, which
+    holds its error report), the interpolation points of each of its
+    ISDF builds, its arguments and its seconds in
+    tests/data/jax_example_outputs.json.  tests/test_torch_examples.py
+    parses the output with the port's result patterns; names not given
+    keep their recorded entries.  nio_northstar's JSON lines go to a
+    temporary ``--out``, not to the committed artifact."""
+    import os
+    import subprocess
+    import tempfile
+    import time
+
+    names = names or list(EXAMPLE_ARGS)
+    rec = {"source": "JAX package's examples/*.py on the CPU in float64, "
+                     "written by tools/jax_port_refs.py examples",
+           "examples": {}}
+    if EXAMPLES_OUT.exists():
+        rec = json.loads(EXAMPLES_OUT.read_text())
+    rec["commit"] = subprocess.run(
+        ["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True,
+        text=True).stdout.strip()
+    for name in names:
+        script, args = EXAMPLE_ARGS[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            run_args = list(args)
+            if script == "nio_northstar":
+                run_args += ["--cpu", "--out", str(Path(tmp) / "ns.json")]
+            env = dict(os.environ, JAX_PLATFORMS="cpu",
+                       JAX_EXAMPLE_MASKS=str(Path(tmp) / "masks.json"))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _EXAMPLE_RUNNER,
+                 str(REPO / "examples" / f"{script}.py"), *run_args],
+                cwd=REPO, env=env, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise SystemExit(f"{name} failed:\n{proc.stderr[-4000:]}")
+            mpath = Path(tmp) / "masks.json"
+            masks = json.loads(mpath.read_text()) if mpath.exists() else []
+        rec["examples"][name] = {"script": f"examples/{script}.py",
+                                 "args": args, "stdout": proc.stdout,
+                                 "masks": masks,
+                                 "cpu_seconds": round(seconds, 1)}
+        if script == "thc_demo":
+            # its error report goes to the logger, on standard error
+            rec["examples"][name]["stderr"] = proc.stderr
+        print(f"{name}: {seconds:.1f}s, {len(masks)} build(s)", flush=True)
+        EXAMPLES_OUT.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {EXAMPLES_OUT}")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+from fftisdf_tpu_torch.examples import derive_atomic_basis as dab  # noqa: E402
 
 
 def main():
@@ -36,9 +37,9 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    cell = cs._ni_cell()
+    cell = dab.box_cell("Ni", 12.0, 240.0)
     kpts = cell.get_kpts([1, 1, 1])
-    kw = cs.NI_KUHF
+    kw = dab.KUHF_KW
     mf = KUHF(cell, kpts, **kw)
     e, _ = _eigh_gen(mf.h1e[0], mf.s1e[0], cutoff=mf.ovlp_cutoff)
     for s, n in enumerate(mf.nocc_ab):
