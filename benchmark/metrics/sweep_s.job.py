@@ -1,0 +1,7 @@
+"""Seconds per job of the ISDF build's ``timings["sweep_s"]`` (a device sync
+ends each), read from the program's FFTISDF object."""
+from benchmark.harness.readers import mean_timing
+
+
+def read(run):
+    return mean_timing(run, "sweep_s")
