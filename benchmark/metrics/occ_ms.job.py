@@ -1,0 +1,16 @@
+"""Device milliseconds per SCF cycle of the program's ``scf.occ`` span (the
+occupations: the 90-step chemical-potential bisection of
+``scf/core.py::smeared_occ`` per spin), over the cycles of the recorded job
+of a traced run (the window's first job run again,
+harness/program_spans.py)."""
+from benchmark.harness import program_spans as ps
+
+NAME = "occ_ms.job"
+
+
+def probe(ctx):
+    return ps.recorded_job(ctx)
+
+
+def read(run):
+    return ps.ms_per_cycle(ps.probed(run, NAME), "scf.occ")

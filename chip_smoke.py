@@ -3818,11 +3818,11 @@ def _stage_attribution(torch):
             ref = (df.mask.copy(), df.wq.cpu())
         same = (np.array_equal(df.mask, ref[0])
                 and torch.equal(df.wq.cpu(), ref[1]))
-        rows.append((profiled, dict(df._stage_s), df._t_select,
+        rows.append((profiled, dict(df._stage_s), df.timings["select_s"],
                      dict(df.timings)))
         t = df.timings
         log(f"[13a] slice build {'profiled' if profiled else 'plain   '}: "
-            f"selection {df._t_select:.3f}s, metric {t['metric_s']:.3f}s "
+            f"selection {t['select_s']:.3f}s, metric {t['metric_s']:.3f}s "
             f"(sweep_s {t['sweep_s']:.3f}, solve_s {t['solve_s']:.3f}); "
             "stages " + ", ".join(
                 f"{k} {v:.3f}" for k, v in df._stage_s.items())
@@ -3844,7 +3844,8 @@ def _stage_attribution(torch):
     st, metric = df._stage_s, df.timings["metric_s"]
     total = sum(st.values())
     log(f"[13a] production build, profiled: nip {df.nip}, selection "
-        f"{df._t_select:.3f}s, metric pass {metric:.3f}s in {df.nchunks} "
+        f"{df.timings['select_s']:.3f}s, metric pass {metric:.3f}s in "
+        f"{df.nchunks} "
         f"chunk(s), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         "stages " + ", ".join(f"{k} {v:.3f}s ({v / metric:.1%})"
                               for k, v in st.items())
@@ -3874,10 +3875,10 @@ def _trace(torch):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         with profiling.trace(tmp):
-            with profiling.phase("build"):
+            with profiling.span("build"):
                 df = FFTISDF(cell, kpts, c0=40.0, m0=(15, 15, 15),
                              verbose=0).build()
-            with profiling.phase("device-kuhf"):
+            with profiling.span("device-kuhf"):
                 mf = DeviceKUHF(cell, kpts, df, verbose=0,
                                 **dict(SCF_KW, max_cycle=TRACE_CYCLES))
                 mf.kernel()

@@ -213,7 +213,7 @@ def run(args, masks=None, out=print):
                       "de_per_atom_ha": abs(e_isdf - e_exact) / cell.natm,
                       "e_isdf_ha": e_isdf, "converged": bool(mf.converged),
                       "cycles": int(getattr(mf, "cycles", -1)),
-                      "select_s": round(getattr(df, "_t_select", -1.0), 2),
+                      "select_s": round(df.timings.get("select_s", -1.0), 2),
                       "isdf_build_s": round(t_build, 2),
                       "scf_isdf_s": round(time.perf_counter() - t0, 2)})
                 del df, mf

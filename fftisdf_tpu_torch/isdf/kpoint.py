@@ -36,6 +36,7 @@ layer applies that correction itself, at mesh points).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from types import SimpleNamespace
@@ -57,6 +58,7 @@ from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
 from fftisdf_tpu_torch.pw.poisson import eiqr
 from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
                                             real_complex, resolve_device)
+from fftisdf_tpu_torch.utils import profiling
 from fftisdf_tpu_torch.utils.logging import Logger
 
 # Selection in float64 inside a float32 build: the pool it accepts is
@@ -277,43 +279,49 @@ def _select_once(cell, kpts, m0, c0, dtype=None, select_tol=None, log=None,
             ksel, wk = None, np.ones(nk)
         else:
             wk = np.where(mirror[ksel] == ksel, 1.0, 2.0)
-        x0 = make_evaluator(cell, kpts=kpts if ksel is None else kpts[ksel],
-                            dtype=torch.float64, device=device)(coords0)
+        with profiling.span("isdf.select.ao"):
+            x0 = make_evaluator(
+                cell, kpts=kpts if ksel is None else kpts[ksel],
+                dtype=torch.float64, device=device)(coords0)
         nku = x0.shape[0]
-        flat = x0.permute(1, 0, 2).reshape(ng0, nku * nao)
-        flat = flat * torch.as_tensor(np.repeat(np.sqrt(wk), nao),
-                                      dtype=torch.float64, device=device)
         # ~15% past the requested rank: the rank is otherwise capped at
         # max_rank and a saturated pool could not be told from a full one
         rank_cap = min(int(max_rank * 1.15) + 8, ng0)
-        piv, rank, hist = pivoted_cholesky_pairgram(flat, nk, rank_cap,
-                                                    tol=select_tol)
-        del flat
+        with profiling.span("isdf.select.pivot"):
+            flat = x0.permute(1, 0, 2).reshape(ng0, nku * nao)
+            flat = flat * torch.as_tensor(np.repeat(np.sqrt(wk), nao),
+                                          dtype=torch.float64, device=device)
+            piv, rank, hist = pivoted_cholesky_pairgram(flat, nk, rank_cap,
+                                                        tol=select_tol)
+            del flat
         x0 = x0.to(cdt)
     else:
-        x0 = make_evaluator(cell, kpts=kpts, dtype=rdt,
-                            device=device)(coords0)
+        with profiling.span("isdf.select.ao"):
+            x0 = make_evaluator(cell, kpts=kpts, dtype=rdt,
+                                device=device)(coords0)
         # K1 gives |G|^2 / nk^2; times nk this is the JAX CPU path's
         # (Re G)^2 / nk wherever the k-mesh is closed under k -> -k (there
         # Im G = 0).  The pivot threshold is relative: same pivots.
-        x4 = pair_gram_sq(x0, square=False) * nk
+        with profiling.span("isdf.select.k1"):
+            x4 = pair_gram_sq(x0, square=False) * nk
         rank_cap = max_rank
-        if f64_build:
-            _, piv, rank, hist = pivoted_cholesky(x4, max_rank=max_rank,
-                                                  tol=select_tol)
-        else:
-            # float32 rank detection is noise-limited (the Schur diagonal
-            # goes non-positive long before the true rank), so selection
-            # takes all max_rank greedy pivots; the ridge fit damps the
-            # redundant directions
-            piv, rank_fp, hist = pivot_selection(
-                x4, max_rank=max_rank,
-                tol=0.0 if select_tol is None else select_tol)
-            log.debug("select: float32 fp-rank %d of %d pivots (all are "
-                      "kept)", rank_fp, max_rank)
-            rank = max_rank
-        del x4
-        piv, hist = piv.cpu().numpy(), hist.cpu().numpy()
+        with profiling.span("isdf.select.pivot"):
+            if f64_build:
+                _, piv, rank, hist = pivoted_cholesky(x4, max_rank=max_rank,
+                                                      tol=select_tol)
+            else:
+                # float32 rank detection is noise-limited (the Schur
+                # diagonal goes non-positive long before the true rank), so
+                # selection takes all max_rank greedy pivots; the ridge fit
+                # damps the redundant directions
+                piv, rank_fp, hist = pivot_selection(
+                    x4, max_rank=max_rank,
+                    tol=0.0 if select_tol is None else select_tol)
+                log.debug("select: float32 fp-rank %d of %d pivots (all "
+                          "are kept)", rank_fp, max_rank)
+                rank = max_rank
+            del x4
+            piv, hist = piv.cpu().numpy(), hist.cpu().numpy()
     nip = min(int(nao * c0), rank)
     # saturation: the requested compression is within 10% of the parent
     # grid's numerical pair-density rank.  It is read before the near-null
@@ -380,8 +388,7 @@ def _rhs_block(f_k, x_k, phase, phase_cols):
 
 
 def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
-               rcond=1e-10, refine=0, col_block=128, neg_cols=None,
-               tick=None):
+               rcond=1e-10, refine=0, col_block=128, neg_cols=None):
     """One momentum sector's metric w_q (nip, nip) from its normal matrix
     ``x4_q``, its RHS ``y_q`` (ngrid, nip), the Coulomb kernel and the
     e^{iqr} phases.
@@ -399,33 +406,30 @@ def _sector_wq(x4_q, y_q, coulG_q, eiqr_q, mesh, vol, solver="ridge",
     takes |coulG|, so each such column a enters the gram as +a a^H where
     the metric wants -a a^H: 2 a a^H is taken off again.
 
-    ``tick``: called with the name of each build stage as it ends
-    ('factors', 'sweep', 'spectral', 'gram'; see
-    ``FFTISDF(profile_build=)``); it changes no arithmetic."""
-    if tick is None:
-        def tick(_):
-            pass
+    Spans ``isdf.solve.factor``, ``.apply``, ``.fft`` and ``.gram`` mark
+    its stages (see ``FFTISDF(profile_build=)``)."""
     ngrid, nip = y_q.shape
-    data = half_factor_data(x4_q, method=solver, rcond=rcond, refine=refine)
-    tick("factors")
-    gt = half_apply_rows(data, y_q)                      # (ngrid, nip) = g^T
-    tick("sweep")
-    gt.mul_(eiqr_q.conj()[:, None])
-    sq = torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
-    mesh = tuple(int(m) for m in mesh)
-    for c0 in range(0, nip, col_block):
-        c1 = min(c0 + col_block, nip)
-        slab = gt[:, c0:c1].T                            # (cb, ngrid) rows
-        gt[:, c0:c1] = (fft3(slab, mesh) * sq[None, :]).T
-    tick("spectral")
-    # h h^H = gt^T conj(gt) = conj(gt^H gt)
-    m = torch.matmul(gt.mH, gt).conj().resolve_conj()
-    if neg_cols is not None and len(neg_cols):
-        a = gt[neg_cols]                                 # (nneg, nip)
-        m -= 2.0 * (a.T @ a.conj())
-    del gt
-    wq = finish_apply(data, m)
-    tick("gram")
+    with profiling.span("isdf.solve.factor"):
+        data = half_factor_data(x4_q, method=solver, rcond=rcond,
+                                refine=refine)
+    with profiling.span("isdf.solve.apply"):
+        gt = half_apply_rows(data, y_q)                  # (ngrid, nip) = g^T
+    with profiling.span("isdf.solve.fft"):
+        gt.mul_(eiqr_q.conj()[:, None])
+        sq = torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
+        mesh = tuple(int(m) for m in mesh)
+        for c0 in range(0, nip, col_block):
+            c1 = min(c0 + col_block, nip)
+            slab = gt[:, c0:c1].T                        # (cb, ngrid) rows
+            gt[:, c0:c1] = (fft3(slab, mesh) * sq[None, :]).T
+    with profiling.span("isdf.solve.gram"):
+        # h h^H = gt^T conj(gt) = conj(gt^H gt)
+        m = torch.matmul(gt.mH, gt).conj().resolve_conj()
+        if neg_cols is not None and len(neg_cols):
+            a = gt[neg_cols]                             # (nneg, nip)
+            m -= 2.0 * (a.T @ a.conj())
+        del gt
+        wq = finish_apply(data, m)
     return wq
 
 
@@ -441,6 +445,20 @@ def _sector_wq_reference(x4_q, y_q, coulG_q, eiqr_q, mesh, vol,
     gf = fft3(g * eiqr_q.conj()[None, :], mesh)
     h = gf * torch.sqrt(coulG_q.abs() * (vol / float(ngrid) ** 2))
     return finish((h * torch.sign(coulG_q)[None, :]) @ h.mH)
+
+
+# the build's spans that count the work of each of the JAX package's
+# profile_build stage keys (FFTISDF docstring)
+STAGE_SPANS = {"factors": ("isdf.factors", "isdf.solve.factor"),
+               "sweep": ("isdf.sweep", "isdf.solve.apply"),
+               "spectral": ("isdf.solve.fft",),
+               "gram": ("isdf.solve.gram",)}
+
+
+def stage_seconds(spans):
+    """``_stage_s`` from recorded spans: device seconds by stage key."""
+    return {key: sum(s["device_s"] for s in spans if s["name"] in names)
+            for key, names in STAGE_SPANS.items()}
 
 
 def _trs_sectors(cell, kpts, use_trs=True):
@@ -493,33 +511,35 @@ class FFTISDF:
       dtype          torch.float64 (None, the default on every device) or
                      torch.float32
       validate       check the stripe-reality invariant at build time
-      profile_build  per-stage wall-clock attribution of the metric pass:
-                     the device is synchronised at the end of every stage
-                     of every sector, which serialises the queue (use for
-                     attribution runs, not for headline timings)
+      profile_build  per-stage attribution of the build: its spans are
+                     recorded (``utils.profiling``; CUDA events on the
+                     card, no extra sync) and fill ``_stage_s``
       device         'cuda' (the default) or 'cpu'
 
     After :meth:`build`, ``timings`` holds ``select_s``, ``metric_s``,
     ``build_s`` and the chunk-level ``sweep_s`` / ``solve_s`` (one sync
-    after each chunk's sweep and after its solves, profiled or not), and
-    ``_stage_s`` the JAX package's stage keys, with ``_t_select`` the
-    selection seconds.  Each key counts the work that the JAX package
-    counts under it:
+    after each chunk's sweep and after its solves, profiled or not).  The
+    build's spans (recorded only while ``utils.profiling.recording`` is
+    on) are ``isdf.build`` › ``isdf.select`` (› ``.ao``, ``.k1``,
+    ``.pivot``), ``isdf.factors``, and per chunk ``isdf.sweep`` (›
+    ``.ao``, ``.rhs``) and ``isdf.solve`` (› per sector ``.factor``,
+    ``.apply``, ``.fft``, ``.gram``).  Under ``profile_build``, ``_stage_s``
+    holds the JAX package's stage keys, the device seconds of the spans
+    that count the work the JAX package counts under each (empty without
+    it):
 
-      factors   ``_stripe_quartic`` (the normal matrices; the JAX package
-                forms them per chunk inside its factor stage) and every
-                sector's ``half_factor_data``
-      sweep     ``_rhs_block`` over the grid blocks, and every sector's
-                ``half_apply_rows`` (the JAX package half-applies inside
-                its sweep body)
-      spectral  the e^{-iqr} phase, the FFT slabs and the sqrt-kernel
-                scaling
-      gram      the ``gt^H gt`` product, the ``neg_cols`` term and
-                ``finish_apply``
+      factors   ``isdf.factors`` (``_stripe_quartic``, the normal
+                matrices; the JAX package forms them per chunk inside its
+                factor stage) and every sector's ``isdf.solve.factor``
+      sweep     ``isdf.sweep`` (``_rhs_block`` over the grid blocks), and
+                every sector's ``isdf.solve.apply`` (the JAX package
+                half-applies inside its sweep body)
+      spectral  ``isdf.solve.fft``: the e^{-iqr} phase, the FFT slabs and
+                the sqrt-kernel scaling
+      gram      ``isdf.solve.gram``: the ``gt^H gt`` product, the
+                ``neg_cols`` term and ``finish_apply``
 
-    Without ``profile_build`` the stage clocks are read with no extra
-    sync, so inside a chunk they measure the host's dispatch (as the JAX
-    package's do); ``wq`` is bitwise the same either way.
+    ``wq`` is bitwise the same either way.
     """
 
     def __init__(self, cell, kpts, c0=20.0, m0="auto", k0=None, m0_pool=2.5,
@@ -578,7 +598,6 @@ class FFTISDF:
         self._kconserv3 = None
         self.timings = {}
         self._stage_s = {}
-        self._t_select = None
         self.nchunks = 0
 
     @classmethod
@@ -633,21 +652,30 @@ class FFTISDF:
         which two implementations break differently, so a comparison of
         the two packages past selection needs the same mask."""
         dev = self.device
-        t_all = time.perf_counter()
-        self.dev_mesh = None
-        self.x_k, self.mask, self.m0 = self._select(mask)
-        _sync(dev)
-        t_sel = self._t_select = time.perf_counter() - t_all
-        if self.validate:
-            self._validate_stripe()
-        self.timings = {}
-        self._wq_omega = {}
-        self._ws = None
-        self.wq = self._metric_pass(omega=0.0)
-        _sync(dev)
-        total = time.perf_counter() - t_all
+        with (profiling.recording(dev) if self.profile_build
+              else contextlib.nullcontext()) as rec, \
+                profiling.span("isdf.build"):
+            t_all = time.perf_counter()
+            self.dev_mesh = None
+            with profiling.span("isdf.select"):
+                self.x_k, self.mask, self.m0 = self._select(mask)
+                _sync(dev)
+            t_sel = time.perf_counter() - t_all
+            if self.validate:
+                self._validate_stripe()
+            self.timings = {}
+            self._wq_omega = {}
+            self._ws = None
+            self.wq = self._metric_pass(omega=0.0)
+            _sync(dev)
+            total = time.perf_counter() - t_all
         self.timings.update(select_s=t_sel, metric_s=total - t_sel,
                             build_s=total)
+        self._stage_s = {} if rec is None else stage_seconds(rec.spans())
+        if rec is not None:
+            self._log.info("build: stage attribution %s (+ selection "
+                           "%.2fs)", {k: round(v, 3) for k, v in
+                                      self._stage_s.items()}, t_sel)
         self._log.info("build: total %.2fs", total)
         return self
 
@@ -799,19 +827,22 @@ class FFTISDF:
         phase_cols = p.phase[:, p.qsel_t[q0:q1]]
         for b0 in range(g0, g1, blk):
             b1 = min(b0 + blk, g1)
-            y = _rhs_block(p.fn(p.coords_t[b0:b1]), p.x_sw, p.phase_sw,
-                           phase_cols)
-            for i, y_q in enumerate(out):
-                y_q[b0 - g0:b1 - g0] = y[i]
-            del y
+            with profiling.span("isdf.sweep.ao"):
+                f_k = p.fn(p.coords_t[b0:b1])
+            with profiling.span("isdf.sweep.rhs"):
+                y = _rhs_block(f_k, p.x_sw, p.phase_sw, phase_cols)
+                del f_k
+                for i, y_q in enumerate(out):
+                    y_q[b0 - g0:b1 - g0] = y[i]
+                del y
 
-    def _solve_sector(self, p, x4_k, iq, y_q, tick=None):
+    def _solve_sector(self, p, x4_k, iq, y_q):
         """w_q of canonical sector ``iq`` (a position in ``p.qsel``) from its
         RHS plane ``y_q`` (ngrid, nip), which it overwrites."""
         return _sector_wq(x4_k[p.qsel[iq]], y_q, p.coulG[iq], p.ph[iq],
                           p.mesh, p.vol, solver=self.solver,
                           rcond=self.rcond, refine=self.refine,
-                          neg_cols=p.neg_cols[iq], tick=tick)
+                          neg_cols=p.neg_cols[iq])
 
     def _metric_pass(self, omega=0.0):
         """RHS grid sweep + per-sector solve / FFT kernel / gram, chunked
@@ -842,52 +873,34 @@ class FFTISDF:
                  ngrid * nip * cdt.itemsize / 1e9, budget / 1e9)
         wq_sel = torch.empty((nsec, nip, nip), dtype=cdt, device=dev)
 
-        # chunk times: one device sync after each chunk's sweep and solves;
-        # stage times (the JAX package's keys): a sync at every stage's
-        # end only under profile_build
-        prof = {"factors": 0.0, "sweep": 0.0, "spectral": 0.0, "gram": 0.0}
-        t_mark = time.perf_counter()
-
-        def tick(name):
-            nonlocal t_mark
-            if self.profile_build:
-                _sync(dev)
-            t = time.perf_counter()
-            prof[name] += t - t_mark
-            t_mark = t
-
-        t0 = t_mark
-        x4_k = _stripe_quartic(self.x_k, p.phase)
-        tick("factors")
+        # chunk times: one device sync after each chunk's sweep and solves
+        t0 = time.perf_counter()
+        with profiling.span("isdf.factors"):
+            x4_k = _stripe_quartic(self.x_k, p.phase)
         stage = {"sweep_s": 0.0, "solve_s": 0.0}
         nchunks = 0
         for q0 in range(0, nsec, qchunk):
             q1 = min(q0 + qchunk, nsec)
             nchunks += 1
             t_c = time.perf_counter()
-            ys = [torch.empty((ngrid, nip), dtype=cdt, device=dev)
-                  for _ in range(q1 - q0)]
-            self._sweep_rows(p, q0, q1, 0, ngrid, blk, ys)
-            _sync(dev)
-            tick("sweep")
+            with profiling.span("isdf.sweep"):
+                ys = [torch.empty((ngrid, nip), dtype=cdt, device=dev)
+                      for _ in range(q1 - q0)]
+                self._sweep_rows(p, q0, q1, 0, ngrid, blk, ys)
+                _sync(dev)
             stage["sweep_s"] += time.perf_counter() - t_c
             t_c = time.perf_counter()
-            for i in range(q1 - q0):
-                y_q = ys[i]
-                ys[i] = None      # the solve overwrites and releases it
-                wq_sel[q0 + i] = self._solve_sector(p, x4_k, q0 + i, y_q,
-                                                    tick)
-                del y_q
-            _sync(dev)
+            with profiling.span("isdf.solve"):
+                for i in range(q1 - q0):
+                    y_q = ys[i]
+                    ys[i] = None  # the solve overwrites and releases it
+                    wq_sel[q0 + i] = self._solve_sector(p, x4_k, q0 + i,
+                                                        y_q)
+                    del y_q
+                _sync(dev)
             stage["solve_s"] += time.perf_counter() - t_c
         self.nchunks = nchunks
         self.timings.update(stage)
-        self._stage_s = prof
-        if self.profile_build:
-            log.info("build: stage attribution %s (+ selection %.2fs)",
-                     {k: round(v, 3) for k, v in prof.items()},
-                     self._t_select if self._t_select is not None
-                     else float("nan"))
         # scatter canonical sectors and their conjugate mirrors.  w_q is
         # not symmetrised: on even FFT meshes the discrete Coulomb operator
         # carries a small skew part that the exact oracle shares.

@@ -264,7 +264,7 @@ def build_sharded(df, mesh, mask=None):
     df.x_k = mesh.broadcast(x_k)
     df.mask, df.m0 = mask.cpu().numpy(), m0
     _sync(dev)
-    t_sel = df._t_select = time.perf_counter() - t_all
+    t_sel = time.perf_counter() - t_all
     df.dev_mesh = mesh
     df.timings = {}
     df._wq_omega = {}

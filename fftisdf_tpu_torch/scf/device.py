@@ -21,6 +21,15 @@ asked for); J/K are served in the provider's own precision and cast.  A
 float32 loop's energy reduction is float32-granular (~6e-5 Ha at
 |E| ~ 340), so the converged energy and orbitals are recomputed once on
 the host in f64 either way.
+
+Spans (``utils.profiling``, recorded only while it is on): ``scf.kernel``
+› ``scf.prepare`` (the bases, the metric, the guess), one ``scf.cycle``
+per cycle (› ``scf.jk``, ``scf.xc`` in the KS drivers, ``scf.diis`` ›
+``scf.cdiis``/``scf.adiis``, ``scf.eigh``, ``scf.occ``, ``scf.fetch``)
+and ``scf.finish`` (the host f64 recompute); the counter
+``scf.adiis_taken`` (cycles that took ADIIS, read from the vector each
+cycle fetches anyway; the ``scf.adiis`` spans count those that computed
+it).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from fftisdf_tpu_torch.isdf import jk as jk_mod
 from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
 from fftisdf_tpu_torch.scf import core
 from fftisdf_tpu_torch.scf.hf import KUHF, _eigh_gen
+from fftisdf_tpu_torch.utils import profiling
 from fftisdf_tpu_torch.utils.device import as_tensor, real_complex, to_numpy
 
 # Dropped (near-null) overlap directions keep their column, which is zero
@@ -66,7 +76,7 @@ def orth_and_penalty(s1e, cutoff):
 def _diis_update(errs, focks, dms, ok, n, err, fock, dm, adiis_switch,
                  allow_adiis):
     """Store one (error, fock, density) row in the ring buffer and return
-    ``(extrapolated fock (L,), n + 1)``.
+    ``(extrapolated fock (L,), n + 1, ADIIS taken)``.
 
     errs/focks/dms: (m, L) complex tensors and ok: (m,) bool tensor (the
     slot may enter the ADIIS hull), all written in place; n: rows stored
@@ -74,7 +84,8 @@ def _diis_update(errs, focks, dms, ok, n, err, fock, dm, adiis_switch,
     |FDS - SDF| > ``adiis_switch`` (chosen on the device, no fetch), CDIIS
     after.  Rows stored while ``allow_adiis`` was False (bias cycles)
     never enter the ADIIS hull, as in the host DIIS.  Nothing is copied
-    from the host: the masks are made on the device."""
+    from the host: the masks are made on the device.  The third value is
+    the bool tensor "ADIIS taken", None where ADIIS was not computed."""
     m = errs.shape[0]
     idx = n % m
     errs[idx] = err
@@ -82,15 +93,17 @@ def _diis_update(errs, focks, dms, ok, n, err, fock, dm, adiis_switch,
     dms[idx] = dm
     ok[idx] = bool(allow_adiis)
     n += 1
-    live = torch.arange(m, device=errs.device) < n
-    fock_c = core.diis_extrapolate(errs, focks, live)
+    with profiling.span("scf.cdiis"):
+        live = torch.arange(m, device=errs.device) < n
+        fock_c = core.diis_extrapolate(errs, focks, live)
     if adiis_switch > 0.0 and allow_adiis:
-        hull = live & ok
-        c_a = core.adiis_coeffs(dms, focks, idx, hull)
-        fock_a = c_a.to(focks.dtype) @ focks
-        use_a = (err.abs().max() > adiis_switch) & (hull.sum() >= 2)
-        return torch.where(use_a, fock_a, fock_c), n
-    return fock_c, n
+        with profiling.span("scf.adiis"):
+            hull = live & ok
+            c_a = core.adiis_coeffs(dms, focks, idx, hull)
+            fock_a = c_a.to(focks.dtype) @ focks
+            use_a = (err.abs().max() > adiis_switch) & (hull.sum() >= 2)
+            return torch.where(use_a, fock_a, fock_c), n, use_a
+    return fock_c, n, None
 
 
 def _smeared_occ(e, ok, nocc, sigma, factor, method="fermi"):
@@ -137,10 +150,11 @@ class DeviceKUHF(KUHF):
         nk = h1e.shape[0]
         cdt = h1e.dtype
         dm_s = dm.to(x_k.dtype)       # the provider's precision
-        vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
-        vk = jk_mod.get_k_kpts_img(
-            x_k, ws, dm_s, self._kmesh, phase_cs=self._phase_cs,
-            mesh=getattr(self.with_df, "dev_mesh", None)).to(cdt)
+        with profiling.span("scf.jk"):
+            vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
+            vk = jk_mod.get_k_kpts_img(
+                x_k, ws, dm_s, self._kmesh, phase_cs=self._phase_cs,
+                mesh=getattr(self.with_df, "dev_mesh", None)).to(cdt)
         vj_tot = vj[0] + vj[1]
         fock = torch.stack([h1e + vj_tot - vk[0], h1e + vj_tot - vk[1]])
         dm_t = dm.transpose(-1, -2)
@@ -150,7 +164,6 @@ class DeviceKUHF(KUHF):
         return fock, e_elec
 
     def kernel(self, dm0=None):
-        log = self._log
         df = self.with_df
         if getattr(df, "x_k", None) is None:
             raise ValueError("DeviceKUHF needs a built FFTISDF J/K provider")
@@ -162,38 +175,49 @@ class DeviceKUHF(KUHF):
             raise NotImplementedError(
                 f"exxdiv={self.exxdiv!r} in the device-resident loop: use "
                 "the host loop (scf.hf.KUHF)")
-        dev = df.device
-        nk, nao = self.h1e.shape[:2]
-        na, nb = self.nocc_ab
-        rdt, cdt = real_complex(self.dtype)
-        cplx = lambda a: as_tensor(a, dev, cdt)
-        x_np, pen_np = orth_and_penalty(self.s1e, self.ovlp_cutoff)
-        h1e, s1e, xo = cplx(self.h1e), cplx(self.s1e), cplx(x_np)
-        xo_h = xo.mH
-        dropped = torch.as_tensor(pen_np > 0, device=dev)
-        bias = cplx(self._bias_matrices())
-        self._kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
-        # the serve reads w0 = wq[0] (a view) and, for exact exchange only,
-        # the image-space metric; the full wq is never copied
-        x_k, w0 = df.x_k, df.wq[0]
-        ws = df.get_ws() if self._needs_exx() else None
-        self._phase_cs = jk_mod._phase_cs(
-            self._kmesh, real_complex(w0.dtype)[0], dev)
-        veff_extra = self._veff_args()
+        with profiling.span("scf.kernel"):
+            return self._kernel(dm0)
 
-        m = self.diis_space
-        L = 2 * nk * nao * nao
-        errs, focks, dms = (torch.zeros((m, L), dtype=cdt, device=dev)
-                            for _ in range(3))
-        ok = torch.zeros(m, dtype=torch.bool, device=dev)
-        n = 0
-        sigma = float(self.smearing)
-        e_nuc = float(self.e_nuc)
-        # a caller-provided density already encodes its magnetic basin:
-        # the symmetry-breaking bias is for the initial guess only
-        bias_cycles = int(self.bias_cycles) if dm0 is None else 0
-        damp = float(self.damp)
-        has_bias = bool(self.init_spin)
+    def _kernel(self, dm0):
+        log = self._log
+        df = self.with_df
+        span = profiling.span
+        with span("scf.prepare"):
+            dev = df.device
+            nk, nao = self.h1e.shape[:2]
+            na, nb = self.nocc_ab
+            rdt, cdt = real_complex(self.dtype)
+            cplx = lambda a: as_tensor(a, dev, cdt)
+            x_np, pen_np = orth_and_penalty(self.s1e, self.ovlp_cutoff)
+            h1e, s1e, xo = cplx(self.h1e), cplx(self.s1e), cplx(x_np)
+            xo_h = xo.mH
+            dropped = torch.as_tensor(pen_np > 0, device=dev)
+            bias = cplx(self._bias_matrices())
+            self._kmesh = kpt_mod.kpts_to_kmesh(self.cell, self.kpts)
+            # the serve reads w0 = wq[0] (a view) and, for exact exchange only,
+            # the image-space metric; the full wq is never copied
+            x_k, w0 = df.x_k, df.wq[0]
+            ws = df.get_ws() if self._needs_exx() else None
+            self._phase_cs = jk_mod._phase_cs(
+                self._kmesh, real_complex(w0.dtype)[0], dev)
+            veff_extra = self._veff_args()
+
+            m = self.diis_space
+            L = 2 * nk * nao * nao
+            errs, focks, dms = (torch.zeros((m, L), dtype=cdt, device=dev)
+                                for _ in range(3))
+            ok = torch.zeros(m, dtype=torch.bool, device=dev)
+            n = 0
+            sigma = float(self.smearing)
+            e_nuc = float(self.e_nuc)
+            # a caller-provided density already encodes its magnetic basin:
+            # the symmetry-breaking bias is for the initial guess only
+            bias_cycles = int(self.bias_cycles) if dm0 is None else 0
+            damp = float(self.damp)
+            has_bias = bool(self.init_spin)
+            # "ADIIS taken" of a cycle that did not compute ADIIS
+            no_adiis = torch.zeros((), dtype=rdt, device=dev)
+            dm = cplx(self.get_init_guess() if dm0 is None else dm0)
 
         def step(dm, it):
             fock, e_elec = self._trace_veff(dm, x_k, w0, ws, h1e,
@@ -201,45 +225,53 @@ class DeviceKUHF(KUHF):
             e_tot = e_elec + e_nuc
             err = fock @ dm @ s1e - s1e @ dm @ fock
             allow_adiis = (not has_bias) or it >= bias_cycles
-            fock_x, n_new = _diis_update(
-                errs, focks, dms, ok, n, err.reshape(-1), fock.reshape(-1),
-                dm.reshape(-1), float(self.adiis_switch), allow_adiis)
+            with span("scf.diis"):
+                fock_x, n_new, use_a = _diis_update(
+                    errs, focks, dms, ok, n, err.reshape(-1),
+                    fock.reshape(-1), dm.reshape(-1),
+                    float(self.adiis_switch), allow_adiis)
             fock = fock_x.reshape(fock.shape)
             if it < bias_cycles:
                 fock = fock + bias
-            fo = xo_h @ fock @ xo
-            bound = fo.abs().sum(dim=-1).amax(dim=-1, keepdim=True)
-            pen = torch.where(dropped, 2.0 * bound + 1.0, 0.0)
-            e, c = torch.linalg.eigh(fo + torch.diag_embed(pen).to(cdt))
-            valid = e < 1.5 * bound + 0.5
-            occs, ent = [], torch.zeros((), dtype=rdt, device=dev)
-            for sp, nocc in ((0, na), (1, nb)):
-                if sigma > 0.0:
-                    occ_s, ent_s = _smeared_occ(e[sp], valid[sp], nocc,
-                                                sigma, 1.0,
-                                                method=self.smearing_method)
-                else:
-                    occ_s, ent_s = _fixed_occ(e[sp], valid[sp], nocc, 1.0)
-                occs.append(occ_s)
-                ent = ent + ent_s
+            with span("scf.eigh"):
+                fo = xo_h @ fock @ xo
+                bound = fo.abs().sum(dim=-1).amax(dim=-1, keepdim=True)
+                pen = torch.where(dropped, 2.0 * bound + 1.0, 0.0)
+                e, c = torch.linalg.eigh(fo + torch.diag_embed(pen).to(cdt))
+                valid = e < 1.5 * bound + 0.5
+            with span("scf.occ"):
+                occs, ent = [], torch.zeros((), dtype=rdt, device=dev)
+                for sp, nocc in ((0, na), (1, nb)):
+                    if sigma > 0.0:
+                        occ_s, ent_s = _smeared_occ(
+                            e[sp], valid[sp], nocc, sigma, 1.0,
+                            method=self.smearing_method)
+                    else:
+                        occ_s, ent_s = _fixed_occ(e[sp], valid[sp], nocc,
+                                                  1.0)
+                    occs.append(occ_s)
+                    ent = ent + ent_s
             mo = xo @ c
             dm_new = (mo * torch.stack(occs)[:, :, None, :].to(cdt)) \
                 @ mo.mH
             if damp:
                 dm_new = (1.0 - damp) * dm_new + damp * dm
             ddm = (dm_new - dm).abs().max()
-            return dm_new, torch.stack([e_tot, ddm, ent]), n_new
+            took = no_adiis if use_a is None else use_a.to(rdt)
+            return dm_new, torch.stack([e_tot, ddm, ent, took]), n_new
 
-        dm = cplx(self.get_init_guess() if dm0 is None else dm0)
         e_last, self.converged = 0.0, False
         it = -1
         self.cycle_times = []
         for it in range(self.max_cycle):
-            t0 = time.perf_counter()
-            dm, stats, n = step(dm, it)
-            e_tot, ddm, ent = (float(v) for v in stats.cpu())
-            de = abs(e_tot - e_last)
-            self.cycle_times.append(time.perf_counter() - t0)
+            with span("scf.cycle"):
+                t0 = time.perf_counter()
+                dm, stats, n = step(dm, it)
+                with span("scf.fetch"):
+                    e_tot, ddm, ent, took = (float(v) for v in stats.cpu())
+                de = abs(e_tot - e_last)
+                self.cycle_times.append(time.perf_counter() - t0)
+            profiling.count("scf.adiis_taken", int(took))
             log.info("dSCF it %2d  E = %.10f  dE = %.2e  |ddm| = %.2e "
                      "(%.3fs)", it, e_tot, de, ddm, self.cycle_times[-1])
             e_last = e_tot
@@ -251,16 +283,18 @@ class DeviceKUHF(KUHF):
         self.cycles = it + 1
         # the energy and orbitals of the converged density, once, on the
         # host in f64 (the attributes the host loop provides)
-        self.dm = to_numpy(dm)
-        fock, vj, vk = self.get_fock(self.dm)
-        self.e_tot = float(self.energy_elec(self.dm, vj, vk) + self.e_nuc)
-        self.e_free = self.e_tot - sigma * self.entropy / nk
-        es, cs, occs, _, _, mus = self._solve_fock(fock)
-        self.mo_energy = np.asarray(es)
-        self.mo_coeff = np.asarray(cs)
-        self.mo_occ = np.asarray(occs)
-        if mus:
-            self.mu = tuple(mus)
+        with span("scf.finish"):
+            self.dm = to_numpy(dm)
+            fock, vj, vk = self.get_fock(self.dm)
+            self.e_tot = float(self.energy_elec(self.dm, vj, vk)
+                               + self.e_nuc)
+            self.e_free = self.e_tot - sigma * self.entropy / nk
+            es, cs, occs, _, _, mus = self._solve_fock(fock)
+            self.mo_energy = np.asarray(es)
+            self.mo_coeff = np.asarray(cs)
+            self.mo_occ = np.asarray(occs)
+            if mus:
+                self.mu = tuple(mus)
         return self.e_tot
 
 

@@ -39,7 +39,7 @@ from fftisdf_tpu_torch.scf.core import (adiis_coeffs, diis_extrapolate,
 from fftisdf_tpu_torch.utils.device import (as_tensor, free_memory_bytes,
                                             real_complex, resolve_device,
                                             to_numpy)
-from fftisdf_tpu_torch.utils import serialization
+from fftisdf_tpu_torch.utils import profiling, serialization
 from fftisdf_tpu_torch.utils.logging import Logger
 
 
@@ -248,9 +248,10 @@ class KRHF:
         # setup's; the exact oracle's own is reused instead (_get_ao)
         keep = (self._keeps_ao() and with_df is not None
                 and not isinstance(with_df, PWDF))
-        self.s1e, self.h1e, self._ao = _setup_one_electron(
-            cell, self.kpts, self.device, self._log, dtype=self.dtype,
-            trunc=trunc, keep_ao=keep)
+        with profiling.span("scf.one_electron"):
+            self.s1e, self.h1e, self._ao = _setup_one_electron(
+                cell, self.kpts, self.device, self._log, dtype=self.dtype,
+                trunc=trunc, keep_ao=keep)
         self.e_nuc = (integrals.energy_nuc_trunc(cell, trunc)
                       if trunc is not None else integrals.ewald(cell))
         if self.with_df is None:

@@ -28,6 +28,7 @@ from fftisdf_tpu_torch.scf import hubbard as hub_mod
 from fftisdf_tpu_torch.scf import xc as xc_mod
 from fftisdf_tpu_torch.scf.device import DeviceKRHF, DeviceKUHF
 from fftisdf_tpu_torch.scf.hf import KRHF, KUHF
+from fftisdf_tpu_torch.utils import profiling
 from fftisdf_tpu_torch.utils.device import as_tensor, real_complex, to_numpy
 
 
@@ -321,12 +322,14 @@ class _DeviceKSVeff:
         nk = h1e.shape[0]
         cdt = h1e.dtype
         dm_s = dm.to(x_k.dtype)       # the provider's precision
-        vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
+        with profiling.span("scf.jk"):
+            vj = jk_mod.get_j_kpts(x_k, w0, dm_s).to(cdt)
         vj_tot = vj[0] + vj[1]
-        exc, vxc, _, _, _ = xc_mod.xc_pass(
-            ao, dm.to(ao.dtype), gv, spec, self._fmesh, self._xc_weight, nk,
-            2, coords=coords, kpts=kpts_arr)
-        vxc = vxc.to(cdt)
+        with profiling.span("scf.xc"):
+            exc, vxc, _, _, _ = xc_mod.xc_pass(
+                ao, dm.to(ao.dtype), gv, spec, self._fmesh, self._xc_weight,
+                nk, 2, coords=coords, kpts=kpts_arr)
+            vxc = vxc.to(cdt)
         dm_t = dm.transpose(-1, -2)
         e1 = (dm_t * h1e).sum().real / nk
         ecoul = (dm_t * vj_tot).sum().real / (2 * nk)
@@ -335,14 +338,15 @@ class _DeviceKSVeff:
         if spec.hyb or spec.hyb_sr:
             vk_eff = 0.0
             mesh = getattr(self.with_df, "dev_mesh", None)
-            if spec.hyb:
-                vk_eff = spec.hyb * jk_mod.get_k_kpts_img(
-                    x_k, ws, dm_s, self._kmesh, phase_cs=self._phase_cs,
-                    mesh=mesh).to(cdt)
-            if spec.hyb_sr:
-                vk_eff = vk_eff + spec.hyb_sr * jk_mod.get_k_kpts_img(
-                    x_k, ws_sr, dm_s, self._kmesh, phase_cs=self._phase_cs,
-                    mesh=mesh).to(cdt)
+            with profiling.span("scf.jk"):
+                if spec.hyb:
+                    vk_eff = spec.hyb * jk_mod.get_k_kpts_img(
+                        x_k, ws, dm_s, self._kmesh,
+                        phase_cs=self._phase_cs, mesh=mesh).to(cdt)
+                if spec.hyb_sr:
+                    vk_eff = vk_eff + spec.hyb_sr * jk_mod.get_k_kpts_img(
+                        x_k, ws_sr, dm_s, self._kmesh,
+                        phase_cs=self._phase_cs, mesh=mesh).to(cdt)
             fock = fock - vk_eff
             e_elec = e_elec - 0.5 * (dm_t * vk_eff).sum().real / nk
         if shalf is not None:

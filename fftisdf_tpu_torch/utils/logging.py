@@ -1,14 +1,14 @@
-"""Minimal leveled logger with wall-clock timers.
+"""Minimal leveled logger.
 
-The port's copy of the JAX package's ``fftisdf_tpu/utils/logging.py``.
-Keeps the reference's observability UX: per-phase timer lines and resource
+The port's copy of the JAX package's ``fftisdf_tpu/utils/logging.py``
+without its timer (wall-clock lines are ``utils.profiling.span(log=)``'s).
+Keeps the reference's observability UX: per-phase lines and resource
 estimates (``fftisdf.py:56-69,89,122``) without external deps.
 Levels follow the reference's verbose convention (0 quiet, 3 info, 5 debug).
 """
 from __future__ import annotations
 
 import sys
-import time
 
 
 class Logger:
@@ -26,8 +26,3 @@ class Logger:
 
     def debug(self, fmt, *args):
         self._emit(5, fmt, *args)
-
-    def timer(self, label, t0):
-        t1 = time.perf_counter()
-        self.info("    CPU time for %s: %9.3f sec", label, t1 - t0)
-        return t1

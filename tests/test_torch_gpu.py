@@ -695,7 +695,8 @@ def test_forces_and_stress_on_cuda_match_cpu(cuda, backend):
 @pytest.mark.gpu
 def test_profile_build_on_cuda_matches_cpu(cuda):
     """FFTISDF(profile_build=True) on the card: the JAX package's stage
-    keys, w_q bitwise equal to the unprofiled card build, and its J/K
+    keys from the build's spans (CUDA events; empty unprofiled), w_q
+    bitwise equal to the unprofiled card build, and its J/K
     equal to the CPU build's on the same mask (1e-10 relative; raw w_q is
     noise-limited in the fit's near-null directions)."""
     from fftisdf_tpu_torch.isdf import FFTISDF
@@ -707,13 +708,55 @@ def test_profile_build_on_cuda_matches_cpu(cuda):
                    **kw).build(mask=plain.mask)
     plain = FFTISDF(cell, kpts, device=cuda, **kw).build(mask=plain.mask)
     assert list(prof._stage_s) == ["factors", "sweep", "spectral", "gram"]
+    assert plain._stage_s == {}
     assert torch.equal(prof.wq, plain.wq)
+    assert all(v > 0 for v in prof._stage_s.values())
     assert 0 < sum(prof._stage_s.values()) <= prof.timings["metric_s"]
     cpu = FFTISDF(cell, kpts, device="cpu", **kw).build(mask=plain.mask)
     dm = np.stack([np.eye(cell.nao_nr(), dtype=complex)] * len(kpts))
     for v, vc in zip(prof.get_jk(dm), cpu.get_jk(dm)):
         d = float((v.cpu() - vc).abs().max())
         assert d <= 1e-10 * float(vc.abs().max())
+
+
+@pytest.mark.gpu
+def test_spans_hold_their_kernels_on_cuda(cuda):
+    """The recorder's host clock against the profiler's device clock: every
+    K1 kernel of a recorded diamond build runs inside the ``isdf.select``
+    span's host interval, within 100 us; the span's CUDA events time it
+    (device seconds within its host interval).  Prints the offset of the
+    first device event from the first program span."""
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fftisdf_tpu_torch.isdf import FFTISDF
+    from fftisdf_tpu_torch.utils import profiling
+
+    cell, kpts = _diamond()
+    FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
+            device=cuda).build()                    # warm: K1 built, loaded
+    with profiling.recording(cuda):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            FFTISDF(cell, kpts, c0=10.0, m0=(9, 9, 9), verbose=0,
+                    device=cuda).build()
+            torch.cuda.synchronize(cuda)
+        rec = profiling.drain()
+    dev = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation()]
+    sel = [s for s in rec["spans"] if s["name"] == "isdf.select"]
+    k1 = [d for d in dev if "pair_gram_" in d[0]]
+    assert len(sel) == 1 and len(k1) == 1 and dev
+    s0, s1 = sel[0]["t0_ns"], sel[0]["t1_ns"]
+    for _, k0, k1_end in k1:
+        assert s0 - 100_000 <= k0 and k1_end <= s1 + 100_000
+    assert 0 < sel[0]["device_s"] <= sel[0]["host_s"] + 1e-4
+    first = min(s["t0_ns"] for s in rec["spans"])
+    print(f"first device event {min(d[1] for d in dev) - first} ns after "
+          f"the first program span; K1 at {k1[0][1] - s0} ns into "
+          f"isdf.select ({(s1 - s0) * 1e-3:.1f} us)", file=sys.stderr)
 
 
 @pytest.mark.gpu

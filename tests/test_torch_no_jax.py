@@ -74,6 +74,7 @@ SCRIPT = textwrap.dedent("""
     vj, vk = df.get_jk(np.stack([np.eye(2, dtype=complex)] * 2))
     assert vj.shape == (2, 2, 2) and bool(vk.isfinite().all())
     assert list(df._stage_s) == ["factors", "sweep", "spectral", "gram"]
+    assert all(v > 0 for v in df._stage_s.values())
     from fftisdf_tpu_torch.basis import data
     assert data.parse_cp2k_basis("He X\\n 1\\n 1 0 0 1 1\\n 1.0 1.0\\n")
 

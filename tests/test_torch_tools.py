@@ -1,12 +1,15 @@
 """The port's tool layer against the JAX package (CPU, f64): the run
 configuration (``utils.config``), the profiling hooks
-(``utils.profiling``), the build's stage attribution
-(``FFTISDF(profile_build=True)``) and the cube export (``utils.cube``).
+(``utils.profiling``: a span's log line and a trace), the build's stage
+attribution (``FFTISDF(profile_build=True)``) and the cube export
+(``utils.cube``).  The span recorder itself is held in
+tests/test_torch_profiling.py.
 
 Tolerances: the config round trip and ``write_cube``'s text are exact
 (byte-equal to the JAX package's); the stage keys are the JAX package's
 (recorded from its profiled build in tests/data/jax_port_refs.json
-``tools``) and ``wq`` is bitwise equal with the knob on and off; the
+``tools``), filled from the build's spans (empty without the knob), and
+``wq`` is bitwise equal with the knob on and off; the
 density and orbital kernels equal the JAX package's on the same seeded AO
 tensor to 1e-12 relative; the cube cases are tests/test_cube.py's, on the
 port's own SCF of diamond gth-szv (an ISDF KRHF, c0 10, m0 9^3, where the
@@ -56,17 +59,22 @@ def test_config_roundtrip():
 
 
 def test_profiling_phase_scope_and_trace(tmp_path):
-    """tests/test_utils.py::test_profiling_phase_scope, the phase's log
-    line, and a host trace written as a Chrome trace holding the phase's
-    range; the card's trace refuses to run without CUDA."""
+    """tests/test_utils.py::test_profiling_phase_scope on the port's span
+    (the JAX package's phase): its log line where a caller passes a
+    logger, none without one, and a host trace written as a Chrome trace
+    holding the span's range; the card's trace refuses to run without
+    CUDA."""
     import io
 
     buf = io.StringIO()
     with profiling.trace(str(tmp_path), device="cpu"):
-        with profiling.phase("unit-test-phase", log=Logger(3, stream=buf)):
+        with profiling.span("unit-test-phase", log=Logger(3, stream=buf)):
             x = torch.ones(4).sum()
     assert float(x) == 4.0
     assert "wall time for unit-test-phase" in buf.getvalue()
+    with profiling.span("unit-test-phase", log=Logger(3, stream=buf)):
+        pass
+    assert buf.getvalue().count("wall time for unit-test-phase") == 2
     events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
     assert any(e.get("name") == "unit-test-phase"
                for e in events["traceEvents"])
@@ -78,20 +86,23 @@ def test_profiling_phase_scope_and_trace(tmp_path):
 
 def test_profile_build_stages_and_bitwise_wq():
     """On diamond 1x1x2: profile_build fills _stage_s with exactly the JAX
-    package's keys, their sum within the metric pass, and w_q is bitwise
-    the same with the knob on and off."""
+    package's keys from the build's spans, their sum within the metric
+    pass, an unprofiled build leaves it empty, and w_q is bitwise the
+    same with the knob on and off."""
     cell, kpts = _diamond()
     kw = dict(c0=10.0, m0=(9, 9, 9), verbose=0, device="cpu")
     plain = FFTISDF(cell, kpts, **kw).build()
     prof = FFTISDF(cell, kpts, profile_build=True, **kw).build()
     assert list(prof._stage_s) == REFS["tools"]["stage_keys"]
-    assert list(plain._stage_s) == REFS["tools"]["stage_keys"]
+    assert plain._stage_s == {}
     assert torch.equal(prof.wq, plain.wq)
     assert np.array_equal(prof.mask, plain.mask)
-    assert prof._t_select == prof.timings["select_s"] > 0
+    assert prof.timings["select_s"] > 0
+    assert all(v > 0 for v in prof._stage_s.values())
     stages = sum(prof._stage_s.values())
     assert 0 < stages <= prof.timings["metric_s"]
     assert set(prof.timings) == set(plain.timings)
+    assert profiling.drain() == {"spans": [], "counts": {}}
 
 
 def test_rho_and_mo_kernels_match_jax():
