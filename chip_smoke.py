@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K1's ptxas registers, shared memory and spills (the complex64 kernel
    must not spill), and the tensor-core instructions of each K1 kernel in
    the built library (cuobjdump -sass; the complex64 kernel must hold TF32
-   HMMA);
+   HMMA); the SCF loops' kernels (ops/csrc/scf_loops.cu) are built beside
+   them, with their build time and ptxas registers and spills;
 1. K1 against its plain PyTorch version on the card, in complex64 and
    complex128, both ``square`` values: the JAX package's Pallas test
    shapes, ragged shapes, the main-path shape (64, 3375, 26), the
@@ -62,8 +63,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    m0 15^3, through the default-device entry points with K1's count reset
    right before the build: K1 launched, nip 2480, DeviceKUHF converged
    with Ni moments of opposite sign, equal to the host KUHF on the same
-   build (3e-8 Ha); stage times, setup, warm get_jk, cycles, s/cycle and
-   peak memory.  At both shapes the device loop's parts (eigensolve,
+   build (3e-8 Ha), one ADIIS kernel launch per ``scf.adiis`` span and
+   one bisection kernel launch per cycle (counts reset before the run,
+   reported in the kernel table); stage times, setup, warm get_jk,
+   cycles, s/cycle and peak memory.  At both shapes the device loop's parts (eigensolve,
    ADIIS, CDIIS, bisection) are timed on seeded random inputs;
 7. every other way to build and serve the metric, through the
    default-device entry points: (a) the float32 regime on the slice, once
@@ -263,7 +266,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (tests/data/jax_example_outputs.json): each held to the JAX script's
    own checks and to the record at the module's GATES on the record's
    interpolation points (nio_northstar's in the host loop, the record's),
-   with its seconds, peak memory and K1 launches.
+   with its seconds, peak memory and K1 launches;
+16. the SCF cycle's fixed-trip loops (``ops.scf_loops``): the ADIIS
+   descent kernel at m = 8 (the model of a seeded random history of the
+   benchmark cell's width, one slot dead) and the bisection kernel at
+   the cell's (2, 8, 62) and the 4x4x4 production shape (2, 64, 62),
+   Fermi and Gaussian, each in float64 and float32 against its plain
+   PyTorch version on the card (1e-12 and 1e-5; the entropy, a sum over
+   every state, relative to its size), one launch a call; then
+   CUDA-event times of kernel and plain version, the medians of 5 turns.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -271,8 +282,8 @@ The line before the last holds the kernel table as JSON; the last line is
     python3 chip_smoke.py 0,1        # a subset of phases, for development:
                                      # prints no result lines; 8, 9, 10
                                      # and 13 run 4 and 6 first for their
-                                     # state; 11, 12 and 15 need no other
-                                     # phase
+                                     # state; 11, 12, 15 and 16 need no
+                                     # other phase
 """
 import gc
 import json
@@ -351,6 +362,7 @@ def phase0_environment(torch):
         f"python {sys.version.split()[0]}  devices "
         f"{torch.cuda.device_count()}")
     from fftisdf_tpu_torch import native
+    from fftisdf_tpu_torch.ops import scf_loops
     from fftisdf_tpu_torch.ops.pair_gram import LIBRARY
 
     def timed(fn):
@@ -359,14 +371,21 @@ def phase0_environment(torch):
         return out, time.perf_counter() - t0
 
     # one compiler process per source, all started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         k1 = pool.submit(timed, LIBRARY.load)
         eng = pool.submit(timed, native.load)
+        loops = pool.submit(timed, scf_loops.LIBRARY.load)
         _, k1_s = k1.result()
         lib, eng_s = eng.result()
+        _, loops_s = loops.result()
     log(f"[0] K1 build {LIBRARY.build_seconds:.2f}s (load {k1_s:.2f}s) -> "
         f"{LIBRARY.path().name}")
     _k1_build_report()
+    log(f"[0] SCF loops build {scf_loops.LIBRARY.build_seconds:.2f}s (load "
+        f"{loops_s:.2f}s) -> {scf_loops.LIBRARY.path().name}")
+    for line in scf_loops.LIBRARY.ptxas_log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling")):
+            log(f"[0] ptxas: {line.strip()}")
     if lib is None:
         raise RuntimeError("the native lattice engine did not build")
     log(f"[0] native lattice engine build+load {eng_s:.2f}s -> "
@@ -1022,9 +1041,12 @@ def _production_run(torch, tag, dtype=None):
     """The production configuration through the port's entry point,
     ``python -m fftisdf_tpu_torch.examples.nio_afm_kuhf --production``
     (``--dtype float32`` for ``dtype``): built with K1's count reset right
-    before, DeviceKUHF converged on it.  Returns (cell, kpts, df, mf,
+    before, DeviceKUHF converged on it, the SCF loops' kernel counts reset
+    before the run and held to one ADIIS launch per ``scf.adiis`` span and
+    one bisection launch per cycle.  Returns (cell, kpts, df, mf,
     figures)."""
     from fftisdf_tpu_torch.examples import nio_afm_kuhf
+    from fftisdf_tpu_torch.ops import scf_loops
     from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
 
     argv = ["--production"] + ([] if dtype is None
@@ -1035,10 +1057,14 @@ def _production_run(torch, tag, dtype=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pair_gram_sq.launches = 0
+    scf_loops.adiis_descent.launches = 0
+    scf_loops.smeared_bisect.launches = 0
     res = nio_afm_kuhf.run(_example_args(nio_afm_kuhf, argv),
                            out=_example_out(tag))
     cell, kpts, df, mf = res["cell"], res["kpts"], res["df"], res["mf"]
     fig = dict(df.timings, launches=pair_gram_sq.launches,
+               adiis_launches=scf_loops.adiis_descent.launches,
+               bisect_launches=scf_loops.smeared_bisect.launches,
                nchunks=df.nchunks, build_peak_gb=res["build_peak_gb"],
                setup_s=res["setup_s"])
     log(f"{tag} production build: nip {df.nip}, selection "
@@ -1065,6 +1091,16 @@ def _production_run(torch, tag, dtype=None):
             and mom[0] * mom[1] < 0):
         raise RuntimeError("the production DeviceKUHF did not converge to "
                            "an AFM state")
+    # ADIIS is computed in every cycle after the bias cycles
+    adiis_spans = max(0, mf.cycles - (mf.bias_cycles if mf.init_spin else 0))
+    log(f"{tag} production SCF loop kernels: ADIIS launches "
+        f"{fig['adiis_launches']} ({adiis_spans} scf.adiis spans), "
+        f"bisection launches {fig['bisect_launches']} ({mf.cycles} cycles)")
+    if not (fig["adiis_launches"] == adiis_spans >= 1
+            and fig["bisect_launches"] == mf.cycles):
+        raise RuntimeError("the production DeviceKUHF did not launch one "
+                           "ADIIS kernel per scf.adiis span and one "
+                           "bisection kernel per cycle")
     dm0 = mf.get_init_guess()
     df.get_jk(dm0)
     torch.cuda.synchronize()
@@ -1161,6 +1197,7 @@ def _f32_slice(torch, ctx):
 def _f32_production(torch, ctx):
     """(b) the production configuration in float32, beside phase 6b."""
     cell, _, df, mf, fig = _production_run(torch, "[7b]", torch.float32)
+    ctx["production_f32"] = fig
     if df.wq.dtype != torch.complex64:
         raise RuntimeError(f"the float32 production build is {df.wq.dtype}")
     ref = ctx.get("production_f64")
@@ -4544,6 +4581,112 @@ def phase15_examples(torch, ctx):
     return launches
 
 
+# ----------------------------------------------------------------- phase 16
+LOOPS_TOL = {"float64": 1e-12, "float32": 1e-5}
+LOOPS_M = 8                               # diis_space
+LOOPS_SHAPES = [(2, 8, 62), (2, 64, 62)]  # the cell (2x2x2), 4x4x4
+LOOPS_SIGMA = 5e-3
+
+
+def _loops_inputs(torch, dtype):
+    """Seeded inputs of both loops on the card in ``dtype``: the ADIIS
+    model (a, bb, vf) of an m = 8 history of the cell's width (slot 1
+    dead), and per shape the sorted eigenvalues, their validity (the last
+    two slots of k row 1 penalised) and half-filling targets."""
+    import numpy as np
+    from fftisdf_tpu_torch.scf import core
+
+    rng = np.random.default_rng(16)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    width = 2 * 8 * 62 * 62
+
+    def hist():
+        h = (rng.standard_normal((LOOPS_M, width))
+             + 1j * rng.standard_normal((LOOPS_M, width)))
+        return torch.from_numpy(h).to("cuda", cdt)
+
+    valid = torch.ones(LOOPS_M, dtype=torch.bool, device="cuda")
+    valid[1] = False
+    model = core.adiis_model(hist(), hist(), LOOPS_M - 1, valid)
+    spectra = {}
+    for shape in LOOPS_SHAPES:
+        e = np.sort(rng.standard_normal(shape), axis=-1)
+        ok = np.ones(shape, dtype=bool)
+        ok[:, 1, -2:] = False
+        e[:, 1, -2:] = 1e6
+        n = ok.reshape(shape[0], -1).sum(1) // 2
+        spectra[shape] = (torch.from_numpy(e).to("cuda", dtype),
+                          torch.from_numpy(ok).cuda(),
+                          (float(n[0]), float(n[1] - 1)))
+    return model, spectra
+
+
+def phase16_scf_loops(torch):
+    from fftisdf_tpu_torch.ops import scf_loops
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tol = LOOPS_TOL[dname]
+        (a, bb, vf), spectra = _loops_inputs(torch, dtype)
+        n0 = scf_loops.adiis_descent.launches
+        c = scf_loops.adiis_descent(a, bb, vf)
+        torch.cuda.synchronize()
+        err = float((c - scf_loops.adiis_descent_reference(a, bb, vf))
+                    .abs().max())
+        ok = (scf_loops.adiis_descent.launches == n0 + 1 and err <= tol
+              and bool((c[vf == 0] == 0).all()))
+        log(f"[16] adiis_descent m {LOOPS_M} {dname}: max_abs_err "
+            f"{err:.3e} (tol {tol:.0e}), c {c.cpu().numpy().round(6)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("adiis_descent disagrees with its plain "
+                               f"version in {dname}")
+        fns = {"adiis kernel": lambda: scf_loops.adiis_descent(a, bb, vf),
+               "adiis plain": lambda: scf_loops.adiis_descent_reference(
+                   a, bb, vf)}
+        for shape, (e, okm, targets) in spectra.items():
+            for method in ("fermi", "gaussian"):
+                n0 = scf_loops.smeared_bisect.launches
+                got = scf_loops.smeared_bisect(e, okm, targets, LOOPS_SIGMA,
+                                               method)
+                torch.cuda.synchronize()
+                ref = scf_loops.smeared_bisect_reference(
+                    e, okm, targets, LOOPS_SIGMA, method)
+                errs = [float((x - y).abs().max()) for x, y in zip(got, ref)]
+                # the entropy sums every state: held relative to its size
+                scale = max(1.0, float(ref[1].abs().max()))
+                ok = (scf_loops.smeared_bisect.launches == n0 + 1
+                      and max(errs[0], errs[1] / scale, errs[2]) <= tol
+                      and bool((got[0][~okm] == 0).all()))
+                log(f"[16] smeared_bisect {shape} {method} {dname}: "
+                    f"max_abs_err f {errs[0]:.3e}, entropy {errs[1]:.3e} "
+                    f"(of {scale:.3f}), mu {errs[2]:.3e} (tol {tol:.0e}); mu "
+                    f"{got[2].cpu().numpy()} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError("smeared_bisect disagrees with its "
+                                       f"plain version at {shape} {method} "
+                                       f"{dname}")
+            fns[f"bisect {shape} kernel"] = (
+                lambda e=e, okm=okm, t=targets: scf_loops.smeared_bisect(
+                    e, okm, t, LOOPS_SIGMA, "fermi"))
+            fns[f"bisect {shape} plain"] = (
+                lambda e=e, okm=okm, t=targets:
+                scf_loops.smeared_bisect_reference(e, okm, t, LOOPS_SIGMA,
+                                                   "fermi"))
+        times = {name: [] for name in fns}
+        for name, t, samples in _sampled_turns(torch, fns, 5, 10):
+            times[name].append(t)
+            log(f"[16] {dname} turn: {name} {t:.4f} ms; "
+                f"{_describe_samples(samples)}")
+        ms = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+        log(f"[16] {dname} medians of 5 turns (spread): " + "; ".join(
+            f"{n} {ms[n]:.4f} ms ({min(v):.4f}-{max(v):.4f})"
+            for n, v in times.items()))
+        out[dname] = ms
+    return out
+
+
 def main():
     torch = require_cuda()
     sys.path.insert(0, str(REPO))
@@ -4622,6 +4765,7 @@ def _run(torch, run, only, t_all, ctx):
         log(f"[14] K1 launches in phase 14's sharded builds (14a, NCCL "
             f"rank 0): {mesh_launches}")
     example_launches = timed(15, phase15_examples, ctx) or 0
+    loops = timed(16, phase16_scf_loops)
     log(f"[*] phases {sorted(only) if only else 'all'} "
         f"{time.perf_counter() - t_all:.1f}s")
     if only is not None:
@@ -4641,6 +4785,18 @@ def _run(torch, run, only, t_all, ctx):
         {"name": "pair_gram_sq_f32", **common, "dtype": "complex64",
          "launches": f32_launches, **k1["complex64"]},
     ]}
+    # replace no TPU kernel (the JAX package's loops are fori_loops);
+    # launches are those of phase 6b's (7b's) production DeviceKUHF run
+    loop_src = "fftisdf_tpu_torch/ops/csrc/scf_loops.cu"
+    prod, prod32 = ctx["production_f64"], ctx["production_f32"]
+    for name, key in (("adiis_descent", "adiis"),
+                      ("smeared_bisect", "bisect")):
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": loop_src,
+            "replaces": None, "launches": prod[f"{key}_launches"],
+            "f32_launches": prod32[f"{key}_launches"],
+            "ms": {dname: {k: v for k, v in ms.items() if k.startswith(key)}
+                   for dname, ms in loops.items()}})
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -4,14 +4,16 @@ Counterpart of ``fftisdf_tpu/scf/core.py``.  Each function is written once,
 in torch, and serves both SCF loops: the device-resident loop
 (``scf.device``) calls it on the card's tensors, the host loop (``scf.hf``)
 on CPU tensors made from its numpy arrays by the wrappers at the end.
-Loops (the ADIIS descent, the chemical-potential bisection) are plain
-Python loops over tensor operations with fixed trip counts: on the card
-they queue kernels and never wait for the device.
+The two fixed-trip loops (the ADIIS descent, the chemical-potential
+bisection) live in ``ops.scf_loops``: one kernel launch each on the card,
+the plain loop of tensor ops on the CPU; neither waits for the device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fftisdf_tpu_torch.ops import scf_loops
 
 
 def _real_finfo(dtype):
@@ -57,9 +59,17 @@ def adiis_coeffs(dms, focks, ref, valid, n_steps=400):
         f(c) = 2 sum_i c_i Re<D_i - D_ref, F_ref>
              + sum_ij c_i c_j Re<D_i - D_ref, F_j - F_ref>
     over the simplex by entropic mirror descent (c <- c exp(-eta g),
-    renormalised): every iterate is feasible and dead slots are absorbing.
-    dms/focks: (m, L) flattened complex histories; ``ref`` the slot of the
-    current (D, F); valid: (m,) bool.  Returns c (m,) real."""
+    renormalised; ``ops.scf_loops.adiis_descent``): every iterate is
+    feasible and dead slots are absorbing.  dms/focks: (m, L) flattened
+    complex histories; ``ref`` the slot of the current (D, F); valid: (m,)
+    bool.  Returns c (m,) real."""
+    return scf_loops.adiis_descent(*adiis_model(dms, focks, ref, valid),
+                                   n_steps)
+
+
+def adiis_model(dms, focks, ref, valid):
+    """The ADIIS model of :func:`adiis_coeffs`, scaled to a largest entry
+    of order 1: ``(a, b + b^T, vf)``, with vf the 0/1 live-slot mask."""
     rdt = dms.real.dtype
     tiny = _real_finfo(rdt).tiny
     dd = dms - dms[ref][None, :]
@@ -72,15 +82,7 @@ def adiis_coeffs(dms, focks, ref, valid, n_steps=400):
     scale = a.abs().max() + b.abs().max() + tiny
     a = a / scale
     b = b / scale
-    bb = b + b.T
-    c = vf / vf.sum()
-    for t in range(n_steps):
-        g = (2.0 * a + bb @ c) * vf
-        g = g - (c * g).sum()                    # tangent of the simplex
-        gmax = (g.abs() * vf).max() + tiny
-        c = c * torch.exp(-(2.0 / (1.0 + 0.02 * t)) * g / gmax) * vf
-        c = c / (c.sum() + tiny)
-    return c
+    return a, b + b.T, vf
 
 
 def smeared_occ(e, ok, nelec_target, sigma, method):
@@ -88,41 +90,12 @@ def smeared_occ(e, ok, nelec_target, sigma, method):
 
     e: eigenvalues, any shape; ok: same-shape bool (False: dropped or
     padded slot, occupation exactly 0); ``sum(f)`` is bisected to
-    ``nelec_target`` in 90 steps.  Returns ``(f, entropy, mu)`` as tensors,
-    with the dimensionless entropy S of the Mermin free energy
-    E - sigma S."""
-    fin = _real_finfo(e.dtype)
-    f64 = fin.bits == 64
-    clip = 600.0 if f64 else 60.0
-    big = 1e30
-
-    def nelec(mu):
-        x = ((e - mu) / sigma).clamp(-clip, clip)
-        if method == "fermi":
-            f = 1.0 / (1.0 + torch.exp(x))
-        else:
-            f = 0.5 * torch.special.erfc(x)
-        f = torch.where(ok, f, 0.0)
-        return f.sum(), f
-
-    lo = torch.where(ok, e, big).min() - 45.0 * sigma
-    hi = torch.where(ok, e, -big).max() + 45.0 * sigma
-    for _ in range(90):
-        mu = 0.5 * (lo + hi)
-        below = nelec(mu)[0] < nelec_target
-        lo, hi = torch.where(below, mu, lo), torch.where(below, hi, mu)
-    mu = 0.5 * (lo + hi)
-    f = nelec(mu)[1]
-    if method == "fermi":
-        f_lo = 1e-300 if f64 else 1e-30
-        f_hi = (1.0 - 1e-16) if f64 else (1.0 - 1e-7)
-        fc = f.clamp(f_lo, f_hi)
-        s = -(fc * torch.log(fc) + (1.0 - fc) * torch.log1p(-fc))
-        s = torch.where(ok & (f > f_lo) & (f < f_hi), s, 0.0)
-    else:
-        x = (e - mu) / sigma
-        s = torch.where(ok, torch.exp(-x * x) / (2.0 * np.sqrt(np.pi)), 0.0)
-    return f, s.sum(), mu
+    ``nelec_target`` in 90 steps (``ops.scf_loops.smeared_bisect``).
+    Returns ``(f, entropy, mu)`` as tensors, with the dimensionless entropy
+    S of the Mermin free energy E - sigma S."""
+    f, s, mu = scf_loops.smeared_bisect(e[None], ok[None], (nelec_target,),
+                                        sigma, method)
+    return f[0], s[0], mu[0]
 
 
 def aufbau_occ(e, ok, nocc):

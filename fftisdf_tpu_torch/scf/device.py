@@ -7,9 +7,11 @@ the J/K provider's device: J/K, Fock assembly, DIIS (a ring buffer and a
 small complex solve, ADIIS by mirror descent), the batched
 canonical-orthogonalisation eigensolve, smeared or aufbau occupations
 (90-step chemical-potential bisection), the density update and the
-energy.  Each cycle fetches one small real vector (E, |ddm|, S) and
-nothing else; the batched ``torch.linalg.eigh`` also waits on the device
-once a cycle to check its result.
+energy.  The ADIIS descent and the bisection of both spins are one kernel
+launch each on the card (``ops.scf_loops``).  Each cycle fetches one
+small real vector (E, |ddm|, S) and nothing else; the batched
+``torch.linalg.eigh`` also waits on the device once a cycle to check its
+result.
 
 Scope: KUHF/KRHF with fixed or smeared occupations, the AFM on-site bias
 and linear density damping (``damp``); ``level_shift`` stays with the
@@ -40,6 +42,7 @@ import torch
 
 from fftisdf_tpu_torch.isdf import jk as jk_mod
 from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
+from fftisdf_tpu_torch.ops import scf_loops
 from fftisdf_tpu_torch.scf import core
 from fftisdf_tpu_torch.scf.hf import KUHF, _eigh_gen
 from fftisdf_tpu_torch.utils import profiling
@@ -104,20 +107,6 @@ def _diis_update(errs, focks, dms, ok, n, err, fock, dm, adiis_switch,
             use_a = (err.abs().max() > adiis_switch) & (hull.sum() >= 2)
             return torch.where(use_a, fock_a, fock_c), n, use_a
     return fock_c, n, None
-
-
-def _smeared_occ(e, ok, nocc, sigma, factor, method="fermi"):
-    """Smeared occupations of (nk, nmo) eigenvalues; slots where ``ok`` is
-    False (penalised) get occupation 0.  Returns (occupations, entropy)
-    tensors."""
-    f, s, _ = core.smeared_occ(e, ok, float(nocc * e.shape[0]), sigma,
-                               method)
-    return factor * f, factor * s
-
-
-def _fixed_occ(e, ok, nocc, factor):
-    return (factor * core.aufbau_occ(e, ok, nocc),
-            torch.zeros((), dtype=e.dtype, device=e.device))
 
 
 class DeviceKUHF(KUHF):
@@ -217,6 +206,7 @@ class DeviceKUHF(KUHF):
             has_bias = bool(self.init_spin)
             # "ADIIS taken" of a cycle that did not compute ADIIS
             no_adiis = torch.zeros((), dtype=rdt, device=dev)
+            no_entropy = torch.zeros((), dtype=rdt, device=dev)
             dm = cplx(self.get_init_guess() if dm0 is None else dm0)
 
         def step(dm, it):
@@ -240,20 +230,18 @@ class DeviceKUHF(KUHF):
                 e, c = torch.linalg.eigh(fo + torch.diag_embed(pen).to(cdt))
                 valid = e < 1.5 * bound + 0.5
             with span("scf.occ"):
-                occs, ent = [], torch.zeros((), dtype=rdt, device=dev)
-                for sp, nocc in ((0, na), (1, nb)):
-                    if sigma > 0.0:
-                        occ_s, ent_s = _smeared_occ(
-                            e[sp], valid[sp], nocc, sigma, 1.0,
-                            method=self.smearing_method)
-                    else:
-                        occ_s, ent_s = _fixed_occ(e[sp], valid[sp], nocc,
-                                                  1.0)
-                    occs.append(occ_s)
-                    ent = ent + ent_s
+                # penalised slots (valid False) get occupation 0
+                if sigma > 0.0:
+                    occ, ents, _ = scf_loops.smeared_bisect(
+                        e, valid, (na * nk, nb * nk), sigma,
+                        self.smearing_method)
+                    ent = ents.sum()
+                else:
+                    occ = torch.stack([core.aufbau_occ(e[0], valid[0], na),
+                                       core.aufbau_occ(e[1], valid[1], nb)])
+                    ent = no_entropy
             mo = xo @ c
-            dm_new = (mo * torch.stack(occs)[:, :, None, :].to(cdt)) \
-                @ mo.mH
+            dm_new = (mo * occ[:, :, None, :].to(cdt)) @ mo.mH
             if damp:
                 dm_new = (1.0 - damp) * dm_new + damp * dm
             ddm = (dm_new - dm).abs().max()
