@@ -1,0 +1,16 @@
+"""Device milliseconds per SCF cycle of the program's ``scf.jk`` span
+(the J serve, ``isdf/jk.py::get_j_kpts``; a pure functional builds no
+K) in one more served job on the run's own state, after its traced
+segment (harness/served_spans.py)."""
+from benchmark.harness import program_spans as ps
+from benchmark.harness import served_spans as ss
+
+NAME = "jk_ms.kuks_pbeu"
+
+
+def probe(ctx):
+    return ss.served_job(ctx)
+
+
+def read(run):
+    return ps.ms_per_cycle(ps.probed(run, NAME), "scf.jk")

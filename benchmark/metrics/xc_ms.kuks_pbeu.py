@@ -1,0 +1,17 @@
+"""Device milliseconds per SCF cycle of the program's ``scf.xc`` span
+(the xc pass, ``scf/xc.py::xc_pass``: the spin densities from the
+full-mesh AO tensor, PBE and its potential, the Vxc matrices) in one
+more served job on the run's own state, after its traced segment
+(harness/served_spans.py)."""
+from benchmark.harness import program_spans as ps
+from benchmark.harness import served_spans as ss
+
+NAME = "xc_ms.kuks_pbeu"
+
+
+def probe(ctx):
+    return ss.served_job(ctx)
+
+
+def read(run):
+    return ps.ms_per_cycle(ps.probed(run, NAME), "scf.xc")

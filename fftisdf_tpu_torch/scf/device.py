@@ -26,8 +26,9 @@ the host in f64 either way.
 
 Spans (``utils.profiling``, recorded only while it is on): ``scf.kernel``
 › ``scf.prepare`` (the bases, the metric, the guess), one ``scf.cycle``
-per cycle (› ``scf.jk``, ``scf.xc`` in the KS drivers, ``scf.diis`` ›
-``scf.cdiis``/``scf.adiis``, ``scf.eigh``, ``scf.occ``, ``scf.fetch``)
+per cycle (› ``scf.jk``, ``scf.xc`` and, with DFT+U, ``scf.hubbard`` in
+the KS drivers, ``scf.diis`` › ``scf.cdiis``/``scf.adiis``,
+``scf.eigh``, ``scf.occ``, ``scf.fetch``)
 and ``scf.finish`` (the host f64 recompute); the counter
 ``scf.adiis_taken`` (cycles that took ADIIS, read from the vector each
 cycle fetches anyway; the ``scf.adiis`` spans count those that computed

@@ -350,7 +350,9 @@ class _DeviceKSVeff:
             fock = fock - vk_eff
             e_elec = e_elec - 0.5 * (dm_t * vk_eff).sum().real / nk
         if shalf is not None:
-            e_u, vu = hub_mod.eu_and_vu_traced(dm, shalf, self._hub_sites)
+            with profiling.span("scf.hubbard"):
+                e_u, vu = hub_mod.eu_and_vu_traced(dm, shalf,
+                                                   self._hub_sites)
             fock = fock + vu
             e_elec = e_elec + e_u
         return fock, e_elec

@@ -30,7 +30,9 @@ against tensor constants, which split it as JAX does.
 Grid passes over Bloch AOs (densities, kinetic-energy densities, AO
 matrices of a grid potential) are in :func:`xc_pass` and its helpers,
 streamed over blocks of k-points sized from the device's free memory, so
-that no (nspin, nk, ng, nao) intermediate is ever formed.
+that no (nspin, nk, ng, nao) intermediate is ever formed; the counter
+``scf.xc_kblocks`` (``utils.profiling``, recorded only while it is on)
+adds up the blocks streamed.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from fftisdf_tpu_torch.linalg.fft import fft3, ifft3
+from fftisdf_tpu_torch.utils import profiling
 from fftisdf_tpu_torch.utils.device import free_memory_bytes
 
 # ----------------------------------------------------------------------
@@ -649,11 +652,14 @@ def vxc_matrix(ao, v, weight):
 
 def _k_blocks(ao, ntemp):
     """k-slices of ``ao`` whose ``ntemp`` (ng, nao) temporaries a k-point
-    fit into a quarter of the device's free memory."""
+    fit into a quarter of the device's free memory; their number is added
+    to the counter ``scf.xc_kblocks``."""
     nk, ng, nao = ao.shape
     per_k = max(1, ntemp * ng * nao * ao.element_size())
     kb = int(max(1, min(nk, free_memory_bytes(ao.device) // (4 * per_k))))
-    return [slice(k0, min(nk, k0 + kb)) for k0 in range(0, nk, kb)]
+    blocks = [slice(k0, min(nk, k0 + kb)) for k0 in range(0, nk, kb)]
+    profiling.count("scf.xc_kblocks", len(blocks))
+    return blocks
 
 
 def _spin_pair(x, nspin):

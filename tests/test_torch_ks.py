@@ -9,7 +9,9 @@ recorded in tests/data/jax_port_refs.json by ``tools/jax_port_refs.py ks``
 device-resident loop against the host loop on the same build for PBE
 (DeviceKRKS, which must never fetch the image-space metric), PBE0
 (DeviceKUKS), HSE06 (DeviceKRKS, the screened metric only) and LDA+U
-(DeviceKUKS), 3e-8 Ha, the gate of tests/test_ks.py; closed-shell KUKS ==
+(DeviceKUKS), 3e-8 Ha, the gate of tests/test_ks.py, each recorded by
+``utils.profiling`` (one ``scf.xc`` span a cycle, LDA+U's ``scf.hubbard``
+too, and the xc pass's ``scf.xc_kblocks`` counter); closed-shell KUKS ==
 KRKS; KRKS(xc='hf') == KRHF; band energies at a SCF mesh point equal
 to the converged eigenvalues (5e-5, tests/test_ks.py's gate) for SCAN
 and LDA+U, and their band-point Vxc and V_U matrices equal to the SCF's
@@ -28,6 +30,7 @@ from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import (KRKS, KUKS, DeviceKRKS, DeviceKUKS,
                                    integrals, xc as xc_mod)
+from fftisdf_tpu_torch.utils import profiling
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS_HF = json.loads((Path(__file__).resolve().parent / "data"
@@ -92,12 +95,23 @@ def test_device_ks_matches_host(diamond, monkeypatch, case):
     else:
         host = converged("kuks_lda_u")
         dev = DeviceKUKS(cell, kpts, df, xc="lda", hubbard=HUB, **KW)
-    e = dev.kernel()
+    with profiling.recording("cpu"):
+        e = dev.kernel()
+        rec = profiling.drain()
     assert host.converged and dev.converged
     assert abs(e - host.e_tot) < 3e-8, (e, host.e_tot)
     assert dev.dm.shape == host.dm.shape
+    names = [s["name"] for s in rec["spans"]]
+    assert names.count("scf.xc") == names.count("scf.cycle") == dev.cycles
+    assert rec["counts"]["scf.xc_kblocks"] > 0
     if case == "lda+u":
         assert dev._eu_last > 0.0
+        # the +U term of each cycle in a span of its own, inside the cycle
+        hub = [s for s in rec["spans"] if s["name"] == "scf.hubbard"]
+        assert len(hub) == dev.cycles
+        assert {s["parent"] for s in hub} == {"scf.cycle"}
+    else:
+        assert "scf.hubbard" not in names
 
 
 def test_kuks_closed_shell_and_hf_reduction(diamond):
