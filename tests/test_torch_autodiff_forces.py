@@ -31,7 +31,6 @@ from fftisdf_tpu_torch.lattice.cell import Cell, Shell
 from fftisdf_tpu_torch.linalg import solvers
 from fftisdf_tpu_torch.scf import KRHF, KUHF, integrals
 from fftisdf_tpu_torch.scf import grad as scf_grad
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).resolve().parent / "data"
                    / "jax_port_refs.json").read_text())["derivatives"]

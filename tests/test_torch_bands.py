@@ -32,7 +32,6 @@ from fftisdf_tpu_torch.pw import jk as pw_jk
 from fftisdf_tpu_torch.scf import KRHF, KUHF
 from fftisdf_tpu_torch.scf.hf import _eigh_gen
 from test_isdf_kpoint import trs_dm
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).parent / "data"
                    / "jax_port_refs.json").read_text())

@@ -29,7 +29,6 @@ from fftisdf_tpu_torch.linalg import coulomb as t_coulomb
 from fftisdf_tpu_torch.linalg import fft as t_fft
 from fftisdf_tpu_torch.linalg import pivoted_cholesky as t_pc
 from fftisdf_tpu_torch.linalg import solvers as t_solvers
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 def he2_cells():

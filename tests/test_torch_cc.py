@@ -39,7 +39,6 @@ from cc_oracle import (Oracle, _random_amps, _random_u, densities,
                        eom_spectra, hbar, left_state, t3_energy)
 from test_torch_mp2_rpa import (ISDF_KW, closed_shell_u, h2_cell, h2_state,
                                 rel, unpack, with_orbitals)
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 sys.path.insert(0, str(TESTS.parent / "tools"))

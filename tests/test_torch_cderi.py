@@ -20,7 +20,6 @@ from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.isdf import cderi as cd_mod
 from fftisdf_tpu_torch.lattice.cell import Cell
 from test_torch_omega_trunc import HE2, trs_dm
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,6 @@ from fftisdf_tpu_torch.lattice.cell import Cell, Shell
 from fftisdf_tpu_torch.scf import KRHF, KUHF, DeviceKUHF, analysis
 from fftisdf_tpu_torch.utils.serialization import load_scf, save_scf
 from test_torch_bands import he2_kw
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,6 @@ from jax_records import recorded
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.linalg import coulomb as t_coulomb
 from fftisdf_tpu_torch.linalg.fft import fft3
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 OMEGA = 0.6
 HE2 = dict(a=np.diag([5.0, 5.0, 7.0]),

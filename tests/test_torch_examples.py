@@ -39,7 +39,6 @@ import pytest
 import torch
 
 from fftisdf_tpu_torch.examples import _common
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 RECORD = json.loads((REPO / "tests" / "data"

@@ -35,7 +35,6 @@ from fftisdf_tpu_torch.linalg.pivoted_cholesky import (
     pivoted_cholesky_pairgram)
 from fftisdf_tpu_torch.pw import jk as pw_jk
 from fftisdf_tpu_torch.scf import KUHF, DeviceKUHF
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 F32 = torch.float32
 REFS = json.loads((Path(__file__).parent / "data"

@@ -30,7 +30,6 @@ from fftisdf_tpu_torch.scf.dmet import build_embedding, dmet_energy
 from fftisdf_tpu_torch.scf.fci import _MAX_ORB, fci_ground
 from cc_oracle import _jw_annihilators
 from test_torch_cc import state
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 sys.path.insert(0, str(TESTS.parent / "tools"))

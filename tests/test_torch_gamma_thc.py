@@ -39,7 +39,6 @@ from fftisdf_tpu_torch.lattice import kpoints as kpt_mod
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.linalg.solvers import whiten_basis
 from fftisdf_tpu_torch.pw import get_eri_from_ao
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).parent / "data"
                    / "jax_port_refs.json").read_text())

@@ -32,7 +32,6 @@ from fftisdf_tpu_torch.scf import elastic, eos, md, phonon
 from fftisdf_tpu_torch.scf import hessian as scf_hess
 from fftisdf_tpu_torch.scf import optimize as scf_opt
 from test_torch_autodiff_forces import REFS
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 DRV = REFS["drivers"]
 CPU = dict(verbose=0, device="cpu")

@@ -36,7 +36,6 @@ from fftisdf_tpu_torch.scf.gw import (_solve_qp, _static_correction,
                                       sigma_c_ov_space)
 from fftisdf_tpu_torch.scf.tddft import TDAOperator
 from test_torch_mp2_rpa import REFS, h2_state, unpack, with_orbitals
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 NW = 24
 

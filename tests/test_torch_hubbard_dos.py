@@ -22,7 +22,6 @@ from fftisdf_tpu.scf import dos as jax_dos
 from fftisdf_tpu.scf import hubbard as jax_hub
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import analysis, dos, hubbard as hub
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 SITES = [(np.asarray([1, 2, 4]), 0.3), (np.asarray([0, 5]), 0.15)]
 

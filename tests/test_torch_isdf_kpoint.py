@@ -29,7 +29,6 @@ from fftisdf_tpu_torch.basis.eval import eval_ao_kpts
 from fftisdf_tpu_torch.isdf import FFTISDF, jk as t_jk, kpoint as t_kp
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.utils.serialization import load_isdf_state
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 def he2_cells(asymmetric=False):

@@ -31,7 +31,6 @@ from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import (KRKS, KUKS, DeviceKRKS, DeviceKUKS,
                                    integrals, xc as xc_mod)
 from fftisdf_tpu_torch.utils import profiling
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS_HF = json.loads((Path(__file__).resolve().parent / "data"
                       / "jax_port_refs.json").read_text())

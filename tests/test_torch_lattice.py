@@ -26,7 +26,6 @@ from fftisdf_tpu_torch.lattice import kpoints, structure
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.scf import KRHF, KUHF
 from fftisdf_tpu_torch.utils.device import resolve_device
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 HE2 = dict(a=np.diag([5.0, 5.0, 7.0]),
            atom=[("He", (2.5, 2.5, 2.0)), ("He", (2.5, 2.5, 4.5))],

@@ -28,7 +28,6 @@ from fftisdf_tpu_torch.scf import KRHF, KUHF
 from fftisdf_tpu_torch.scf.hf import _build_dm
 from fftisdf_tpu_torch.scf.mp2 import kmp2, kump2
 from fftisdf_tpu_torch.scf.rpa import drpa, drpa_ov_space
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).resolve().parent / "data"
                    / "jax_port_refs.json").read_text())["many_body"]

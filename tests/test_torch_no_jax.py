@@ -128,8 +128,8 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    # two threads, as torch_test_threads gives the port's other tests: the
-    # suite's xdist workers share the machine's cores
+    # the thread budget the repo root's conftest.py gives every test
+    # process, which a child does not run: xdist workers share the cores
     env.update(OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
                MKL_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,

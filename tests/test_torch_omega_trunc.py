@@ -30,7 +30,6 @@ from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.pw import jk as pw_jk
 from fftisdf_tpu_torch.scf import KRHF, PWDF
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 OMEGA = 0.6
 HE2 = dict(a=np.diag([5.0, 5.0, 7.0]),

@@ -22,7 +22,6 @@ import torch
 from fftisdf_tpu.ops.pallas_gram import (HAVE_PALLAS, pair_gram_sq as jax_pgs,
                                          pair_gram_sq_reference as jax_ref)
 from fftisdf_tpu_torch.ops import pair_gram
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 SHAPES = [(1, 64, 5), (3, 100, 7), (2, 300, 4), (16, 96, 40)]
 TOL = {np.complex64: 2e-5, np.complex128: 1e-12}

@@ -23,7 +23,6 @@ from fftisdf_tpu_torch.isdf.kpoint import STAGE_SPANS
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import DeviceKUHF
 from fftisdf_tpu_torch.utils import profiling
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 def _job():

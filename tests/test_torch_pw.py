@@ -29,7 +29,6 @@ from fftisdf_tpu_torch.pw import eri as pw_eri, jk as pw_jk
 from fftisdf_tpu_torch.scf import KRHF, PWDF
 from fftisdf_tpu_torch.scf import integrals
 from test_torch_isdf_kpoint import he2_cells, trs_dm
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 def _rel(a, b):

@@ -35,7 +35,6 @@ from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import KUHF, core, integrals
 from fftisdf_tpu_torch.scf.analysis import atom_charges_and_moments
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 AFM = {0: +1.0, 1: -1.0}
 DATA = Path(__file__).resolve().parent / "data"

@@ -26,7 +26,6 @@ from fftisdf_tpu_torch.lattice.cell import Cell, Shell
 from fftisdf_tpu_torch.scf import KRHF, KUHF, DeviceKRHF, DeviceKUHF
 from fftisdf_tpu_torch.scf import core
 from fftisdf_tpu_torch.scf.device import orth_and_penalty
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 REFS = json.loads((Path(__file__).resolve().parent / "data"

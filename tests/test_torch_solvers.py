@@ -23,7 +23,6 @@ from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.linalg import pivoted_cholesky as t_pc
 from fftisdf_tpu_torch.linalg import solvers as t_solvers
 from fftisdf_tpu_torch.ops.pair_gram import pair_gram_sq
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 # (fftisdf_tpu.linalg exports a function of the module's name)
 jax_pc = importlib.import_module("fftisdf_tpu.linalg.pivoted_cholesky")

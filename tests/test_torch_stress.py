@@ -20,7 +20,6 @@ from fftisdf_tpu_torch.lattice.cell import Cell, Shell
 from fftisdf_tpu_torch.scf import KRHF, integrals
 from fftisdf_tpu_torch.scf import stress as scf_stress
 from test_torch_autodiff_forces import REFS, frozen_df, jax_scf
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 STRESS_CASES = [c for c in fx.CASES if c[0] not in fx.NO_STRESS]
 

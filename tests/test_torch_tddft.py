@@ -39,7 +39,6 @@ from fftisdf_tpu_torch.scf.tddft import (TDAOperator, _hvp,
                                          utda)
 from test_torch_mp2_rpa import (REFS, closed_shell_u, h2_cell, h2_state,
                                 unpack, with_orbitals)
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 
 def relmax(a, b):

@@ -34,7 +34,6 @@ from fftisdf_tpu_torch.scf import KRHF, KUHF
 from fftisdf_tpu_torch.utils import cube, profiling
 from fftisdf_tpu_torch.utils.config import ISDFConfig
 from fftisdf_tpu_torch.utils.logging import Logger
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).parent / "data"
                    / "jax_port_refs.json").read_text())

@@ -25,7 +25,6 @@ from fftisdf_tpu_torch.isdf import FFTISDF
 from fftisdf_tpu_torch.lattice.cell import Cell
 from fftisdf_tpu_torch.scf import KRHF
 from fftisdf_tpu_torch.scf import integrals
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 REFS = json.loads((Path(__file__).parent / "data"
                    / "jax_port_refs.json").read_text())

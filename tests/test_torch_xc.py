@@ -25,7 +25,6 @@ from jax_records import recorded
 from fftisdf_tpu_torch.basis.eval import make_evaluator
 from fftisdf_tpu_torch.lattice import structure
 from fftisdf_tpu_torch.scf import xc as xc_mod
-from torch_test_threads import two_torch_threads  # noqa: F401
 
 NAMES = sorted(jax_xc._FUNCTIONALS)
 HJS = {"hse06", "wpbexhse"}
